@@ -1,0 +1,95 @@
+"""Weight conversion between the JAX package's flax param trees and the
+port's ``state_dict``s.
+
+Trees are plain nested dicts of numpy arrays (what ``jax.device_get`` of a
+flax ``params`` collection gives); state dicts map names to fp32 tensors.
+Layouts:
+
+- ``Dense`` kernel ``(in, out)`` <-> ``Linear``-style ``weight`` ``(out, in)``;
+- the attention ``DenseGeneral`` qkv kernel ``(d, 3, H, Dh)`` and bias
+  ``(3, H, Dh)`` <-> one ``(3*H*Dh, d)`` weight and ``(3*H*Dh,)`` bias, the
+  ``(3, H, Dh)`` order kept;
+- ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
+- ``Embed`` ``embedding`` <-> ``weight``.
+"""
+
+import numpy as np
+import torch
+
+# flax path under block_<i> -> torch name under blocks.<i>
+_BLOCK_DENSE = {("Attention_0", "qkv"): "attn.qkv",
+                ("Attention_0", "proj"): "attn.proj",
+                ("Dense_0",): "mlp_in",
+                ("Dense_1",): "mlp_out"}
+_BLOCK_NORM = {"LayerNorm_0": "ln1", "LayerNorm_1": "ln2"}
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def transformer_params_from_flax(tree):
+    """A flax ``TransformerLM`` param tree -> the port's ``state_dict``."""
+    sd = {"embed.weight": _t(tree["embed"]["embedding"]),
+          "pos_embed.weight": _t(tree["pos_embed"]["embedding"]),
+          "ln_f.weight": _t(tree["LayerNorm_0"]["scale"]),
+          "ln_f.bias": _t(tree["LayerNorm_0"]["bias"])}
+    n_layers = sum(1 for key in tree if key.startswith("block_"))
+    for i in range(n_layers):
+        block = tree["block_%d" % i]
+        if "moe" in block:
+            raise NotImplementedError("MoE blocks are not ported yet "
+                                      "(ROADMAP.md, Queue 1, MoE)")
+        prefix = "blocks.%d." % i
+        for path, name in _BLOCK_DENSE.items():
+            dense = _get(block, path)
+            kernel = np.asarray(dense["kernel"])
+            sd[prefix + name + ".weight"] = _t(
+                kernel.reshape(kernel.shape[0], -1).T)
+            sd[prefix + name + ".bias"] = _t(np.asarray(dense["bias"]).ravel())
+        for flax_name, name in _BLOCK_NORM.items():
+            sd[prefix + name + ".weight"] = _t(block[flax_name]["scale"])
+            sd[prefix + name + ".bias"] = _t(block[flax_name]["bias"])
+    return sd
+
+
+def transformer_params_to_flax(state_dict, num_heads):
+    """The port's ``state_dict`` -> a flax ``TransformerLM`` param tree of
+    numpy arrays.  ``num_heads`` splits the fused qkv projection back into
+    ``(3, H, Dh)``."""
+    def arr(name):
+        return state_dict[name].detach().cpu().float().numpy().copy()
+
+    tree = {"embed": {"embedding": arr("embed.weight")},
+            "pos_embed": {"embedding": arr("pos_embed.weight")},
+            "LayerNorm_0": {"scale": arr("ln_f.weight"),
+                            "bias": arr("ln_f.bias")}}
+    n_layers = len({k.split(".")[1] for k in state_dict
+                    if k.startswith("blocks.")})
+    for i in range(n_layers):
+        prefix = "blocks.%d." % i
+        block = {}
+        for path, name in _BLOCK_DENSE.items():
+            weight = arr(prefix + name + ".weight").T
+            bias = arr(prefix + name + ".bias")
+            if name == "attn.qkv":
+                d_model = weight.shape[0]
+                head_dim = weight.shape[1] // (3 * num_heads)
+                weight = weight.reshape(d_model, 3, num_heads, head_dim)
+                bias = bias.reshape(3, num_heads, head_dim)
+            node = block
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = {"kernel": np.ascontiguousarray(weight),
+                              "bias": bias}
+        for flax_name, name in _BLOCK_NORM.items():
+            block[flax_name] = {"scale": arr(prefix + name + ".weight"),
+                                "bias": arr(prefix + name + ".bias")}
+        tree["block_%d" % i] = block
+    return tree

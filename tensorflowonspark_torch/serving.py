@@ -1,0 +1,319 @@
+"""Multi-tensor serving core of the port (the counterpart of
+:mod:`tensorflowonspark_tpu.serving`, registry-rebuild path).
+
+The export (:func:`~tensorflowonspark_torch.checkpoint.export_model`) names
+a registered model and its config; :class:`ModelServer` rebuilds it, loads
+the params onto the device and serves padded batches under
+``torch.inference_mode()``.  The feed and output conventions are the JAX
+package's:
+
+- inputs: ``input_mapping`` ``{column: tensor}`` with the sorted-column
+  contract; per-tensor dtype and shape coercion from the export's input
+  signature; single-input models are called positionally, multi-input
+  models by tensor-name keyword;
+- outputs: a single tensor, a tuple, or a dict of named outputs, zipped
+  into output columns by ``output_mapping`` ``{tensor: column}``.
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from tensorflowonspark_torch import checkpoint
+from tensorflowonspark_torch.device import resolve_device
+from tensorflowonspark_torch.models import get_model
+from tensorflowonspark_torch.pipeline import yield_batch
+
+logger = logging.getLogger(__name__)
+
+
+def _normalize_signature(signature):
+    """Export signatures may be ``{tensor: shape_list}`` (legacy) or
+    ``{tensor: {"shape": [...], "dtype": "float32"}}``; normalize to the
+    dict form."""
+    out = {}
+    for name, spec in (signature or {}).items():
+        if isinstance(spec, dict):
+            out[name] = {"shape": spec.get("shape"),
+                         "dtype": spec.get("dtype", "float32")}
+        else:
+            out[name] = {"shape": spec, "dtype": "float32"}
+    return out
+
+
+def bucket_ladder(max_batch):
+    """Power-of-two padded-batch ladder up to and including ``max_batch``:
+    every dispatched batch is padded up to one of these sizes.
+    ``max_batch`` itself is always the top rung."""
+    if max_batch < 1:
+        raise ValueError("max_batch must be >= 1, got %r" % (max_batch,))
+    ladder, b = [], 1
+    while b < max_batch:
+        ladder.append(b)
+        b *= 2
+    ladder.append(max_batch)
+    return tuple(ladder)
+
+
+def bucket_for(count, ladder):
+    """Smallest ladder rung holding ``count`` rows (the pad target).
+    Counts above the top rung return ``count`` unchanged."""
+    for b in ladder:
+        if count <= b:
+            return b
+    return count
+
+
+def _to_numpy(t):
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class ModelServer(object):
+    """Loads an export once and serves batched inference on ``device``
+    (default: the CUDA card; ``device="cpu"`` only when asked)."""
+
+    def __init__(self, export_dir, batch_size=128, device=None):
+        self.device = resolve_device(device)
+        state, desc = checkpoint.load_model(export_dir)
+        self.batch_size = batch_size
+        #: The padded-batch ladder every dispatch is rounded up to.
+        self.buckets = bucket_ladder(batch_size)
+        #: Distinct ladder rungs dispatched so far (the JAX server's
+        #: compile count; eager PyTorch compiles nothing, but a rung seen
+        #: first on the request path still pays its allocations).
+        self.compile_count = 0
+        self._seen_buckets = set()
+        self.descriptor = desc
+        self.signature = _normalize_signature(desc.get("input_signature"))
+        self.model = self._registry_model(state)
+        logger.info("loaded model %s from %s on %s (inputs: %s)",
+                    desc["model_name"], export_dir, self.device,
+                    sorted(self.signature) or "<unnamed>")
+
+    @property
+    def model_name(self):
+        return str(self.descriptor.get("model_name") or "default")
+
+    def _registry_model(self, state):
+        """Rebuild the model from the registry by descriptor name and load
+        the params onto the device."""
+        config = dict(self.descriptor.get("model_config") or {})
+        arch = config.pop("architecture", None) \
+            or self.descriptor["model_name"]
+        with torch.device("meta"):
+            model = get_model(arch, **config)
+        model.load_state_dict(state, assign=True)
+        return model.to(self.device).eval()
+
+    def _apply(self, inputs):
+        """Single-input models positionally, multi-input by keyword."""
+        if len(self.signature) > 1:
+            return self.model(**inputs)
+        (x,) = inputs.values()
+        return self.model(x)
+
+    # -- input assembly ---------------------------------------------------
+
+    def _feed_spec(self, input_mapping):
+        """Feed order as ``[(column, tensor), ...]``: sorted by column name
+        when a mapping is given (the sorted-column contract), else the
+        signature's sorted tensor names with no column binding."""
+        if input_mapping:
+            return sorted(input_mapping.items())
+        if self.signature:
+            return [(None, t) for t in sorted(self.signature)]
+        return [(None, None)]  # unnamed single input
+
+    def _feed_dict_single(self, rows, input_mapping, dict_rows):
+        """Single-input feed: all mapped columns (or all row fields)
+        assemble positionally into the one input tensor."""
+        tensor = next(iter(self.signature)) if self.signature else None
+        cols = sorted(input_mapping) if input_mapping else None
+        if dict_rows:
+            if cols is None:
+                if tensor and tensor in rows[0]:
+                    cols = [tensor]   # column named after the tensor
+                elif len(rows[0]) == 1:
+                    cols = [next(iter(rows[0]))]
+                else:
+                    raise ValueError(
+                        "dict rows with columns {} need an input_mapping "
+                        "naming the input column(s) (no column matches the "
+                        "signature tensor {!r})".format(
+                            sorted(rows[0]), tensor))
+            if len(cols) == 1:
+                vals = [r[cols[0]] for r in rows]
+            else:
+                vals = [[r[c] for c in cols] for r in rows]
+        else:
+            vals = rows   # positional: the whole row is the input
+        return {tensor or "_x": self._coerce(tensor, vals)}
+
+    def _coerce(self, tensor, col):
+        """Apply the signature's dtype/shape to one input column."""
+        spec = None
+        if tensor and self.signature:
+            spec = self.signature.get(tensor)
+            if spec is None:
+                raise ValueError(
+                    "tensor {!r} (from input_mapping) not in the export's "
+                    "input signature {}".format(tensor,
+                                                sorted(self.signature)))
+        dtype = np.dtype(spec["dtype"]) if spec else np.float32
+        x = np.asarray(col, dtype=dtype)
+        if spec and spec.get("shape"):
+            x = x.reshape([-1] + list(spec["shape"][1:]))
+        return x
+
+    def _feed_dict(self, rows, spec, input_mapping=None):
+        """Build ``{tensor: array}`` from a batch of rows: single-input
+        signatures assemble all columns into the one tensor; multi-input
+        signatures bind per tensor, dict rows by column name and tuple rows
+        positionally in sorted-column order."""
+        dict_rows = bool(rows) and isinstance(rows[0], dict)
+        if len(self.signature) <= 1:
+            return self._feed_dict_single(rows, input_mapping, dict_rows)
+        if not dict_rows and rows and len(rows[0]) != len(spec):
+            raise ValueError(
+                "rows have {} fields but the feed maps {} tensors {}; pass "
+                "an input_mapping selecting exactly the input columns".format(
+                    len(rows[0]), len(spec), [t for _, t in spec]))
+        feed = {}
+        for f, (column, tensor) in enumerate(spec):
+            if dict_rows:
+                if column is None:
+                    column = tensor  # unmapped: column named after tensor
+                vals = [r[column] for r in rows]
+            else:
+                vals = [r[f] for r in rows]
+            feed[tensor] = self._coerce(tensor, vals)
+        return feed
+
+    # -- prediction -------------------------------------------------------
+
+    def zero_feed(self, rows):
+        """A zero-filled feed dict with ``rows`` leading rows, shaped from
+        the export's input signature (the warmup payload); ``None`` when
+        the signature cannot shape one."""
+        if not self.signature:
+            return None
+        feed = {}
+        for tensor, spec in self.signature.items():
+            tail = list((spec.get("shape") or [None])[1:])
+            if any(d is None for d in tail):
+                return None
+            feed[tensor] = np.zeros([rows] + [int(d) for d in tail],
+                                    np.dtype(spec["dtype"]))
+        return feed
+
+    def warmup(self):
+        """Dispatch every ladder rung once, largest first, before traffic
+        arrives.  Returns the number of rungs warmed (0 when the signature
+        cannot shape a dummy feed)."""
+        warmed = 0
+        for b in reversed(self.buckets):
+            feed = self.zero_feed(b)
+            if feed is None:
+                break
+            self.predict_feed(feed, b)
+            warmed += 1
+        return warmed
+
+    def predict_feed(self, feed, count):
+        """Run one batch padded to its ladder rung on the device; returns
+        the model outputs for the first ``count`` rows as a dict of numpy
+        arrays."""
+        bucket = bucket_for(count, self.buckets)
+        if bucket > count:
+            def pad(x):
+                width = [(0, bucket - count)] + [(0, 0)] * (x.ndim - 1)
+                return np.pad(x, width)
+
+            feed = {k: pad(v) for k, v in feed.items()}
+        if bucket not in self._seen_buckets:
+            self._seen_buckets.add(bucket)
+            self.compile_count += 1
+        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                  for k, v in feed.items()}
+        with torch.inference_mode():
+            out = self._apply(inputs)
+            return {k: _to_numpy(v[:count])
+                    for k, v in _name_outputs(out).items()}
+
+    def run_rows(self, iterator, input_mapping=None, output_mapping=None):
+        """Yield one tuple of output-column values per input row (a bare
+        value for single-output models): the pipeline transform contract."""
+        spec = self._feed_spec(input_mapping)
+        for rows, count in yield_batch(iterator, self.batch_size):
+            outputs = self.predict_feed(
+                self._feed_dict(rows, spec, input_mapping), count)
+            cols = output_columns(output_mapping, outputs,
+                                  allow_unmapped_multi=False)
+            series = [outputs[t] for t, _ in cols]
+            if len(series) == 1:
+                for i in range(count):
+                    yield _pyval(series[0][i])
+            else:
+                for i in range(count):
+                    yield tuple(_pyval(s[i]) for s in series)
+
+    def run_rows_dict(self, iterator, input_mapping=None, output_mapping=None):
+        """Yield ``{column: value}`` dicts merged over dict input rows: the
+        inference-CLI contract."""
+        spec = self._feed_spec(input_mapping)
+        for rows, count in yield_batch(iterator, self.batch_size):
+            outputs = self.predict_feed(
+                self._feed_dict(rows, spec, input_mapping), count)
+            cols = output_columns(output_mapping, outputs)
+            for i in range(count):
+                out = dict(rows[i]) if isinstance(rows[i], dict) else {}
+                for tensor, column in cols:
+                    out[column] = _pyval(outputs[tensor][i])
+                yield out
+
+
+def _name_outputs(out):
+    """Normalize a model's return value to ``{tensor_name: value}``: dicts
+    pass through, tuples/lists get positional ``output_<i>`` names, a
+    single tensor becomes ``{"output": tensor}``."""
+    if isinstance(out, dict):
+        return out
+    if isinstance(out, (tuple, list)):
+        return {"output_{}".format(i): v for i, v in enumerate(out)}
+    return {"output": out}
+
+
+def output_columns(output_mapping, outputs, allow_unmapped_multi=True):
+    """Resolve ``output_mapping`` ``{tensor: column}`` against the model's
+    named outputs; returns ``[(tensor, column), ...]`` in mapping order.
+    Without a mapping: single-output models get the ``prediction`` column;
+    multi-output models one column per output tensor named after itself,
+    unless ``allow_unmapped_multi`` is False."""
+    if output_mapping:
+        if len(outputs) == 1 and len(output_mapping) == 1:
+            # a single-entry mapping binds to the sole output whatever its key
+            return [(next(iter(outputs)), next(iter(output_mapping.values())))]
+        missing = [t for t in output_mapping if t not in outputs]
+        if missing:
+            raise ValueError(
+                "output_mapping names tensors {} not among the model "
+                "outputs {}".format(missing, sorted(outputs)))
+        return list(output_mapping.items())
+    if len(outputs) == 1:
+        return [(next(iter(outputs)), "prediction")]
+    if not allow_unmapped_multi:
+        raise ValueError(
+            "this model has {} named outputs {}; set an output_mapping "
+            "{{tensor: column}} to choose/ name the output columns".format(
+                len(outputs), sorted(outputs)))
+    return [(t, t) for t in sorted(outputs)]
+
+
+def _pyval(x):
+    """ndarray cell -> plain Python value (scalars stay scalars, vectors
+    become lists)."""
+    arr = np.asarray(x)
+    return arr.item() if arr.ndim == 0 else arr.tolist()

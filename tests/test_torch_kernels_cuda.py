@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips with a reason where no CUDA card is
+present.  No jax here (the machine with the card has none), so run it with
+``--noconftest``:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+fa = importlib.import_module("tensorflowonspark_torch.ops.flash_attention")
+
+pytestmark = pytest.mark.cuda
+
+# O: fp32 kernels sum in another order than the plain einsum (1e-4 covers
+# it at |O| <= 4); bf16 outputs round to 8 mantissa bits (2e-2 covers one
+# bf16 step at |O| < 4).  L is fp32 on both sides from the same inputs.
+O_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+L_TOL = 5e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _qkv(shape, dtype, device, seed=0, fused=False):
+    """q, k, v from a numpy seed; ``fused`` makes them strided views of one
+    [B, S, 3, H, D] buffer, as the transformer's qkv projection gives."""
+    b, s, h, d = shape
+    x = np.random.default_rng(seed).standard_normal((b, s, 3, h, d))
+    t = torch.from_numpy(x.astype(np.float32)).to(device=device, dtype=dtype)
+    if fused:
+        return t.unbind(2)
+    return tuple(t[:, :, i].contiguous() for i in range(3))
+
+
+@pytest.mark.parametrize("shape,dtype,causal,fused", [
+    ((2, 256, 4, 64), torch.float32, True, False),
+    ((2, 256, 4, 64), torch.float32, False, False),
+    ((2, 256, 4, 128), torch.float32, True, False),
+    ((2, 256, 4, 128), torch.bfloat16, False, False),
+    ((1, 1024, 2, 64), torch.bfloat16, True, True),
+    ((1, 96, 2, 64), torch.float32, True, False),    # ragged last tile
+])
+def test_kernel_matches_plain(card, shape, dtype, causal, fused):
+    q, k, v = _qkv(shape, dtype, card, fused=fused)
+    scale = 1.0 / np.sqrt(shape[-1])
+    before = fa.fwd_launches
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.fwd_launches == before + 1
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, causal, scale)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert lse.shape == (shape[0] * shape[2], shape[1])
+    assert (out.float() - want_out).abs().max().item() < O_TOL[dtype]
+    assert (lse - want_lse).abs().max().item() < L_TOL
+
+
+def test_public_op_uses_kernel(card):
+    q, k, v = _qkv((2, 128, 2, 64), torch.bfloat16, card, seed=1)
+    before = fa.fwd_launches
+    with torch.inference_mode():
+        got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.fwd_launches == before + 1
+    want, _ = fa.flash_attention_plain(q, k, v, causal=True)
+    assert (got.float() - want).abs().max().item() < O_TOL[torch.bfloat16]
+
+
+def test_backward_raises(card):
+    q, k, v = (t.requires_grad_() for t in _qkv((1, 64, 1, 64),
+                                                torch.float32, card))
+    out = fa.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride"])
+def test_kernel_refuses(card, bad):
+    shape, dtype = (1, 64, 2, 64), torch.float32
+    if bad == "head_dim":
+        shape = (1, 64, 2, 32)
+    if bad == "dtype":
+        dtype = torch.float16
+    q, k, v = _qkv(shape, dtype, card)
+    if bad == "stride":
+        q = q.transpose(1, 3).contiguous().transpose(1, 3)
+    with pytest.raises(ValueError):
+        fa._flash_fwd_cuda(q, k, v, 0.125, True)
