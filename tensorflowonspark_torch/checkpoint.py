@@ -1,16 +1,25 @@
-"""Serving export of the port (the counterpart of the export half of
-:mod:`tensorflowonspark_tpu.checkpoint`).
+"""Checkpoints and the serving export of the port (the counterpart of
+:mod:`tensorflowonspark_tpu.checkpoint`, without orbax).
 
-An export is a directory holding ``export.json`` (the same descriptor keys
-as the JAX package: ``model_name``, ``model_config``, ``input_signature``)
-and ``params.pt``, the model's ``state_dict`` written by ``torch.save``.
-There is no compiled artifact: a server rebuilds the model from the
-registry by name and config.
+- :class:`CheckpointManager` — periodic, retained, atomic checkpoints of a
+  train state (any nested dict/list of tensors and numbers, or an object
+  with ``state_dict()``), with an async depth-1 writer and restore-latest.
+  Steps are laid out as ``<directory>/<step>/state.pt``, written by
+  ``torch.save`` under a temporary name and renamed into place.
+- :func:`export_model` / :func:`load_model` — the serving export: a
+  directory holding ``export.json`` (the JAX package's descriptor keys:
+  ``model_name``, ``model_config``, ``input_signature``) and
+  ``params.pt``, the model's ``state_dict``.  There is no compiled
+  artifact: a server rebuilds the model from the registry by name and
+  config.
 """
 
 import json
 import logging
 import os
+import queue as _queue
+import shutil
+import threading
 
 import torch
 
@@ -18,6 +27,14 @@ logger = logging.getLogger(__name__)
 
 _DESCRIPTOR = "export.json"
 _PARAMS_FILE = "params.pt"
+_STATE_FILE = "state.pt"
+
+#: async ``maybe_save`` toggle (default on): "0"/"off" forces synchronous
+#: saves, as in the JAX package.
+ASYNC_CKPT_ENV = "TFOS_ASYNC_CKPT"
+
+#: how long :meth:`CheckpointManager.close` waits for the async worker
+_CLOSE_JOIN_SECS = 120.0
 
 
 def _fs_path(path):
@@ -27,6 +44,227 @@ def _fs_path(path):
     elif path.startswith("file:"):
         path = path[len("file:"):]
     return os.path.abspath(path)
+
+
+def _map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to every tensor; dicts, lists and tuples
+    are rebuilt, other leaves kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def _cuda_device(tree):
+    """The device of the first CUDA tensor in ``tree``, or None."""
+    found = []
+    _map_tensors(tree, lambda t: found.append(t.device)
+                 if t.is_cuda else None)
+    return found[0] if found else None
+
+
+class CheckpointManager(object):
+    """Periodic checkpointing of a train state.
+
+    Args:
+      directory: checkpoint root; step ``s`` lands in ``<directory>/<s>/``.
+      save_interval_steps: save when a multiple of this was crossed since
+        the last save (0 = only ``force=True`` saves).
+      max_to_keep: retained checkpoints; older step directories are
+        removed after each save (None or 0 keeps all).
+      async_save: ``True`` (the default; ``None`` reads
+        ``TFOS_ASYNC_CKPT``) makes :meth:`maybe_save` return once the state
+        is snapshotted to fresh copies on its device and handed to a
+        worker thread, which copies them to the host on a side CUDA stream
+        and writes them while the next steps run.  The snapshot makes the
+        save safe against the optimizer updating the params in place.  A
+        depth-1 queue is the backpressure (one save queued, one in
+        flight); a worker error surfaces on the next :meth:`maybe_save` or
+        :meth:`wait_until_finished`.  Every read path drains pending saves
+        first.  ``False`` saves synchronously.
+    """
+
+    def __init__(self, directory, save_interval_steps=100, max_to_keep=3,
+                 async_save=None):
+        self.directory = _fs_path(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.save_interval_steps = save_interval_steps
+        self.max_to_keep = max_to_keep
+        if async_save is None:
+            async_save = os.environ.get(ASYNC_CKPT_ENV, "1").lower() not in (
+                "0", "off", "false", "")
+        self.async_save = bool(async_save)
+        self._save_queue = _queue.Queue(maxsize=1)
+        self._save_thread = None      # started lazily on first async save
+        self._save_error = None       # worker exception, re-raised at a sync
+        self._last_requested = None   # newest step handed to the worker
+        self._copy_stream = None      # side stream of the device-to-host copy
+
+    def _saved_steps(self):
+        return sorted(int(name) for name in os.listdir(self.directory)
+                      if name.isdigit()
+                      and os.path.isdir(os.path.join(self.directory, name)))
+
+    def _latest_saved(self):
+        steps = self._saved_steps()
+        return steps[-1] if steps else None
+
+    def _latest_effective(self):
+        """Newest step saved OR handed to the async worker: the save gate
+        must count requested steps, or it would queue one boundary
+        twice while its save is in flight."""
+        latest = self._latest_saved()
+        if self._last_requested is not None and (
+                latest is None or self._last_requested > latest):
+            return self._last_requested
+        return latest
+
+    def maybe_save(self, step, state, force=False):
+        """Save if an interval boundary was CROSSED since the last save;
+        returns True if a save landed (sync) or was accepted (async).
+
+        Boundary crossing, not ``step % interval == 0``: a caller that
+        reports steps at a stride, or from a restored offset, still saves
+        once per interval."""
+        self._raise_pending_error()
+        if not force:
+            if not self.save_interval_steps:
+                return False  # interval 0: explicit (force=True) saves only
+            last = self._latest_effective() or 0
+            if (step // self.save_interval_steps
+                    <= last // self.save_interval_steps):
+                return False
+        if step == self._latest_effective():
+            return False  # already saved (e.g. final force after interval hit)
+        if hasattr(state, "state_dict"):
+            state = state.state_dict()
+        if self.async_save:
+            state = _map_tensors(state, lambda t: t.detach().clone())
+        ready = None
+        if _cuda_device(state) is not None:
+            ready = torch.cuda.Event()   # the side-stream copy waits for it
+            ready.record()
+        if not self.async_save:
+            self._write(step, state, ready)
+            return True
+        self._ensure_worker()
+        # blocking put: with one save in flight and one queued, a third
+        # request waits here instead of stacking snapshots
+        self._save_queue.put((step, state, ready))
+        self._last_requested = step
+        return True
+
+    def _write(self, step, state, ready):
+        """Copy ``state`` to the host (on the side stream, after the
+        ``ready`` event of its snapshot), write it under a temporary name,
+        rename it into place and apply retention."""
+        device = _cuda_device(state)
+        if device is not None:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=device)
+            # into pinned host memory (non_blocking), which PyTorch's host
+            # allocator caches for the next save: a copy to pageable memory
+            # goes through CUDA's pageable staging buffers and holds the step
+            # loop back while it runs (PERF.md)
+            with torch.cuda.stream(self._copy_stream):
+                if ready is not None:
+                    self._copy_stream.wait_event(ready)
+                state = _map_tensors(
+                    state, lambda t: t.to("cpu", non_blocking=True))
+            self._copy_stream.synchronize()
+        final = os.path.join(self.directory, str(step))
+        tmp = "{}.tmp{}".format(final, os.getpid())
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(state, os.path.join(tmp, _STATE_FILE))
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        logger.info("checkpointed step %d to %s", step, self.directory)
+        if self.max_to_keep:
+            for old in self._saved_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)),
+                              ignore_errors=True)
+
+    # -- async save machinery ---------------------------------------------
+
+    def _raise_pending_error(self):
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            # re-derive the request watermark from what actually landed,
+            # so a retry after the failure can save the same step again
+            self._last_requested = self._latest_saved()
+            raise err
+
+    def _ensure_worker(self):
+        if self._save_thread is not None and self._save_thread.is_alive():
+            return
+        t = threading.Thread(target=self._save_worker, name="ckpt-async-save",
+                             daemon=True)
+        self._save_thread = t
+        t.start()
+
+    def _save_worker(self):
+        while True:
+            item = self._save_queue.get()
+            try:
+                if item is None:
+                    return
+                self._write(*item)
+            except Exception as e:  # surfaced at the next sync point
+                logger.exception("async checkpoint save of step %s failed",
+                                 item[0])
+                self._save_error = e
+            finally:
+                self._save_queue.task_done()
+
+    def _drain_pending(self):
+        """Block until every queued async save has been written."""
+        if self._save_thread is not None and self._save_thread.is_alive():
+            self._save_queue.join()
+
+    # -- read paths -------------------------------------------------------
+
+    def restore_latest(self, map_location="cpu"):
+        """The newest checkpoint as ``(state, step)``, its tensors on
+        ``map_location``; ``(None, None)`` when there is none."""
+        self._drain_pending()
+        step = self._latest_saved()
+        if step is None:
+            return None, None
+        state = torch.load(
+            os.path.join(self.directory, str(step), _STATE_FILE),
+            map_location=map_location, weights_only=True)
+        logger.info("restored checkpoint step %d from %s", step,
+                    self.directory)
+        return state, step
+
+    def latest_step(self):
+        """Newest saved step, or None; pending async saves are flushed
+        first, so it includes every accepted :meth:`maybe_save`."""
+        self._drain_pending()
+        return self._latest_saved()
+
+    def wait_until_finished(self):
+        """Barrier: every accepted save is on storage when this returns,
+        and a failed async save raises here instead of vanishing."""
+        self._drain_pending()
+        self._raise_pending_error()
+
+    def close(self):
+        """Flush pending saves and stop the worker.  Never raises for a
+        failed in-flight save (close runs on unwind paths); the worker
+        logged it."""
+        if self._save_thread is not None and self._save_thread.is_alive():
+            self._save_queue.join()
+            self._save_queue.put(None)  # shutdown sentinel
+            self._save_thread.join(timeout=_CLOSE_JOIN_SECS)
+            if self._save_thread.is_alive():  # pragma: no cover - wedged fs
+                logger.error("async checkpoint worker did not exit within "
+                             "%.0fs; abandoning it", _CLOSE_JOIN_SECS)
 
 
 def _nonfinite_leaves(state_dict):

@@ -17,6 +17,12 @@ The same model as the flax one, with its numerics:
 (:mod:`tensorflowonspark_torch.ops.flash_attention`).  Both read the same
 weights, as in the JAX package.  :mod:`~tensorflowonspark_torch.convert`
 maps a flax param tree onto this module's ``state_dict`` and back.
+:func:`loss_fn` is the next-token loss the Trainer takes.
+
+One numeric difference from flax in bf16: flax ``nn.Embed`` casts the
+table to bf16 before the gather, so its embedding gradient is scatter-added
+in bf16; :class:`Embed` here gathers from the fp32 table and casts after,
+so the same forward values get an fp32 scatter-add (ROADMAP.md, Queue 3).
 """
 
 import math
@@ -165,8 +171,9 @@ class TransformerLM(nn.Module):
         super().__init__()
         if remat:
             raise NotImplementedError(
-                "remat trades compute for activation memory in training; "
-                "it comes with the training slice (ROADMAP.md, Queue 1)")
+                "remat (recompute each block's activations in the "
+                "backward) is not ported yet (ROADMAP.md, Queue 1, the "
+                "module queue: remat)")
         dtype = _torch_dtype(dtype)
         self.dtype = dtype
         d_model = num_heads * head_dim
@@ -211,3 +218,33 @@ def build_transformer(vocab_size=32000, num_layers=4, num_heads=8,
                          capacity_factor=capacity_factor, ep_mode=ep_mode,
                          mesh=mesh, ep_batch_axes=ep_batch_axes,
                          remat=remat, dtype=dtype)
+
+
+def loss_fn(model, moe_aux_weight=0.01):
+    """Next-token cross-entropy with per-row masking, as
+    ``fn(params, batch, mask) -> (loss, aux)`` over a name->tensor dict of
+    ``model``'s params (applied with ``torch.func.functional_call``).
+
+    The model is applied to the full sequence; targets are the tokens
+    rolled by -1 and the last position, which has no target, is masked
+    out.  The cross entropy is taken on the fp32 logits, averaged over
+    positions per row, then over rows weighted by ``mask`` (divided by
+    ``max(mask.sum(), 1)``).  ``moe_aux_weight`` is kept for the JAX
+    signature: MoE blocks are not ported, so ``aux`` is empty."""
+    del moe_aux_weight
+
+    def loss(params, batch, mask):
+        tokens = batch["tokens"].long()
+        logits = torch.func.functional_call(model, params, (tokens,))
+        batch_size, seq = tokens.shape
+        targets = torch.roll(tokens, -1, dims=1)
+        ce = F.cross_entropy(logits.float().reshape(batch_size * seq, -1),
+                             targets.reshape(-1), reduction="none")
+        pos_mask = torch.ones(seq, device=logits.device)
+        pos_mask[-1] = 0.0
+        ce = (ce.reshape(batch_size, seq) * pos_mask).sum(-1) / pos_mask.sum()
+        mask = mask.to(ce.dtype)
+        ce = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+        return ce, {}
+
+    return loss

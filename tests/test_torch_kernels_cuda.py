@@ -76,12 +76,66 @@ def test_public_op_uses_kernel(card):
     assert (got.float() - want).abs().max().item() < O_TOL[torch.bfloat16]
 
 
-def test_backward_raises(card):
-    q, k, v = (t.requires_grad_() for t in _qkv((1, 64, 1, 64),
-                                                torch.float32, card))
-    out = fa.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+# dQ, dK, dV: each is a sum over up to S products whose terms reach a few
+# units; fp32 kernels sum in another order than the plain einsums (1e-4 of
+# the largest gradient covers it), bf16 gradients round to 8 mantissa bits
+# (1e-2 of the largest is about two bf16 steps).  delta is fp32 on both
+# sides from the same O and dO.
+G_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("shape,dtype,causal,fused", [
+    ((2, 256, 4, 64), torch.float32, True, False),
+    ((2, 256, 4, 64), torch.float32, False, False),
+    ((2, 256, 4, 128), torch.bfloat16, True, False),
+    ((2, 256, 4, 128), torch.float32, False, False),
+    ((1, 1024, 2, 64), torch.bfloat16, True, True),
+    ((1, 96, 2, 64), torch.float32, True, False),    # ragged last tile
+])
+def test_backward_kernels_match_plain(card, shape, dtype, causal, fused):
+    q, k, v = _qkv(shape, dtype, card, fused=fused)
+    (g,) = _qkv(shape, dtype, card, seed=1)[:1]
+    scale = 1.0 / np.sqrt(shape[-1])
+    out, lse = fa._flash_fwd_cuda(q, k, v, scale, causal)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    dq, delta = fa._flash_bwd_dq_cuda(q, k, v, out, lse, g, scale, causal)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    want_dq, want_delta = fa.flash_bwd_dq_plain(q, k, v, out, lse, g, causal,
+                                                scale)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, g, lse, want_delta,
+                                              causal, scale)
+    assert (delta - want_delta).abs().max().item() <= 1e-4 * max(
+        want_delta.abs().max().item(), 1.0)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == q.shape
+        limit = G_TOL[dtype] * want.abs().max().item()
+        assert (got.float() - want).abs().max().item() <= limit
+
+
+def test_autograd_uses_backward_kernels(card):
+    """The public op's backward launches both kernels once and gives the
+    plain version's gradients, through a fused qkv buffer."""
+    shape = (2, 128, 2, 64)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (shape[0], shape[1], 3) + shape[2:]).astype(np.float32)).to(card)
+    w = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        shape).astype(np.float32)).to(card)
+    qkv = x.clone().requires_grad_()
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    out = fa.flash_attention(*qkv.unbind(2), causal=True)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    q, k, v = x.unbind(2)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    want = torch.stack(fa.flash_attention_bwd_plain(q, k, v, o, lse, w,
+                                                    True), dim=2)
+    limit = G_TOL[torch.float32] * want.abs().max().item()
+    assert (qkv.grad - want).abs().max().item() <= limit
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride"])

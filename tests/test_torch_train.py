@@ -1,0 +1,299 @@
+"""The port's training path against the JAX package's: the LM loss, three
+Trainer steps from converted weights under Adam and SGD with momentum,
+``fit_feed``, resume from a checkpoint and the step-FLOP count.  Inputs
+come from numpy seeds and reach both sides as numpy.
+``tests/test_torch_checkpoint.py`` holds the metrics recorder and the
+checkpoint manager."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from tensorflowonspark_tpu import train as jax_train
+from tensorflowonspark_tpu.models import transformer as jax_transformer
+from tensorflowonspark_tpu.parallel import batch_sharding, build_mesh
+from tensorflowonspark_torch import checkpoint, convert, train
+from tensorflowonspark_torch.models import transformer
+
+# batch 8: the 8-device CPU mesh of tests/conftest.py shards it one row per
+# device on the JAX side
+CFG = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=16,
+           max_seq_len=32)
+SEQ, BATCH = 32, 8
+# fp32 on both sides; the frameworks sum matmuls and the cross entropy in
+# another order: 1e-5 relative on the loss
+LOSS_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these shapes run as fast on one, and the suite's
+    parallel workers share the machine's cores with timing-sensitive tests."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    """An initialised flax param tree as numpy, every leaf perturbed so that
+    zero biases and unit LayerNorm scales are exercised too."""
+    model = jax_transformer.build_transformer(**CFG, attention="full")
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, SEQ), jnp.int32))["params"]
+    rng = np.random.default_rng(0)
+    return jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + 0.05 * rng.standard_normal(np.shape(x))
+                   ).astype(np.float32), params)
+
+
+def _tokens(seed, batch=BATCH):
+    """The JAX LM example's learnable n-gram stream: rows of consecutive
+    tokens from random offsets."""
+    offs = np.random.default_rng(seed).integers(0, CFG["vocab_size"],
+                                                (batch, 1))
+    return ((np.arange(SEQ)[None] + offs) % CFG["vocab_size"]).astype(np.int32)
+
+
+def _torch_model(attention="flash", dtype="float32"):
+    return transformer.build_transformer(**CFG, attention=attention,
+                                         dtype=dtype)
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for key, val in tree.items():
+            out.update(_flat(val, prefix + (key,)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+@pytest.mark.parametrize("attention", ["full", "flash"])
+def test_loss_matches_jax(flax_params, attention):
+    jax_model = jax_transformer.build_transformer(**CFG, attention=attention)
+    tokens = _tokens(1)
+    mask = np.array([1, 0, 1, 1, 0, 1, 1, 1], np.float32)   # rows zeroed
+    want, _ = jax.jit(jax_transformer.loss_fn(jax_model))(
+        flax_params, {"tokens": jnp.asarray(tokens)}, jnp.asarray(mask))
+    params = convert.transformer_params_from_flax(flax_params)
+    loss = transformer.loss_fn(_torch_model(attention))
+    got, aux = loss(params, {"tokens": torch.from_numpy(tokens)},
+                    torch.from_numpy(mask))
+    assert aux == {} and got.dtype == torch.float32
+    np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL)
+    # all rows masked: the mask-weighted mean divides by max(sum, 1)
+    zero, _ = loss(params, {"tokens": torch.from_numpy(tokens)},
+                   torch.zeros(BATCH))
+    assert zero.item() == 0.0
+
+
+# after 3 steps: fp32 gradients agree to about 1e-6 relative, and both
+# optimizers turn that into parameter differences far inside 1e-5.  One
+# exception: the key bias of the qkv projection has a gradient that is zero
+# in exact arithmetic (adding a constant to every key's score leaves each
+# softmax row unchanged), so both frameworks compute rounding noise there,
+# and Adam, which divides by the gradient's own scale, turns noise of either
+# sign into steps of up to about lr.  That slice is held to 3 steps x lr x 2.
+OPTIMIZERS = {
+    "adam": (lambda: optax.adam(1e-3),
+             functools.partial(torch.optim.Adam, lr=1e-3), 1e-5, 6e-3),
+    "sgd_momentum": (lambda: optax.sgd(0.1, momentum=0.9),
+                     functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9),
+                     1e-5, 1e-5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_three_steps_match_jax_trainer(flax_params, name):
+    make_optax, make_torch, param_atol, key_bias_atol = OPTIMIZERS[name]
+    mesh = build_mesh()
+    jax_model = jax_transformer.build_transformer(**CFG, attention="flash")
+    # step_flops_override: skips the JAX Trainer's cost-analysis compile,
+    # a second compile of the step this test does not need
+    jax_tr = jax_train.Trainer(jax_transformer.loss_fn(jax_model),
+                               flax_params, make_optax(), mesh=mesh,
+                               batch_size=BATCH, step_flops_override=1)
+    tr = train.Trainer(transformer.loss_fn(_torch_model("flash")),
+                       convert.transformer_params_from_flax(flax_params),
+                       make_torch, batch_size=BATCH, device="cpu")
+    for seed in range(3):
+        tokens = _tokens(10 + seed)
+        want, _ = jax_tr.step(
+            {"tokens": jax.device_put(tokens, batch_sharding(mesh, 1))},
+            jax.device_put(np.ones(BATCH, np.float32), batch_sharding(mesh)))
+        got, _ = tr.step({"tokens": tokens})
+        np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL)
+    assert tr.state.step == int(jax_tr.state.step) == 3
+    want = _flat(jax.device_get(jax_tr.state.params))
+    got = _flat(convert.transformer_params_to_flax(tr.state.params,
+                                                   CFG["num_heads"]))
+    assert sorted(got) == sorted(want)
+    for path, arr in want.items():
+        if path[1:] == ("Attention_0", "qkv", "bias"):   # (3, H, Dh)
+            np.testing.assert_allclose(got[path][1], arr[1], rtol=0,
+                                       atol=key_bias_atol, err_msg=str(path))
+            got[path], arr = got[path][::2], arr[::2]     # q and v biases
+        np.testing.assert_allclose(got[path], arr, rtol=0, atol=param_atol,
+                                   err_msg=str(path))
+
+
+class _Feed(object):
+    """A feed as ``fit_feed`` duck-types it: ``batches()`` of ``(batch,
+    mask)``, ``terminate()`` and ``counters_snapshot()``."""
+
+    def __init__(self, n):
+        self.n = n
+        self.yielded = 0
+        self.terminated = False
+
+    def batches(self):
+        for i in range(self.n):
+            if self.terminated:
+                return
+            self.yielded += 1
+            yield {"tokens": _tokens(100 + i)}, np.ones(BATCH, np.float32)
+
+    def terminate(self):
+        self.terminated = True
+
+    def counters_snapshot(self):
+        return {"infeed_batches": self.yielded}
+
+
+def _trainer(flax_params, **kwargs):
+    kwargs.setdefault("device", "cpu")
+    return train.Trainer(transformer.loss_fn(_torch_model()),
+                         convert.transformer_params_from_flax(flax_params),
+                         functools.partial(torch.optim.SGD, lr=0.1),
+                         batch_size=BATCH, **kwargs)
+
+
+def test_fit_feed_max_steps_hook_and_stats(flax_params):
+    tr = _trainer(flax_params, log_steps=2)
+    tr.step({"tokens": _tokens(99)})         # counts toward max_steps
+    seen, feed = [], _Feed(10)
+    stats = tr.fit_feed(feed, max_steps=5, on_steps=seen.append)
+    assert seen == [2, 3, 4, 5] and tr.state.step == 5
+    assert feed.terminated and feed.yielded == 4
+    assert stats["global_steps"] == 5 and np.isfinite(stats["loss"])
+    overlap = stats["overlap"]
+    assert overlap["dispatch_count"] == 4 and overlap["infeed_batches"] == 4
+    assert overlap["train_steps_total"] == 5
+    assert overlap["train_health_windows"] == 2      # windows at steps 2, 4
+    assert np.isfinite(overlap["train_loss_max"])
+    assert stats["megastep"]["steps_per_call"] == 1
+    # a feed that ends before max_steps ends the loop without terminate()
+    short = _Feed(2)
+    tr.fit_feed(short, max_steps=100)
+    assert tr.state.step == 7 and not short.terminated
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.fit_feed(_Feed(1), steps_per_call=4)
+
+
+@pytest.mark.parametrize("attention", ["full", "flash"])
+def test_step_flops_count_plus_extra(flax_params, attention):
+    """FlopCounterMode counts every matmul of a step (forward and
+    backward); ``extra_step_flops`` adds what it cannot see.  On CPU
+    tensors the flash plain version runs as einsums and is counted too."""
+    d = CFG["num_heads"] * CFG["head_dim"]
+    layers, vocab = CFG["num_layers"], CFG["vocab_size"]
+    dense = BATCH * SEQ * (24 * d * d * layers + 2 * d * vocab)
+    # one [B, H, S, S, D] contraction, counted at 2 FLOPs per product
+    contraction = 2 * BATCH * CFG["num_heads"] * SEQ * SEQ * CFG["head_dim"]
+    # full: QK^T and PV forward, twice each backward; flash plain: the
+    # same 2 forward, 7 backward (P and dP recomputed in each of dQ and
+    # dK/dV, then dQ, dK, dV)
+    attn = {"full": 6, "flash": 9}[attention] * contraction * layers
+    extra = 12345
+    tr = train.Trainer(
+        transformer.loss_fn(_torch_model(attention)),
+        convert.transformer_params_from_flax(flax_params),
+        functools.partial(torch.optim.SGD, lr=0.1), device="cpu",
+        extra_step_flops=extra)
+    tr.step({"tokens": _tokens(3)})
+    assert tr.history.step_flops == 3 * dense + attn + extra
+    tr.reset_history()
+    assert tr.history.step_flops == 3 * dense + attn + extra
+    override = train.Trainer(
+        transformer.loss_fn(_torch_model(attention)),
+        convert.transformer_params_from_flax(flax_params),
+        functools.partial(torch.optim.SGD, lr=0.1), device="cpu",
+        extra_step_flops=extra, step_flops_override=777)
+    assert override.compile_and_measure({"tokens": _tokens(3)}) == 777
+
+
+def test_compile_and_measure_leaves_params(flax_params):
+    tr = _trainer(flax_params, extra_step_flops=5)
+    before = {k: v.detach().clone() for k, v in tr.state.params.items()}
+    flops = tr.compile_and_measure({"tokens": _tokens(4)})
+    assert flops > 5 and tr.history.step_flops == flops
+    assert tr.state.step == 0
+    assert all(p.grad is None for p in tr.state.params.values())
+    for name, t in tr.state.params.items():
+        assert torch.equal(t, before[name]), name
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_resume_equals_continue(flax_params, tmp_path, name):
+    """Train 4 steps with a checkpoint every 2; a fresh Trainer restored
+    from step 4 takes steps 5 and 6 exactly as the original does (params
+    and optimizer state come back)."""
+    make_torch = OPTIMIZERS[name][1]
+
+    def fresh():
+        return train.Trainer(transformer.loss_fn(_torch_model()),
+                             convert.transformer_params_from_flax(flax_params),
+                             make_torch, batch_size=BATCH, device="cpu")
+
+    tr = fresh()
+    mgr = checkpoint.CheckpointManager(str(tmp_path), save_interval_steps=2)
+    tr.fit_feed(_Feed(4), on_steps=lambda s: mgr.maybe_save(s, tr.state))
+    mgr.wait_until_finished()
+    resumed = fresh()
+    assert resumed.restore_latest(mgr) == 4 and resumed.state.step == 4
+    for seed in (50, 51):
+        want, _ = tr.step({"tokens": _tokens(seed)})
+        got, _ = resumed.step({"tokens": _tokens(seed)})
+        assert got.item() == want.item()
+    for key, t in tr.state.params.items():
+        assert torch.equal(resumed.state.params[key], t), key
+    assert resumed.state.step == tr.state.step == 6
+    mgr.close()
+    assert fresh().restore_latest(
+        checkpoint.CheckpointManager(str(tmp_path / "none"))) is None
+
+
+def test_trainer_without_cpu_raises_when_no_cuda(flax_params, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _trainer(flax_params, device=None)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": object()}, {"param_sharding": "fsdp"}, {"accum_steps": 2},
+    {"aot_cache": "/nonexistent"}, {"summary_writer": object()},
+])
+def test_unported_trainer_arguments_raise(flax_params, kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _trainer(flax_params, **kwargs)
+    # the JAX defaults are accepted
+    name = next(iter(kwargs))
+    _trainer(flax_params, **{name: train._UNPORTED[name][0]})
+
+
+def test_unported_trainer_methods_raise(flax_params):
+    tr = _trainer(flax_params)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.multi_step(None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.repeat_step(None, None, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.restore_latest(None, validate=True)

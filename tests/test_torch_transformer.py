@@ -107,7 +107,7 @@ def test_init_weights_is_seeded():
     ({"attention": "ring"}, "parallelism slice"),
     ({"attention": "ulysses"}, "parallelism slice"),
     ({"mlp": "moe"}, "MoE"),
-    ({"remat": True}, "training slice"),
+    ({"remat": True}, "module queue: remat"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
