@@ -5,10 +5,13 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``tensorflowonspark_torch/csrc/``, holds each kernel against its plain
-PyTorch version at the shapes the serving and training paths give it and
-times both (and one PyTorch library call as a yardstick), then drives the
-flagship transformer LM (vocab 32000, 8 layers, 16 heads x 64, 1024 tokens,
-bf16, ``attention="flash"``, random weights from a seed) along both paths:
+PyTorch version at the shapes the serving and training paths give it (and
+at head_dim 32, 64 and 128, fp32 and bf16) and times both (and one PyTorch
+library call as a yardstick); each row names the variant that ran, its
+product path (``wgmma`` on the tensor cores or ``fma``) and its ptxas
+registers.  Then it drives the flagship transformer LM (vocab 32000, 8
+layers, 16 heads x 64, 1024 tokens, bf16, ``attention="flash"``, random
+weights from a seed) along both paths:
 
 - serve: ``serving.ModelServer`` answers requests; every attention went
   through the forward kernel and the logits agree with the same weights
@@ -28,6 +31,7 @@ one card; without CUDA, or without the package beside it, it fails.
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,6 +99,9 @@ FLASH_CASES = [
     ((2, 256, 4, 64), "float32", False, False),
     ((2, 256, 4, 128), "bfloat16", True, False),
     ((2, 256, 4, 128), "float32", False, False),
+    ((2, 256, 4, 32), "bfloat16", True, False),   # head_dim 32: wgmma
+    ((2, 256, 4, 32), "float32", False, False),   # head_dim 32: padded to 64
+    ((1, 96, 2, 64), "bfloat16", True, False),    # ragged last tile
 ]
 # the backward kernels: the training shape first
 BWD_CASES = [
@@ -104,6 +111,9 @@ BWD_CASES = [
     ((2, 256, 4, 128), "bfloat16", True, False),
     ((2, 256, 4, 128), "float32", False, False),
     ((1, 96, 2, 64), "float32", True, False),     # ragged last tile
+    ((2, 256, 4, 32), "bfloat16", True, False),   # head_dim 32
+    ((2, 256, 4, 32), "float32", True, False),
+    ((1, 96, 2, 64), "bfloat16", True, False),    # ragged, tensor cores
 ]
 
 
@@ -126,6 +136,17 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def warm_clocks(torch, seconds=1.0):
+    """Keep the card busy with bf16 matmuls for about ``seconds``, so that
+    its clocks have risen before the first kernel is timed."""
+    a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+
+
 def phase_device(torch, device):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,19 +160,53 @@ def phase_device(torch, device):
     return info
 
 
+def ptxas_usage(log):
+    """``{entry function: {"registers", "spill_stores"}}`` from a build's
+    ``-Xptxas -v`` output."""
+    usage, entry = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            entry = found.group(1)
+            usage[entry] = {}
+        elif entry and "spill stores" in line:
+            usage[entry]["spill_stores"] = int(
+                re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif entry and "registers" in line:
+            usage[entry]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return usage
+
+
 def phase_build(build):
     t0 = time.perf_counter()
     results = build.build()
-    # each variant's entry-function line, then its registers and spills
-    ptxas = {name: [line.strip() for line in r["log"].splitlines()
-                    if "Compiling entry function" in line
-                    or "registers" in line or "spill" in line]
-             for name, r in results.items()}
+    usage = {}
+    for r in results.values():
+        usage.update(ptxas_usage(r["log"]))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": r["seconds"], "cached": r["cached"]}
                       for n, r in results.items()},
-          "ptxas": ptxas})
-    return results
+          "ptxas": usage})
+    return usage
+
+
+def variant(torch, fa, usage, kernel, dtype_name, head_dim):
+    """``{"product_path", "kernel_head_dim", "registers", "spill_stores"}``
+    of the kernel variant that runs ``kernel`` at this dtype and head_dim,
+    from the ptxas entries of the build (mangled names)."""
+    dtype = getattr(torch, dtype_name)
+    path = fa.product_path(kernel, dtype)
+    dim = fa.kernel_head_dim(kernel, dtype, head_dim)
+    symbol = kernel + ("_sm90_kernel" if path == "wgmma" else "_kernel") + "I"
+    names = [n for n in usage if symbol in n and "Li{}E".format(dim) in n]
+    if len(names) > 1:   # the FMA kernels templated on the dtype as well
+        marker = "IfLi" if dtype_name == "float32" else "bfloat16"
+        names = [n for n in names if marker in n]
+    if len(names) != 1:
+        raise AssertionError("no single ptxas entry for {} {} D={}: {}".format(
+            kernel, dtype_name, dim, names))
+    return dict(usage[names[0]], product_path=path, kernel_head_dim=dim)
 
 
 def make_qkv(torch, shape, dtype, fused):
@@ -167,7 +222,8 @@ def make_qkv(torch, shape, dtype, fused):
     return tuple(qkv[:, :, i].contiguous() for i in range(3))
 
 
-def flash_case(torch, F, fa, metrics, kind, shape, dtype_name, causal, fused):
+def flash_case(torch, F, fa, metrics, kind, usage, shape, dtype_name, causal,
+               fused):
     """Check one flash_fwd case against the plain version; time kernel,
     plain and the library call; compute the roofline bound."""
     b, s, h, d = shape
@@ -204,6 +260,7 @@ def flash_case(torch, F, fa, metrics, kind, shape, dtype_name, causal, fused):
                                                  dtype_name),
            "flops": flops, "bytes": nbytes,
            "bound_share": bound_ms / kernel_ms}
+    row.update(variant(torch, fa, usage, "flash_fwd", dtype_name, d))
     emit(row)
     if not ok:
         raise AssertionError("flash_fwd disagrees with its plain version: "
@@ -211,7 +268,8 @@ def flash_case(torch, F, fa, metrics, kind, shape, dtype_name, causal, fused):
     return row
 
 
-def bwd_case(torch, F, fa, metrics, kind, shape, dtype_name, causal, fused):
+def bwd_case(torch, F, fa, metrics, kind, usage, shape, dtype_name, causal,
+             fused):
     """Check the two backward kernels against their plain versions on one
     case; time kernels, plain versions and the library backward; compute
     each kernel's roofline bound."""
@@ -295,7 +353,8 @@ def bwd_case(torch, F, fa, metrics, kind, shape, dtype_name, causal, fused):
             "bound_by": metrics.roofline_bound_by(flops, nbytes, kind,
                                                   dtype_name),
             "flops": flops, "bytes": nbytes,
-            "bound_share": bound_ms / kernel_ms})
+            "bound_share": bound_ms / kernel_ms,
+            **variant(torch, fa, usage, name, dtype_name, d)})
     rows[0].update({"max_abs_err_delta": err_delta,
                     "tol_delta": limit_delta})
     for row in rows:
@@ -419,9 +478,9 @@ def time_steps(torch, trainer, feed, n, first=None):
 # lowercased kernel-name fragments -> the group a step's device time is
 # reported under (first match wins)
 KERNEL_GROUPS = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_fwd", ("flash_fwd_",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass", "sm90")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("softmax / cross entropy", ("softmax", "nll_loss", "cross_entropy")),
@@ -736,10 +795,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     device = phase_device(torch, device_mod)
-    phase_build(build)
-    fwd_rows = [flash_case(torch, F, fa, metrics, device["kind"], *case)
+    usage = phase_build(build)
+    warm_clocks(torch)
+    fwd_rows = [flash_case(torch, F, fa, metrics, device["kind"], usage, *case)
                 for case in FLASH_CASES]
-    bwd_rows = [bwd_case(torch, F, fa, metrics, device["kind"], *case)
+    bwd_rows = [bwd_case(torch, F, fa, metrics, device["kind"], usage, *case)
                 for case in BWD_CASES]
     serve = phase_serve(torch, np, fa)
     # the training shape: FLASH_CASES[1] and BWD_CASES[0]
@@ -767,6 +827,8 @@ def main():
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            "product_path": row["product_path"],
+            "registers": row["registers"],
             "checked_shapes": (len(fwd_rows) if name == "flash_fwd"
                                else len(bwd_rows))}
         if name == "flash_fwd":
@@ -776,7 +838,8 @@ def main():
                 k: serve_row[k] for k in ("shape", "max_abs_err_o",
                                           "kernel_ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}
+                                          "library_ms", "product_path",
+                                          "registers")}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(device["nvidia_smi"], flush=True)

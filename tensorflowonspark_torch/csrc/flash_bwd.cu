@@ -8,53 +8,65 @@
 //   recomputed from the forward's fp32 row logsumexp L (`_recompute_p`).
 //   It also computes delta = rowsum(dO o O) for its query rows (the JAX
 //   package leaves that to XLA) and writes it for the second kernel.
-// - flash_bwd_dkv_kernel <- `_bwd_dkv_kernel`:
+// - flash_bwd_dkv_sm90_kernel (bf16) and flash_bwd_dkv_kernel (fp32)
+//   <- `_bwd_dkv_kernel`:
 //     dV = sum_q P^T dO,  dK = scale * sum_q dS^T Q,  dS = P o (dO V^T - delta).
-// Gradients are written in the inputs' dtype; every sum is fp32.
+// Gradients are written in the inputs' dtype; every sum is fp32.  The dK/dV
+// entry point picks its kernel by dtype: bf16 on the tensor cores, fp32 on
+// the CUDA cores (TF32 products would miss the fp32 tolerance of 1e-4).
 //
-// Design (not a block-by-block copy of the TPU kernels):
-// - The TPU kernels carry dQ (or dK, dV) in VMEM scratch across a
-//   sequential third grid axis; CUDA blocks run in no order.  So one block
-//   per (batch*head, 64-row query tile) loops over the key tiles for dQ,
-//   and one block per (batch*head, 64-row key tile) loops over the query
-//   tiles for dK and dV, the accumulators in registers for the whole loop.
-//   FlashAttention-2's split into two kernels needs no atomics, so the
-//   gradients are the same from run to run.
-// - Causal: the dQ loop stops at the diagonal key tile, the dK/dV loop
-//   starts at the diagonal query tile; only the diagonal (and a ragged
-//   last) tile is masked.  Blocks with the longest loops are scheduled
-//   first (the last query tiles for dQ, the first key tiles for dK/dV).
-// - Tiles are staged in dynamic shared memory as fp32 (Q pre-multiplied by
-//   the scale, as the TPU kernels do), rows padded by 4 floats so the float4
-//   reads of the inner products are bank-conflict free.  The dK/dV block
-//   holds K, V, Q, dO and the P^T and dS^T tiles: 104 KB at D=64, 170 KB at
-//   D=128, above the default 48 KB, hence cudaFuncSetAttribute.
-// - 256 threads as a 16x16 grid: thread (ty, tx) owns rows 4ty..4ty+3 of
-//   its block's tile, computes 4x4 entries of S and dP (columns tx+16j),
-//   and accumulates 4 x D/16 gradient columns (4tx.. of each 64-wide slice).
-//   P and dS reach the second product through shared memory.
-// - Inputs are read through their (batch, seq, head) strides with a
-//   contiguous head_dim, so Q, K and V can be views into one fused QKV
-//   projection output and dO any such view: no copy before the launch.
+// Common design (not a block-by-block copy of the TPU kernels): the TPU
+// kernels carry dQ (or dK, dV) in VMEM scratch across a sequential third
+// grid axis; CUDA blocks run in no order.  So one block per (batch*head,
+// 64-row query tile) loops over the key tiles for dQ, and one block per
+// (batch*head, 64-row key tile) loops over the query tiles for dK and dV,
+// the accumulators in registers for the whole loop.  FlashAttention-2's
+// split into two kernels needs no atomics, so the gradients are the same
+// from run to run.  Causal: the dQ loop stops at the diagonal key tile, the
+// dK/dV loop starts at the diagonal query tile; only the diagonal (and a
+// ragged last) tile is masked; the longest loops are scheduled first.
+// Inputs are read through their (batch, seq, head) strides with a
+// contiguous head_dim, so Q, K and V can be views into one fused QKV
+// projection output and dO any such view: no copy before the launch.
 //
-// What bounds it on this card: at the training shape ([8, 1024, 16, 64],
+// What bounds them on this card: at the training shape ([8, 1024, 16, 64],
 // bf16, causal) the dQ kernel does 2.6e10 FLOP over 102 MB (q, k, v, O, dO
 // and L in; dQ and delta out), the dK/dV kernel 3.4e10 FLOP over 102 MB;
 // the H100 SXM data sheet (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM)
-// bounds them at about 30 us (by bytes) and 35 us (by operations).  These first
-// kernels do their products as fp32 FMAs on the CUDA cores (67 TFLOP/s
-// peak), so their own floor is 0.4 ms and 0.5 ms per call, and they are
-// bound by the FMA rate and shared-memory reads.  Moving the products to the
-// tensor cores (mma.sync, then wgmma with TMA-fed tiles) is the next step.
+// bounds them at about 30 us (by bytes) and 35 us (by operations).  On fp32
+// FMAs (67 TFLOP/s) their own floor is 0.4 ms and 0.5 ms per call.
+//
+// bf16 dK/dV, flash_bwd_dkv_sm90_kernel<D>, D = 32, 64, 128: one warpgroup
+// (128 threads) per key tile.  K and V are copied in once; Q and dO tiles
+// pass through a two-stage ring in shared memory (cp.async, the next tile
+// in flight while the tensor cores work on this one), L and delta of its 64
+// queries beside them.  S^T = K Q^T and dP^T = V dO^T are SS wgmmas
+// (m64n64k16) into fp32 registers; P^T = exp(scale S^T - L) and dS^T = P^T o
+// (dP^T - delta) are computed there, packed to bf16 and fed as the register
+// A operand of dV += P^T dO and dK += dS^T Q (RS wgmma m64nDk16, dO and Q as
+// MN-major B operands): no P or dS tile passes through shared memory.  dK
+// is scaled once at the end.  Helpers in flash_sm90.cuh.  ptxas (sm_90a):
+// 136 / 178 / 255 registers at D = 32 / 64 / 128, D = 128 spilling 32
+// bytes; shared memory 26 / 50 / 98 KB.
+//
+// dQ (fp32 and bf16) and fp32 dK/dV, the FMA kernels, D = 64, 128 (the
+// wrapper pads 32 to 64): tiles staged in dynamic shared memory as fp32 (Q
+// pre-multiplied by the scale), rows padded by 4 floats so the float4 reads
+// of the inner products are bank-conflict free; 256 threads as a 16x16
+// grid, thread (ty, tx) owning rows 4ty..4ty+3 of its block's tile and
+// 4 x D/16 gradient columns; P and dS reach the second product through
+// shared memory.  The dK/dV block holds 104 KB at D=64, 170 KB at D=128.
+// ptxas: dQ 128 registers at D = 64 (36-40 bytes of spill), 168 at D = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
 constexpr int kBlock = 64;  // rows of every query and key tile
 constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -374,14 +386,153 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dkv_kerne
   store_rows<T, D>(p.dv, p.dvs, b, h, k0, p.seq_len, dv, ty, tx);
 }
 
+// ---- bf16 dK/dV: the tensor-core kernel ----------------------------------
+
+template <int D>
+struct Sm90Layout {
+  using Tile = flash_sm90::Tile<D>;
+  // K, V, two stages of (Q, dO), two stages of (L, delta) for 64 queries;
+  // 1 KB of slack to align the first tile
+  static constexpr size_t kBytes = 6 * Tile::kBytes + 2 * 2 * kBlock * sizeof(float) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(flash_sm90::kThreads) flash_bwd_dkv_sm90_kernel(const Params p) {
+  namespace fs = flash_sm90;
+  using Tile = fs::Tile<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = fs::align_1024(smem_raw);
+  const uint32_t k_s = fs::smem_addr(base);
+  const uint32_t v_s = k_s + Tile::kBytes;
+  const uint32_t qdo_s = v_s + Tile::kBytes;  // stage s: Q at qdo_s + 2 s kBytes, dO after it
+  float* stat_s = reinterpret_cast<float*>(base + 6 * Tile::kBytes);  // [2][L 64, delta 64]
+
+  const int k0 = blockIdx.x * kBlock;  // causal: the first key tiles have the longest loops
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int tid = threadIdx.x;
+  const long long stat0 = static_cast<long long>(bh) * p.seq_len;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.qs.batch + h * p.qs.head;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.ks.batch + h * p.ks.head;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.vs.batch + h * p.vs.head;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.dos.batch + h * p.dos.head;
+
+  // thread t < 64 carries L of query q0 + t, thread 64 + t delta of it
+  auto load_stat = [&](int q0) {
+    const int col = q0 + (tid & (kBlock - 1));
+    if (col >= p.seq_len) return 0.f;
+    return tid < kBlock ? p.lse[stat0 + col] : p.delta[stat0 + col];
+  };
+
+  const int n_q = (p.seq_len + kBlock - 1) / kBlock;
+  const int qt0 = p.causal ? static_cast<int>(blockIdx.x) : 0;
+  fs::load_tile<D>(k_s, kp, p.ks.seq, k0, p.seq_len);
+  fs::load_tile<D>(v_s, vp, p.vs.seq, k0, p.seq_len);
+  fs::load_tile<D>(qdo_s, qp, p.qs.seq, qt0 * kBlock, p.seq_len);
+  fs::load_tile<D>(qdo_s + Tile::kBytes, dop, p.dos.seq, qt0 * kBlock, p.seq_len);
+  fs::cp_async_commit();
+  float stat_next = load_stat(qt0 * kBlock);
+
+  const float score_mul = p.scale * fs::kLog2e;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) {
+    dk[e] = 0.f;
+    dv[e] = 0.f;
+  }
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int q0 = qt * kBlock;
+    const int st = (qt - qt0) & 1;
+    stat_s[st * 2 * kBlock + tid] = stat_next;
+    fs::cp_async_wait_all();
+    fs::fence_proxy_async();
+    __syncthreads();  // tile qt and its L, delta are in; every thread is done with qt - 1
+    if (qt + 1 < n_q) {  // fill the other stage while this one is in the tensor cores
+      const uint32_t next = qdo_s + (st ^ 1) * 2 * Tile::kBytes;
+      fs::load_tile<D>(next, qp, p.qs.seq, q0 + kBlock, p.seq_len);
+      fs::load_tile<D>(next + Tile::kBytes, dop, p.dos.seq, q0 + kBlock, p.seq_len);
+      stat_next = load_stat(q0 + kBlock);
+    }
+    fs::cp_async_commit();
+    const uint32_t q_s = qdo_s + st * 2 * Tile::kBytes;
+    const uint32_t do_s = q_s + Tile::kBytes;
+    const float* lq = stat_s + st * 2 * kBlock;
+    const float* dlt = lq + kBlock;
+
+    // S^T = K Q^T and dP^T = V dO^T: SS, K = D; rows are keys, columns queries
+    float s[32], dp[32];
+    fs::fence_regs(s);
+    fs::fence_regs(dp);
+    fs::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      fs::wgmma_ss_m64n64(s, fs::desc_k_major<D>(k_s, k), fs::desc_k_major<D>(q_s, k), k > 0);
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      fs::wgmma_ss_m64n64(dp, fs::desc_k_major<D>(v_s, k), fs::desc_k_major<D>(do_s, k), k > 0);
+    fs::wgmma_commit();
+    fs::wgmma_wait_all();
+    fs::fence_regs(s);
+    fs::fence_regs(dp);
+
+    // P^T = exp(scale S^T - L), dS^T = P^T o (dP^T - delta), in fp32
+    const bool need_mask =
+        (p.causal && q0 < k0 + kBlock - 1) || q0 + kBlock > p.seq_len || k0 + kBlock > p.seq_len;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int c = fs::frag_col(e);
+      const bool keep =
+          !need_mask || fs::attended(q0 + c, k0 + fs::frag_row(e), p.seq_len, p.causal);
+      const float pv = keep ? exp2f(s[e] * score_mul - lq[c] * fs::kLog2e) : 0.f;
+      s[e] = pv;
+      dp[e] = pv * (dp[e] - dlt[c]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q: RS, bf16 A from registers, B MN-major,
+    // K = 64 queries
+    uint32_t a_p[4][4], a_ds[4][4];
+    fs::to_a_fragments(s, a_p);
+    fs::to_a_fragments(dp, a_ds);
+    fs::fence_regs(dv);
+    fs::fence_regs(dk);
+    fs::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fs::wgmma_rs<D>(dv, a_p[kk], fs::desc_mn_major<D>(do_s, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fs::wgmma_rs<D>(dk, a_ds[kk], fs::desc_mn_major<D>(q_s, kk), 1);
+    fs::wgmma_commit();
+    fs::wgmma_wait_all();
+    fs::fence_regs(dv);
+    fs::fence_regs(dk);
+    fs::fence_regs(a_p);
+    fs::fence_regs(a_ds);
+  }
+
+  // the scale of dK once, at the end
+  fs::store_rows<D>(static_cast<bf16*>(p.dk) + b * p.dks.batch + h * p.dks.head, p.dks.seq, k0,
+                    p.seq_len, dk, p.scale, p.scale);
+  fs::store_rows<D>(static_cast<bf16*>(p.dv) + b * p.dvs.batch + h * p.dvs.head, p.dvs.seq, k0,
+                    p.seq_len, dv, 1.f, 1.f);
+}
+
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t stream,
+                   int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seq_len + kBlock - 1) / kBlock, p.batch * p.heads);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_sm90(const Params& p, cudaStream_t stream) {
+  return launch(flash_bwd_dkv_sm90_kernel<D>, Sm90Layout<D>::kBytes, p, stream,
+                flash_sm90::kThreads);
 }
 
 template <typename T, int D>
@@ -412,8 +563,10 @@ Strides strides_at(const long long* s, int i) { return {s[3 * i], s[3 * i + 1], 
 // their (batch, seq, head) strides given in elements, three per tensor in
 // the order of the pointer arguments.  lse, delta: contiguous fp32
 // [batch * heads, seq_len].  dtype: 0 = float32, 1 = bfloat16 (of every
-// tensor but lse and delta).  head_dim: 64 or 128.  Each returns the
-// cudaError_t of its launch (0 on success).
+// tensor but lse and delta).  head_dim: 64 or 128 for the FMA kernels (dQ;
+// dK/dV in float32), 32, 64 or 128 for the tensor-core kernel (dK/dV in
+// bfloat16; every base pointer and stride 16-byte aligned).  Each returns
+// the cudaError_t of its launch (0 on success).
 
 // dQ and delta.  strides: q, k, v, o, dout, dq (18 values).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
@@ -467,8 +620,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch_dkv<float, 64>(p, st);
   if (dtype == 0 && head_dim == 128) return launch_dkv<float, 128>(p, st);
-  if (dtype == 1 && head_dim == 64) return launch_dkv<__nv_bfloat16, 64>(p, st);
-  if (dtype == 1 && head_dim == 128) return launch_dkv<__nv_bfloat16, 128>(p, st);
+  if (dtype == 1 && head_dim == 32) return launch_dkv_sm90<32>(p, st);
+  if (dtype == 1 && head_dim == 64) return launch_dkv_sm90<64>(p, st);
+  if (dtype == 1 && head_dim == 128) return launch_dkv_sm90<128>(p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

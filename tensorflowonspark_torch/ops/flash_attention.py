@@ -21,6 +21,13 @@ Layout contract, as in the JAX package: ``[batch, seq, heads, dim]``; blocks
 default to 128 and are clamped to the sequence length, which must divide by
 them.  The CUDA kernels tile by 64 whatever the blocks are: they only change
 the order of summation.  Gradients come back in the inputs' dtype.
+
+On the card, the bf16 forward and the bf16 dK/dV kernel do their products
+on the tensor cores (``wgmma``, :func:`product_path`) and take head_dim 32,
+64 or 128; the fp32 kernels and the dQ kernel do theirs as fp32 FMAs and
+take 64 or 128, so the wrapper zero-pads head_dim 32 to 64 for them (exact:
+zero columns add nothing to any product or to δ) and slices the result.
+Every CUDA input needs a 16-byte aligned base pointer and strides.
 """
 
 import ctypes
@@ -38,8 +45,11 @@ fwd_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
+_FMA_HEAD_DIMS = (64, 128)   # what the FMA kernels take; 32 is padded to 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ALIGN = 16                  # bytes: the kernels' 16-byte vector copies
+_TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry points: tensor pointers, then (batch, seq, heads, head_dim), the
@@ -51,6 +61,24 @@ _ENTRY_POINTS = {
                   "flash_bwd_dkv": [_PTR] * 8 + _TAIL},
 }
 _CONFIGURED = set()
+
+
+def product_path(kernel, dtype):
+    """How the CUDA kernel ``kernel`` does its products for inputs of
+    ``dtype``: ``"wgmma"`` (Hopper's tensor cores; the bf16 forward and
+    dK/dV kernels) or ``"fma"`` (fp32 FMAs on the CUDA cores)."""
+    if kernel in _TENSOR_CORE_KERNELS and dtype == torch.bfloat16:
+        return "wgmma"
+    return "fma"
+
+
+def kernel_head_dim(kernel, dtype, head_dim):
+    """The head_dim the kernel variant runs at: head_dim 32 is padded to 64
+    for the FMA kernels."""
+    if (product_path(kernel, dtype) == "fma"
+            and head_dim not in _FMA_HEAD_DIMS):
+        return _FMA_HEAD_DIMS[0]
+    return head_dim
 
 
 def _default_scale(q, scale):
@@ -146,6 +174,14 @@ def _lib(name):
     return lib
 
 
+def _aligned(t):
+    """Whether ``t``'s base pointer and (batch, seq, head) strides are
+    multiples of 16 bytes."""
+    elt = t.element_size()
+    return t.data_ptr() % _ALIGN == 0 and all(
+        t.stride(i) * elt % _ALIGN == 0 for i in range(3))
+
+
 def _check_kernel_inputs(kernel, **tensors):
     """Raise ``ValueError`` on any ``[batch, seq, heads, dim]`` tensor the
     CUDA kernel does not take (the first one sets shape, dtype, device)."""
@@ -167,6 +203,13 @@ def _check_kernel_inputs(kernel, **tensors):
     if any(t.stride(-1) != 1 for t in tensors.values()):
         raise ValueError("{} kernel needs a contiguous head_dim (stride 1 on "
                          "the last axis)".format(kernel))
+    for name, t in tensors.items():
+        if not _aligned(t):
+            raise ValueError(
+                "{} kernel needs {} aligned to {} bytes (base pointer and "
+                "batch, seq, head strides), got pointer offset {} and "
+                "strides {}".format(kernel, name, _ALIGN,
+                                    t.data_ptr() % _ALIGN, t.stride()))
     if any(t.device.type != "cuda" or t.device != first.device
            for t in tensors.values()):
         raise ValueError("{} kernel runs on CUDA tensors of one device, got "
@@ -210,10 +253,22 @@ def _launch(lib_name, fn_name, pointers, strided, scale, causal):
             fn_name, message, err))
 
 
+def _padded_for(kernel, tensors):
+    """``(tensors, head_dim)``: the tensors padded to the head_dim the
+    kernel variant takes (as they are where no padding is needed)."""
+    head_dim = tensors[0].shape[-1]
+    run_dim = kernel_head_dim(kernel, tensors[0].dtype, head_dim)
+    if run_dim == head_dim:
+        return tensors, head_dim
+    pad = (0, run_dim - head_dim)   # zeros after the last column
+    return [torch.nn.functional.pad(t, pad) for t in tensors], head_dim
+
+
 def _flash_fwd_cuda(q, k, v, scale, causal):
     """Launch the forward kernel: ``(O in q.dtype, L fp32 [B*H, S])``."""
     global fwd_launches
     _check_kernel_inputs("flash_fwd", q=q, k=k, v=v)
+    (q, k, v), head_dim = _padded_for("flash_fwd", [q, k, v])
     batch, s_len, heads, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((batch * heads, s_len), dtype=torch.float32,
@@ -221,6 +276,8 @@ def _flash_fwd_cuda(q, k, v, scale, causal):
     _launch("flash_fwd", "flash_fwd", (q, k, v, out, lse), (q, k, v, out),
             scale, causal)
     fwd_launches += 1
+    if out.shape[-1] != head_dim:
+        out = out[..., :head_dim].contiguous()
     return out, lse
 
 
@@ -230,13 +287,15 @@ def _flash_bwd_dq_cuda(q, k, v, out, lse, grad_out, scale, causal):
     _check_kernel_inputs("flash_bwd_dq", q=q, k=k, v=v, out=out,
                          grad_out=grad_out)
     _check_stats("flash_bwd_dq", q, lse=lse)
+    (q, k, v, out, grad_out), head_dim = _padded_for(
+        "flash_bwd_dq", [q, k, v, out, grad_out])
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty_like(lse)
     _launch("flash_bwd", "flash_bwd_dq",
             (q, k, v, out, grad_out, lse, delta, dq),
             (q, k, v, out, grad_out, dq), scale, causal)
     bwd_dq_launches += 1
-    return dq, delta
+    return dq[..., :head_dim], delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale, causal):
@@ -245,13 +304,15 @@ def _flash_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale, causal):
     global bwd_dkv_launches
     _check_kernel_inputs("flash_bwd_dkv", q=q, k=k, v=v, grad_out=grad_out)
     _check_stats("flash_bwd_dkv", q, lse=lse, delta=delta)
+    (q, k, v, grad_out), head_dim = _padded_for("flash_bwd_dkv",
+                                                [q, k, v, grad_out])
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("flash_bwd", "flash_bwd_dkv",
             (q, k, v, grad_out, lse, delta, dk, dv),
             (q, k, v, grad_out, dk, dv), scale, causal)
     bwd_dkv_launches += 1
-    return dk, dv
+    return dk[..., :head_dim], dv[..., :head_dim]
 
 
 def _check_device(q):
@@ -300,8 +361,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, out, lse = ctx.saved_tensors
-        if grad_out.stride(-1) != 1:   # e.g. the expanded gradient of a sum
-            grad_out = grad_out.contiguous()
+        # e.g. the expanded gradient of a sum: the kernels read dO in place
+        if grad_out.stride(-1) != 1 or not _aligned(grad_out):
+            grad_out = grad_out.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = _flash_bwd(q, k, v, out, lse, grad_out, ctx.scale,
                                 ctx.causal)
         return dq, dk, dv, None, None

@@ -125,7 +125,7 @@ def test_kernel_wrapper_refuses_before_building(bad):
     are ValueErrors, never a silent CPU run."""
     shape, dtype = (1, 64, 2, 64), torch.float32
     if bad == "head_dim":
-        shape = (1, 64, 2, 32)
+        shape = (1, 64, 2, 48)
     if bad == "dtype":
         dtype = torch.float16
     q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(shape))
@@ -133,3 +133,55 @@ def test_kernel_wrapper_refuses_before_building(bad):
         q = q.transpose(1, 3).contiguous().transpose(1, 3)
     with pytest.raises(ValueError):
         tfa._flash_fwd_cuda(q, k, v, 0.125, True)
+
+
+def _misaligned(shape):
+    """A contiguous fp32 view whose base pointer is 4 bytes off 16."""
+    buf = torch.zeros(int(np.prod(shape)) + 1)
+    return buf[1:].view(shape)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+def test_kernel_wrapper_refuses_misaligned_view(kernel):
+    """The kernels copy 16 bytes at a time: a view off a 16-byte boundary
+    is a ValueError naming the alignment, before anything is built."""
+    shape = (1, 64, 2, 64)
+    q = _misaligned(shape)
+    k, v, out, g = (torch.from_numpy(x) for x in _qkv(shape) + _qkv(shape)[:1])
+    lse = torch.zeros(2, 64)
+    with pytest.raises(ValueError, match="align"):
+        if kernel == "flash_fwd":
+            tfa._flash_fwd_cuda(q, k, v, 0.125, True)
+        elif kernel == "flash_bwd_dq":
+            tfa._flash_bwd_dq_cuda(q, k, v, out, lse, g, 0.125, True)
+        else:
+            tfa._flash_bwd_dkv_cuda(q, k, v, g, lse, lse, 0.125, True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("output", ["out", "lse", "dq", "dk", "dv"])
+def test_head_dim_32_padding_is_exact(causal, output):
+    """head_dim 32 reaches the FMA kernels zero-padded to 64 with the scale
+    of 32 passed explicitly: on the plain versions at fp32 the padded path,
+    sliced back, gives what head_dim 32 gives directly (zero columns add
+    nothing to Q K^T, dO V^T or delta)."""
+    shape = (2, 96, 2, 32)
+    scale = 1.0 / np.sqrt(32)
+    q, k, v = (torch.from_numpy(x) for x in _qkv(shape, seed=11))
+    (g,) = (torch.from_numpy(x) for x in _qkv(shape, seed=12)[:1])
+    out, lse = tfa.flash_attention_plain(q, k, v, causal, scale)
+    want = dict(zip(("dq", "dk", "dv"), tfa.flash_attention_bwd_plain(
+        q, k, v, out, lse, g, causal, scale)), out=out, lse=lse)
+
+    (qp, kp, vp, gp), head_dim = tfa._padded_for("flash_bwd_dq",
+                                                 [q, k, v, g])
+    assert head_dim == 32 and qp.shape[-1] == 64
+    out_p, lse_p = tfa.flash_attention_plain(qp, kp, vp, causal, scale)
+    got = dict(zip(("dq", "dk", "dv"), tfa.flash_attention_bwd_plain(
+        qp, kp, vp, out_p, lse_p, gp, causal, scale)), out=out_p, lse=lse_p)
+    if output != "lse":
+        assert got[output][..., 32:].abs().max().item() == 0.0
+        got[output] = got[output][..., :32]
+    np.testing.assert_allclose(got[output].numpy(), want[output].numpy(),
+                               atol=1e-6, rtol=1e-6)

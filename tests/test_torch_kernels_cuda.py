@@ -51,6 +51,11 @@ def _qkv(shape, dtype, device, seed=0, fused=False):
     ((2, 256, 4, 128), torch.bfloat16, False, False),
     ((1, 1024, 2, 64), torch.bfloat16, True, True),
     ((1, 96, 2, 64), torch.float32, True, False),    # ragged last tile
+    ((2, 256, 4, 32), torch.bfloat16, True, False),  # head_dim 32: wgmma
+    ((2, 256, 4, 32), torch.float32, False, False),  # head_dim 32: padded
+    ((2, 256, 4, 128), torch.bfloat16, True, False),
+    ((1, 96, 2, 64), torch.bfloat16, True, False),   # ragged, tensor cores
+    ((8, 1024, 16, 64), torch.bfloat16, True, True),  # the training shape
 ])
 def test_kernel_matches_plain(card, shape, dtype, causal, fused):
     q, k, v = _qkv(shape, dtype, card, fused=fused)
@@ -91,6 +96,10 @@ G_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     ((2, 256, 4, 128), torch.float32, False, False),
     ((1, 1024, 2, 64), torch.bfloat16, True, True),
     ((1, 96, 2, 64), torch.float32, True, False),    # ragged last tile
+    ((2, 256, 4, 32), torch.bfloat16, True, False),  # head_dim 32
+    ((2, 256, 4, 32), torch.float32, False, False),
+    ((1, 96, 2, 64), torch.bfloat16, True, False),   # ragged, tensor cores
+    ((8, 1024, 16, 64), torch.bfloat16, True, True),  # the training shape
 ])
 def test_backward_kernels_match_plain(card, shape, dtype, causal, fused):
     q, k, v = _qkv(shape, dtype, card, fused=fused)
@@ -138,15 +147,43 @@ def test_autograd_uses_backward_kernels(card):
     assert (qkv.grad - want).abs().max().item() <= limit
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride", "align"])
 def test_kernel_refuses(card, bad):
     shape, dtype = (1, 64, 2, 64), torch.float32
     if bad == "head_dim":
-        shape = (1, 64, 2, 32)
+        shape = (1, 64, 2, 48)
     if bad == "dtype":
         dtype = torch.float16
     q, k, v = _qkv(shape, dtype, card)
     if bad == "stride":
         q = q.transpose(1, 3).contiguous().transpose(1, 3)
-    with pytest.raises(ValueError):
+    if bad == "align":   # a contiguous view 4 bytes off a 16-byte boundary
+        q = torch.zeros(q.numel() + 1, device=card)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="align" if bad == "align" else None):
         fa._flash_fwd_cuda(q, k, v, 0.125, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_public_op_head_dim_32(card, dtype):
+    """head_dim 32 (the JAX LM example's default) runs forward and backward
+    on CUDA tensors through the public op, and matches the plain version."""
+    shape = (2, 128, 2, 32)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (shape[0], shape[1], 3) + shape[2:]).astype(np.float32)).to(card)
+    w = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        shape).astype(np.float32)).to(card, dtype)
+    qkv = x.to(dtype).requires_grad_()
+    before = (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    out = fa.flash_attention(*qkv.unbind(2), causal=True)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    q, k, v = x.to(dtype).unbind(2)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    assert (out.float() - o).abs().max().item() < O_TOL[dtype]
+    want = torch.stack(fa.flash_attention_bwd_plain(q, k, v, out, lse, w,
+                                                    True), dim=2)
+    limit = G_TOL[dtype] * want.abs().max().item()
+    assert qkv.grad.dtype == dtype
+    assert (qkv.grad.float() - want).abs().max().item() <= limit
