@@ -6,10 +6,11 @@
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 ``tensorflowonspark_torch/csrc/``, holds each kernel against its plain
 PyTorch version at the shapes the serving and training paths give it (and
-at head_dim 32, 64 and 128, fp32 and bf16) and times both (and one PyTorch
-library call as a yardstick); each row names the variant that ran, its
-product path (``wgmma`` on the tensor cores or ``fma``) and its ptxas
-registers.  Then it drives the flagship transformer LM (vocab 32000, 8
+at head_dim 32, 64 and 128, fp32 and bf16, causal and not) and times both
+(and one PyTorch library call as a yardstick): CUDA events around the
+calls, and the kernels' own device time from ``torch.profiler``.  Each row
+names the variant that ran, its product path (``wgmma`` on the tensor cores
+or ``fma``) and its ptxas registers.  Then it drives the flagship transformer LM (vocab 32000, 8
 layers, 16 heads x 64, 1024 tokens, bf16, ``attention="flash"``, random
 weights from a seed) along both paths:
 
@@ -102,6 +103,7 @@ FLASH_CASES = [
     ((2, 256, 4, 32), "bfloat16", True, False),   # head_dim 32: wgmma
     ((2, 256, 4, 32), "float32", False, False),   # head_dim 32: padded to 64
     ((1, 96, 2, 64), "bfloat16", True, False),    # ragged last tile
+    ((2, 256, 4, 64), "bfloat16", False, False),
 ]
 # the backward kernels: the training shape first
 BWD_CASES = [
@@ -114,6 +116,12 @@ BWD_CASES = [
     ((2, 256, 4, 32), "bfloat16", True, False),   # head_dim 32
     ((2, 256, 4, 32), "float32", True, False),
     ((1, 96, 2, 64), "bfloat16", True, False),    # ragged, tensor cores
+    ((2, 256, 4, 64), "bfloat16", False, False),
+    ((1, 96, 2, 64), "bfloat16", False, False),   # ragged, not causal
+    # the training token count and width (8 x 1024 tokens, 1024 channels)
+    # at the other head_dims: the same FLOPs and bytes as the training shape
+    ((TRAIN_BATCH, SEQ, 32, 32), "bfloat16", True, True),
+    ((TRAIN_BATCH, SEQ, 8, 128), "bfloat16", True, True),
 ]
 
 
@@ -134,6 +142,36 @@ def time_ms(torch, fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(prof):
+    """The device-side events of a ``torch.profiler`` trace, less the GPU
+    ranges of user annotations such as "Optimizer.step#Adam.step", which
+    overlap the kernels they enclose."""
+    return [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+
+
+def device_ms(torch, fn, iters=10, warmup=2, match=None):
+    """Mean device milliseconds per call of ``fn``: the time of the kernels
+    it launches, summed from a ``torch.profiler`` trace, so the host's time
+    between launches is left out.  ``match`` keeps the kernels whose
+    lowercased name holds it.  None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in device_kernels(prof)
+                if match is None or match in e.key.lower())
+    return total / 1e3 / iters if total else None
 
 
 def warm_clocks(torch, seconds=1.0):
@@ -200,9 +238,6 @@ def variant(torch, fa, usage, kernel, dtype_name, head_dim):
     dim = fa.kernel_head_dim(kernel, dtype, head_dim)
     symbol = kernel + ("_sm90_kernel" if path == "wgmma" else "_kernel") + "I"
     names = [n for n in usage if symbol in n and "Li{}E".format(dim) in n]
-    if len(names) > 1:   # the FMA kernels templated on the dtype as well
-        marker = "IfLi" if dtype_name == "float32" else "bfloat16"
-        names = [n for n in names if marker in n]
     if len(names) != 1:
         raise AssertionError("no single ptxas entry for {} {} D={}: {}".format(
             kernel, dtype_name, dim, names))
@@ -237,13 +272,21 @@ def flash_case(torch, F, fa, metrics, kind, usage, shape, dtype_name, causal,
     ok = (bool(torch.isfinite(out.float()).all()) and err_o < O_TOL[dtype_name]
           and err_l < L_TOL)
 
-    kernel_ms = time_ms(torch, lambda: fa._flash_fwd_cuda(q, k, v, scale,
-                                                          causal))
+    def kernel():
+        return fa._flash_fwd_cuda(q, k, v, scale, causal)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
+
+    kernel_ms = time_ms(torch, kernel)
+    kernel_device_ms = device_ms(torch, kernel, match="flash_fwd_")
     plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal, scale), iters=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, scale=scale))
+    library_ms = device_ms(torch, sdpa)
+    library_events_ms = time_ms(torch, sdpa)
 
     pairs = s * (s + 1) // 2 if causal else s * s    # (query, key) pairs
     flops = 4 * d * pairs * b * h                    # QK^T and PV
@@ -254,12 +297,15 @@ def flash_case(torch, F, fa, metrics, kind, usage, shape, dtype_name, causal,
            "dtype": dtype_name, "causal": causal, "fused_qkv": fused,
            "max_abs_err_o": err_o, "max_abs_err_l": err_l,
            "tol_o": O_TOL[dtype_name], "tol_l": L_TOL, "ok": ok,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
+           "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_events_ms": library_events_ms,
+           "library": "scaled_dot_product_attention forward",
+           "bound_ms": bound_ms,
            "bound_by": metrics.roofline_bound_by(flops, nbytes, kind,
                                                  dtype_name),
            "flops": flops, "bytes": nbytes,
-           "bound_share": bound_ms / kernel_ms}
+           "bound_share": bound_ms / (kernel_device_ms or kernel_ms)}
     row.update(variant(torch, fa, usage, "flash_fwd", dtype_name, d))
     emit(row)
     if not ok:
@@ -300,28 +346,38 @@ def bwd_case(torch, F, fa, metrics, kind, usage, shape, dtype_name, causal,
     ok = (finite and all(errs[n] <= limits[n] for n in errs)
           and err_delta <= limit_delta)
 
-    dq_ms = time_ms(torch, lambda: fa._flash_bwd_dq_cuda(
-        q, k, v, out, lse, g, scale, causal))
-    dkv_ms = time_ms(torch, lambda: fa._flash_bwd_dkv_cuda(
-        q, k, v, g, lse, delta, scale, causal))
+    def dq_kernel():
+        return fa._flash_bwd_dq_cuda(q, k, v, out, lse, g, scale, causal)
+
+    def dkv_kernel():
+        return fa._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal)
+
+    dq_ms = time_ms(torch, dq_kernel)
+    dkv_ms = time_ms(torch, dkv_kernel)
+    device = {"flash_bwd_dq": device_ms(torch, dq_kernel,
+                                        match="flash_bwd_dq_"),
+              "flash_bwd_dkv": device_ms(torch, dkv_kernel,
+                                         match="flash_bwd_dkv_")}
     plain_dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_plain(
         q, k, v, out, lse, g, causal, scale), iters=3, warmup=1)
     plain_dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_plain(
         q, k, v, g, lse, delta, causal, scale), iters=3, warmup=1)
-    # the library yardstick: SDPA's backward (dQ, dK and dV together), as
-    # its forward+backward time minus its forward time
+    # the library yardstick: SDPA's backward alone (dQ, dK and dV
+    # together), run again and again through one retained forward graph;
+    # its kernels' device time, and CUDA events around the calls
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     gt = g.transpose(1, 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               scale=scale)
 
-    sdpa_fwd_ms = time_ms(torch, sdpa)
-    sdpa_both_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa(), (qt, kt, vt), gt))
-    library_ms = sdpa_both_ms - sdpa_fwd_ms
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), gt,
+                                   retain_graph=True)
+
+    library_ms = device_ms(torch, sdpa_bwd)
+    library_events_ms = time_ms(torch, sdpa_bwd)
+    del sdpa_out
 
     pairs = s * (s + 1) // 2 if causal else s * s    # (query, key) pairs
     elt = q.element_size()
@@ -347,13 +403,15 @@ def bwd_case(torch, F, fa, metrics, kind, usage, shape, dtype_name, causal,
             "phase": "kernel", "name": name, "shape": list(shape),
             "dtype": dtype_name, "causal": causal, "fused_qkv": fused,
             "max_abs_err": err, "ok": ok, "kernel_ms": kernel_ms,
+            "kernel_device_ms": device[name],
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_events_ms": library_events_ms,
             "library": "scaled_dot_product_attention backward (dQ, dK, dV)",
             "bound_ms": bound_ms,
             "bound_by": metrics.roofline_bound_by(flops, nbytes, kind,
                                                   dtype_name),
             "flops": flops, "bytes": nbytes,
-            "bound_share": bound_ms / kernel_ms,
+            "bound_share": bound_ms / (device[name] or kernel_ms),
             **variant(torch, fa, usage, name, dtype_name, d)})
     rows[0].update({"max_abs_err_delta": err_delta,
                     "tol_delta": limit_delta})
@@ -505,14 +563,8 @@ def profile_steps(torch, trainer, feed, n):
             trainer.step(batch, mask)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device events, less the GPU-side ranges of user annotations such as
-    # "Optimizer.step#Adam.step", which overlap the kernels they enclose
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
     groups, top = {}, []
-    for e in kernels:
+    for e in device_kernels(prof):
         ms = e.self_device_time_total / 1e3 / n
         name = e.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS
@@ -809,6 +861,7 @@ def main():
                           {n: r["kernel_ms"] for n, r in at_train.items()})
 
     serve_row = fwd_rows[0]
+    head_dim_train = LM_CONFIG["head_dim"]
     replaces = {
         "flash_fwd": "tensorflowonspark_tpu/ops/flash_attention.py:49",
         "flash_bwd_dq": "tensorflowonspark_tpu/ops/flash_attention.py:158",
@@ -824,7 +877,8 @@ def main():
             "replaces": replaces[name],
             "launches": trained["launches"][name],
             "max_abs_err": row.get("max_abs_err", row.get("max_abs_err_o")),
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
             "product_path": row["product_path"],
@@ -836,10 +890,21 @@ def main():
                                          "train": entry["launches"]}
             entry["serve_shape"] = {
                 k: serve_row[k] for k in ("shape", "max_abs_err_o",
-                                          "kernel_ms", "plain_ms",
-                                          "bound_ms", "bound_by",
+                                          "kernel_ms", "kernel_device_ms",
+                                          "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "product_path",
                                           "registers")}
+        if name == "flash_bwd_dq":   # the training width at head_dim 32, 128
+            entry["other_head_dims"] = {
+                str(r[0]["shape"][3]): {
+                    k: r[0].get(k) for k in (
+                        "shape", "max_abs_err", "kernel_ms",
+                        "kernel_device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "product_path",
+                        "registers", "spill_stores")}
+                for r in bwd_rows
+                if r[0]["shape"][:2] == [TRAIN_BATCH, SEQ]
+                and r[0]["shape"][3] != head_dim_train}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(device["nvidia_smi"], flush=True)

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of tensorflowonspark_tpu/ops/flash_attention.py
 // launched by `_flash_bwd`:
-// - flash_bwd_dq_kernel  <- `_bwd_dq_kernel`:
+// - flash_bwd_dq_sm90_kernel (bf16) and flash_bwd_dq_kernel (fp32)
+//   <- `_bwd_dq_kernel`:
 //     dQ = scale * sum_k P o (dO V^T - delta) K, P = exp(scale Q K^T - L)
 //   recomputed from the forward's fp32 row logsumexp L (`_recompute_p`).
 //   It also computes delta = rowsum(dO o O) for its query rows (the JAX
@@ -11,7 +12,7 @@
 // - flash_bwd_dkv_sm90_kernel (bf16) and flash_bwd_dkv_kernel (fp32)
 //   <- `_bwd_dkv_kernel`:
 //     dV = sum_q P^T dO,  dK = scale * sum_q dS^T Q,  dS = P o (dO V^T - delta).
-// Gradients are written in the inputs' dtype; every sum is fp32.  The dK/dV
+// Gradients are written in the inputs' dtype; every sum is fp32.  Each
 // entry point picks its kernel by dtype: bf16 on the tensor cores, fp32 on
 // the CUDA cores (TF32 products would miss the fp32 tolerance of 1e-4).
 //
@@ -33,30 +34,42 @@
 // bf16, causal) the dQ kernel does 2.6e10 FLOP over 102 MB (q, k, v, O, dO
 // and L in; dQ and delta out), the dK/dV kernel 3.4e10 FLOP over 102 MB;
 // the H100 SXM data sheet (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM)
-// bounds them at about 30 us (by bytes) and 35 us (by operations).  On fp32
-// FMAs (67 TFLOP/s) their own floor is 0.4 ms and 0.5 ms per call.
+// bounds them at about 30 us (by bytes) and 35 us (by operations).
 //
-// bf16 dK/dV, flash_bwd_dkv_sm90_kernel<D>, D = 32, 64, 128: one warpgroup
-// (128 threads) per key tile.  K and V are copied in once; Q and dO tiles
-// pass through a two-stage ring in shared memory (cp.async, the next tile
-// in flight while the tensor cores work on this one), L and delta of its 64
-// queries beside them.  S^T = K Q^T and dP^T = V dO^T are SS wgmmas
-// (m64n64k16) into fp32 registers; P^T = exp(scale S^T - L) and dS^T = P^T o
-// (dP^T - delta) are computed there, packed to bf16 and fed as the register
-// A operand of dV += P^T dO and dK += dS^T Q (RS wgmma m64nDk16, dO and Q as
-// MN-major B operands): no P or dS tile passes through shared memory.  dK
-// is scaled once at the end.  Helpers in flash_sm90.cuh.  ptxas (sm_90a):
-// 136 / 178 / 255 registers at D = 32 / 64 / 128, D = 128 spilling 32
-// bytes; shared memory 26 / 50 / 98 KB.
+// The tensor-core kernels, D = 32, 64, 128: one warpgroup (128 threads) per
+// 64-row tile.  Each copies its own tile pair in once and streams the other
+// side's tiles through a two-stage ring in shared memory (cp.async, the next
+// tile in flight while the tensor cores work on this one).  Both score
+// products are SS wgmmas (m64n64k16, D/16 steps) into fp32 registers; P (or
+// dS) is computed there, packed to bf16 and fed as the register A operand
+// of an RS wgmma (m64nDk16, 4 steps over the 64 rows of the streamed tile,
+// that tile as the MN-major B operand): no P or dS tile passes through
+// shared memory.  The scale is applied to the fp32 scores (times log2 e,
+// for exp2f) and to the gradient once, at the end.  Helpers in
+// flash_sm90.cuh.
+// - bf16 dQ, flash_bwd_dq_sm90_kernel<D>: one block per query tile.  Q and
+//   dO are copied in once, K and V stream.  S = Q K^T and dP = dO V^T;
+//   P = exp(scale S - L) and dS = P o (dP - delta) in fp32 (rows are
+//   queries, so each thread's two L and two delta are loop invariants in
+//   registers); dQ += dS K with K as the B operand.  delta is the prologue:
+//   16-byte loads of dO and O, the 4 lanes of a quad splitting a row, fp32
+//   sums reduced by shuffles.  ptxas (sm_90a): 109 / 144 / 206 registers
+//   at D = 32 / 64 / 128, no spills; shared memory 25 / 49 / 97 KB (six
+//   tiles, 1 KB for alignment).
+// - bf16 dK/dV, flash_bwd_dkv_sm90_kernel<D>: one block per key tile.  K
+//   and V are copied in once; Q and dO stream, L and delta of their 64
+//   queries beside them.  S^T = K Q^T and dP^T = V dO^T; P^T and dS^T feed
+//   dV += P^T dO and dK += dS^T Q.  ptxas (sm_90a): 136 / 178 / 255
+//   registers at D = 32 / 64 / 128, D = 128 spilling 32 bytes; shared
+//   memory 26 / 50 / 98 KB.
 //
-// dQ (fp32 and bf16) and fp32 dK/dV, the FMA kernels, D = 64, 128 (the
-// wrapper pads 32 to 64): tiles staged in dynamic shared memory as fp32 (Q
-// pre-multiplied by the scale), rows padded by 4 floats so the float4 reads
-// of the inner products are bank-conflict free; 256 threads as a 16x16
-// grid, thread (ty, tx) owning rows 4ty..4ty+3 of its block's tile and
-// 4 x D/16 gradient columns; P and dS reach the second product through
-// shared memory.  The dK/dV block holds 104 KB at D=64, 170 KB at D=128.
-// ptxas: dQ 128 registers at D = 64 (36-40 bytes of spill), 168 at D = 128.
+// fp32 dQ and dK/dV, the FMA kernels, D = 64, 128 (the wrapper pads 32 to
+// 64): tiles staged in dynamic shared memory as fp32 (Q pre-multiplied by
+// the scale), rows padded by 4 floats so the float4 reads of the inner
+// products are bank-conflict free; 256 threads as a 16x16 grid, thread
+// (ty, tx) owning rows 4ty..4ty+3 of its block's tile and 4 x D/16 gradient
+// columns; P and dS reach the second product through shared memory.  The
+// dK/dV block holds 104 KB at D=64, 170 KB at D=128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,18 +81,6 @@ namespace {
 constexpr int kBlock = 64;  // rows of every query and key tile
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 struct Strides {
   long long batch, seq, head;
 };
@@ -88,7 +89,7 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;     // dQ kernel only
+  const void* o;     // dQ kernels only
   const void* dout;
   const float* lse;  // [batch * heads, seq_len]
   float* delta;      // [batch * heads, seq_len]: written by dQ, read by dK/dV
@@ -101,6 +102,8 @@ struct Params {
   int causal;
 };
 
+// ---- fp32: the FMA kernels ------------------------------------------------
+
 template <int D>
 struct Layout {
   static constexpr int kLd = D + 4;        // row pitch of the Q/K/V/dO tiles, floats
@@ -112,8 +115,8 @@ struct Layout {
 // Copy rows [row0, row0 + kBlock) of one (batch, head) slice into a padded
 // fp32 tile, times `mul`, zero-filling rows past the sequence end.
 // Consecutive threads read consecutive head_dim elements (coalesced).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           long long row_stride, int row0, int seq_len,
                                           float mul) {
   constexpr int kLd = Layout<D>::kLd;
@@ -122,7 +125,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __re
     const int c = idx % D;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < seq_len) x = to_float(src[row * row_stride + c]) * mul;
+    if (row < seq_len) x = src[row * row_stride + c] * mul;
     dst[r * kLd + c] = x;
   }
 }
@@ -193,7 +196,7 @@ __device__ __forceinline__ void accum_rows(float (&acc)[4][D / 16], const float*
 }
 
 // Write rows 4ty+i (those below seq_len) of a gradient tile starting at row0.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void store_rows(void* base, const Strides& s, int b, int h, int row0,
                                            int seq_len, const float (&acc)[4][D / 16], int ty,
                                            int tx) {
@@ -202,15 +205,15 @@ __device__ __forceinline__ void store_rows(void* base, const Strides& s, int b, 
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
     if (row >= seq_len) continue;
-    T* out = static_cast<T*>(base) + b * s.batch + row * s.seq + h * s.head;
+    float* out = static_cast<float*>(base) + b * s.batch + row * s.seq + h * s.head;
 #pragma unroll
     for (int jj = 0; jj < kNj; ++jj)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) out[jj * 64 + tx * 4 + c] = from_float<T>(acc[i][jj * 4 + c]);
+      for (int c = 0; c < 4; ++c) out[jj * 64 + tx * 4 + c] = acc[i][jj * 4 + c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dq_kernel(const Params p) {
   constexpr int kLd = Layout<D>::kLd;
   constexpr int kLdS = Layout<D>::kLdS;
@@ -231,14 +234,14 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dq_kernel
   const int ty = threadIdx.x >> 4;
   const long long stat0 = static_cast<long long>(bh) * p.seq_len;
 
-  const T* qp = static_cast<const T*>(p.q) + b * p.qs.batch + h * p.qs.head;
-  const T* kp = static_cast<const T*>(p.k) + b * p.ks.batch + h * p.ks.head;
-  const T* vp = static_cast<const T*>(p.v) + b * p.vs.batch + h * p.vs.head;
-  const T* op = static_cast<const T*>(p.o) + b * p.os.batch + h * p.os.head;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.dos.batch + h * p.dos.head;
+  const float* qp = static_cast<const float*>(p.q) + b * p.qs.batch + h * p.qs.head;
+  const float* kp = static_cast<const float*>(p.k) + b * p.ks.batch + h * p.ks.head;
+  const float* vp = static_cast<const float*>(p.v) + b * p.vs.batch + h * p.vs.head;
+  const float* op = static_cast<const float*>(p.o) + b * p.os.batch + h * p.os.head;
+  const float* dop = static_cast<const float*>(p.dout) + b * p.dos.batch + h * p.dos.head;
 
-  load_tile<T, D>(q_s, qp, p.qs.seq, q0, p.seq_len, p.scale);
-  load_tile<T, D>(do_s, dop, p.dos.seq, q0, p.seq_len, 1.f);
+  load_tile<D>(q_s, qp, p.qs.seq, q0, p.seq_len, p.scale);
+  load_tile<D>(do_s, dop, p.dos.seq, q0, p.seq_len, 1.f);
   __syncthreads();
 
   // L and delta = rowsum(dO o O) of this thread's four rows; the 16 lanes
@@ -249,8 +252,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dq_kernel
     const int row = q0 + ty * 4 + i;
     float sum = 0.f;
     if (row < p.seq_len) {
-      const T* orow = op + row * p.os.seq;
-      for (int c = tx; c < D; c += 16) sum = fmaf(do_s[(ty * 4 + i) * kLd + c], to_float(orow[c]), sum);
+      const float* orow = op + row * p.os.seq;
+      for (int c = tx; c < D; c += 16) sum = fmaf(do_s[(ty * 4 + i) * kLd + c], orow[c], sum);
     }
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -270,8 +273,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dq_kernel
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBlock;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k_s, kp, p.ks.seq, k0, p.seq_len, 1.f);
-    load_tile<T, D>(v_s, vp, p.vs.seq, k0, p.seq_len, 1.f);
+    load_tile<D>(k_s, kp, p.ks.seq, k0, p.seq_len, 1.f);
+    load_tile<D>(v_s, vp, p.vs.seq, k0, p.seq_len, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -301,10 +304,10 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dq_kernel
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[i][c] *= p.scale;
-  store_rows<T, D>(p.dq, p.dqs, b, h, q0, p.seq_len, acc, ty, tx);
+  store_rows<D>(p.dq, p.dqs, b, h, q0, p.seq_len, acc, ty, tx);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dkv_kernel(const Params p) {
   constexpr int kLdS = Layout<D>::kLdS;
   constexpr int kLd = Layout<D>::kLd;
@@ -325,13 +328,13 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dkv_kerne
   const int ty = threadIdx.x >> 4;
   const long long stat0 = static_cast<long long>(bh) * p.seq_len;
 
-  const T* qp = static_cast<const T*>(p.q) + b * p.qs.batch + h * p.qs.head;
-  const T* kp = static_cast<const T*>(p.k) + b * p.ks.batch + h * p.ks.head;
-  const T* vp = static_cast<const T*>(p.v) + b * p.vs.batch + h * p.vs.head;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.dos.batch + h * p.dos.head;
+  const float* qp = static_cast<const float*>(p.q) + b * p.qs.batch + h * p.qs.head;
+  const float* kp = static_cast<const float*>(p.k) + b * p.ks.batch + h * p.ks.head;
+  const float* vp = static_cast<const float*>(p.v) + b * p.vs.batch + h * p.vs.head;
+  const float* dop = static_cast<const float*>(p.dout) + b * p.dos.batch + h * p.dos.head;
 
-  load_tile<T, D>(k_s, kp, p.ks.seq, k0, p.seq_len, 1.f);
-  load_tile<T, D>(v_s, vp, p.vs.seq, k0, p.seq_len, 1.f);
+  load_tile<D>(k_s, kp, p.ks.seq, k0, p.seq_len, 1.f);
+  load_tile<D>(v_s, vp, p.vs.seq, k0, p.seq_len, 1.f);
 
   float dk[4][D / 16], dv[4][D / 16];
 #pragma unroll
@@ -346,8 +349,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dkv_kerne
   for (int qt = p.causal ? blockIdx.x : 0; qt < n_q; ++qt) {
     const int q0 = qt * kBlock;
     __syncthreads();  // the previous tile's readers are done (and K, V are visible)
-    load_tile<T, D>(q_s, qp, p.qs.seq, q0, p.seq_len, p.scale);
-    load_tile<T, D>(do_s, dop, p.dos.seq, q0, p.seq_len, 1.f);
+    load_tile<D>(q_s, qp, p.qs.seq, q0, p.seq_len, p.scale);
+    load_tile<D>(do_s, dop, p.dos.seq, q0, p.seq_len, 1.f);
     // L and delta of this thread's query columns tx+16j
     float lq[4], dq_delta[4];
 #pragma unroll
@@ -382,19 +385,133 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) flash_bwd_dkv_kerne
     accum_rows<D>(dk, dst_s, q_s, ty, tx);   // dK += dS^T (scale Q)
   }
 
-  store_rows<T, D>(p.dk, p.dks, b, h, k0, p.seq_len, dk, ty, tx);
-  store_rows<T, D>(p.dv, p.dvs, b, h, k0, p.seq_len, dv, ty, tx);
+  store_rows<D>(p.dk, p.dks, b, h, k0, p.seq_len, dk, ty, tx);
+  store_rows<D>(p.dv, p.dvs, b, h, k0, p.seq_len, dv, ty, tx);
 }
 
-// ---- bf16 dK/dV: the tensor-core kernel ----------------------------------
+// ---- bf16: the tensor-core kernels ----------------------------------------
 
 template <int D>
 struct Sm90Layout {
   using Tile = flash_sm90::Tile<D>;
-  // K, V, two stages of (Q, dO), two stages of (L, delta) for 64 queries;
-  // 1 KB of slack to align the first tile
-  static constexpr size_t kBytes = 6 * Tile::kBytes + 2 * 2 * kBlock * sizeof(float) + 1024;
+  // dQ: Q, dO, two stages of (K, V).  dK/dV: K, V, two stages of (Q, dO)
+  // and of (L, delta) for 64 queries.  1 KB of slack to align the first tile.
+  static constexpr size_t kDqBytes = 6 * Tile::kBytes + 1024;
+  static constexpr size_t kDkvBytes = 6 * Tile::kBytes + 2 * 2 * kBlock * sizeof(float) + 1024;
 };
+
+// sum_j a[j] * b[j] over 8 bf16 values each, in fp32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float sum) {
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(a2[j]);
+    const float2 y = __bfloat1622float2(b2[j]);
+    sum = fmaf(x.x, y.x, sum);
+    sum = fmaf(x.y, y.y, sum);
+  }
+  return sum;
+}
+
+template <int D>
+__global__ void __launch_bounds__(flash_sm90::kThreads) flash_bwd_dq_sm90_kernel(const Params p) {
+  namespace fs = flash_sm90;
+  using Tile = fs::Tile<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = fs::smem_addr(fs::align_1024(smem_raw));
+  const uint32_t do_s = q_s + Tile::kBytes;
+  const uint32_t kv_s = do_s + Tile::kBytes;  // stage s: K at kv_s + 2 s kBytes, V after it
+
+  const int n_q = (p.seq_len + kBlock - 1) / kBlock;
+  const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBlock;  // longest rows first
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const long long stat0 = static_cast<long long>(bh) * p.seq_len;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.qs.batch + h * p.qs.head;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.ks.batch + h * p.ks.head;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.vs.batch + h * p.vs.head;
+  const bf16* op = static_cast<const bf16*>(p.o) + b * p.os.batch + h * p.os.head;
+  const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.dos.batch + h * p.dos.head;
+
+  const int k_end = p.causal ? min(p.seq_len, q0 + kBlock) : p.seq_len;
+  const int n_k = (k_end + kBlock - 1) / kBlock;
+  fs::load_tile<D>(q_s, qp, p.qs.seq, q0, p.seq_len);
+  fs::load_tile<D>(do_s, dop, p.dos.seq, q0, p.seq_len);
+  fs::load_tile<D>(kv_s, kp, p.ks.seq, 0, p.seq_len);
+  fs::load_tile<D>(kv_s + Tile::kBytes, vp, p.vs.seq, 0, p.seq_len);
+  fs::cp_async_commit();
+
+  // While those copies fly: delta = rowsum(dO o O) and L of the thread's two
+  // rows (loop invariants; rows are queries here).  The 4 lanes of a quad
+  // share a row and split its 16-byte chunks.
+  const int quad_lane = threadIdx.x & 3;
+  float lse2[2], dlt[2];  // L in log2 units, delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + fs::frag_row(2 * r);
+    float sum = 0.f;
+    if (row < p.seq_len) {
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const int c = (quad_lane + 4 * i) * 8;
+        sum = dot8(*reinterpret_cast<const uint4*>(dop + row * p.dos.seq + c),
+                   *reinterpret_cast<const uint4*>(op + row * p.os.seq + c), sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dlt[r] = sum;
+    lse2[r] = row < p.seq_len ? p.lse[stat0 + row] * fs::kLog2e : 0.f;
+    if (quad_lane == 0 && row < p.seq_len) p.delta[stat0 + row] = sum;
+  }
+
+  const float score_mul = p.scale * fs::kLog2e;
+  float dq[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kBlock;
+    fs::ring_acquire();  // tile kt is in; every thread is done with tile kt - 1
+    if (kt + 1 < n_k) {  // fill the other stage while this one is in the tensor cores
+      const uint32_t next = kv_s + ((kt + 1) & 1) * 2 * Tile::kBytes;
+      fs::load_tile<D>(next, kp, p.ks.seq, k0 + kBlock, p.seq_len);
+      fs::load_tile<D>(next + Tile::kBytes, vp, p.vs.seq, k0 + kBlock, p.seq_len);
+    }
+    fs::cp_async_commit();
+    const uint32_t k_s = kv_s + (kt & 1) * 2 * Tile::kBytes;
+    const uint32_t v_s = k_s + Tile::kBytes;
+
+    // S = Q K^T and dP = dO V^T: SS, K = D; rows are queries, columns keys
+    float s[32], dp[32];
+    fs::score_tiles<D>(s, q_s, k_s, dp, do_s, v_s);
+
+    // P = exp(scale S - L), dS = P o (dP - delta), in fp32.  Only the
+    // diagonal tile (causal) and a ragged last tile are masked: there the
+    // zero-filled key rows must give P = 0, not exp(-L).
+    const bool need_mask = (p.causal && k0 + kBlock - 1 > q0) || k0 + kBlock > p.seq_len;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      const bool keep = !need_mask || fs::attended(q0 + fs::frag_row(e), k0 + fs::frag_col(e),
+                                                   p.seq_len, p.causal);
+      const float pv = keep ? exp2f(s[e] * score_mul - lse2[r]) : 0.f;
+      dp[e] = pv * (dp[e] - dlt[r]);
+    }
+
+    // dQ += dS K: RS, bf16 A from registers, K MN-major, K = 64 keys
+    uint32_t a_ds[4][4];
+    fs::to_a_fragments(dp, a_ds);
+    fs::accumulate_tile<D>(dq, a_ds, k_s);
+  }
+
+  // the scale of dQ once, at the end
+  fs::store_rows<D>(static_cast<bf16*>(p.dq) + b * p.dqs.batch + h * p.dqs.head, p.dqs.seq, q0,
+                    p.seq_len, dq, p.scale, p.scale);
+}
 
 template <int D>
 __global__ void __launch_bounds__(flash_sm90::kThreads) flash_bwd_dkv_sm90_kernel(const Params p) {
@@ -447,9 +564,7 @@ __global__ void __launch_bounds__(flash_sm90::kThreads) flash_bwd_dkv_sm90_kerne
     const int q0 = qt * kBlock;
     const int st = (qt - qt0) & 1;
     stat_s[st * 2 * kBlock + tid] = stat_next;
-    fs::cp_async_wait_all();
-    fs::fence_proxy_async();
-    __syncthreads();  // tile qt and its L, delta are in; every thread is done with qt - 1
+    fs::ring_acquire();  // tile qt and its L, delta are in; every thread is done with qt - 1
     if (qt + 1 < n_q) {  // fill the other stage while this one is in the tensor cores
       const uint32_t next = qdo_s + (st ^ 1) * 2 * Tile::kBytes;
       fs::load_tile<D>(next, qp, p.qs.seq, q0 + kBlock, p.seq_len);
@@ -464,19 +579,7 @@ __global__ void __launch_bounds__(flash_sm90::kThreads) flash_bwd_dkv_sm90_kerne
 
     // S^T = K Q^T and dP^T = V dO^T: SS, K = D; rows are keys, columns queries
     float s[32], dp[32];
-    fs::fence_regs(s);
-    fs::fence_regs(dp);
-    fs::wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      fs::wgmma_ss_m64n64(s, fs::desc_k_major<D>(k_s, k), fs::desc_k_major<D>(q_s, k), k > 0);
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      fs::wgmma_ss_m64n64(dp, fs::desc_k_major<D>(v_s, k), fs::desc_k_major<D>(do_s, k), k > 0);
-    fs::wgmma_commit();
-    fs::wgmma_wait_all();
-    fs::fence_regs(s);
-    fs::fence_regs(dp);
+    fs::score_tiles<D>(s, k_s, q_s, dp, v_s, do_s);
 
     // P^T = exp(scale S^T - L), dS^T = P^T o (dP^T - delta), in fp32
     const bool need_mask =
@@ -496,19 +599,7 @@ __global__ void __launch_bounds__(flash_sm90::kThreads) flash_bwd_dkv_sm90_kerne
     uint32_t a_p[4][4], a_ds[4][4];
     fs::to_a_fragments(s, a_p);
     fs::to_a_fragments(dp, a_ds);
-    fs::fence_regs(dv);
-    fs::fence_regs(dk);
-    fs::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fs::wgmma_rs<D>(dv, a_p[kk], fs::desc_mn_major<D>(do_s, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fs::wgmma_rs<D>(dk, a_ds[kk], fs::desc_mn_major<D>(q_s, kk), 1);
-    fs::wgmma_commit();
-    fs::wgmma_wait_all();
-    fs::fence_regs(dv);
-    fs::fence_regs(dk);
-    fs::fence_regs(a_p);
-    fs::fence_regs(a_ds);
+    fs::accumulate_tiles<D>(dv, a_p, do_s, dk, a_ds, q_s);
   }
 
   // the scale of dK once, at the end
@@ -530,19 +621,25 @@ cudaError_t launch(Kernel kernel, size_t smem, const Params& p, cudaStream_t str
 }
 
 template <int D>
-cudaError_t launch_dkv_sm90(const Params& p, cudaStream_t stream) {
-  return launch(flash_bwd_dkv_sm90_kernel<D>, Sm90Layout<D>::kBytes, p, stream,
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  return launch(flash_bwd_dq_kernel<D>, Layout<D>::kDqBytes, p, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
+  return launch(flash_bwd_dkv_kernel<D>, Layout<D>::kDkvBytes, p, stream);
+}
+
+template <int D>
+cudaError_t launch_dq_sm90(const Params& p, cudaStream_t stream) {
+  return launch(flash_bwd_dq_sm90_kernel<D>, Sm90Layout<D>::kDqBytes, p, stream,
                 flash_sm90::kThreads);
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  return launch(flash_bwd_dq_kernel<T, D>, Layout<D>::kDqBytes, p, stream);
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  return launch(flash_bwd_dkv_kernel<T, D>, Layout<D>::kDkvBytes, p, stream);
+template <int D>
+cudaError_t launch_dkv_sm90(const Params& p, cudaStream_t stream) {
+  return launch(flash_bwd_dkv_sm90_kernel<D>, Sm90Layout<D>::kDkvBytes, p, stream,
+                flash_sm90::kThreads);
 }
 
 Params make_params(int batch, int seq_len, int heads, float scale, int causal) {
@@ -562,11 +659,11 @@ Strides strides_at(const long long* s, int i) { return {s[3 * i], s[3 * i + 1], 
 // All tensors: [batch, seq_len, heads, head_dim] with a contiguous head_dim,
 // their (batch, seq, head) strides given in elements, three per tensor in
 // the order of the pointer arguments.  lse, delta: contiguous fp32
-// [batch * heads, seq_len].  dtype: 0 = float32, 1 = bfloat16 (of every
-// tensor but lse and delta).  head_dim: 64 or 128 for the FMA kernels (dQ;
-// dK/dV in float32), 32, 64 or 128 for the tensor-core kernel (dK/dV in
-// bfloat16; every base pointer and stride 16-byte aligned).  Each returns
-// the cudaError_t of its launch (0 on success).
+// [batch * heads, seq_len].  dtype: 0 = float32 (of every tensor but lse
+// and delta; head_dim 64 or 128, the FMA kernels), 1 = bfloat16 (head_dim
+// 32, 64 or 128, the tensor-core kernels; every base pointer and stride
+// 16-byte aligned).  Each returns the cudaError_t of its launch (0 on
+// success).
 
 // dQ and delta.  strides: q, k, v, o, dout, dq (18 values).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
@@ -589,10 +686,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   p.dos = strides_at(strides, 4);
   p.dqs = strides_at(strides, 5);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dq<float, 64>(p, st);
-  if (dtype == 0 && head_dim == 128) return launch_dq<float, 128>(p, st);
-  if (dtype == 1 && head_dim == 64) return launch_dq<__nv_bfloat16, 64>(p, st);
-  if (dtype == 1 && head_dim == 128) return launch_dq<__nv_bfloat16, 128>(p, st);
+  if (dtype == 0 && head_dim == 64) return launch_dq<64>(p, st);
+  if (dtype == 0 && head_dim == 128) return launch_dq<128>(p, st);
+  if (dtype == 1 && head_dim == 32) return launch_dq_sm90<32>(p, st);
+  if (dtype == 1 && head_dim == 64) return launch_dq_sm90<64>(p, st);
+  if (dtype == 1 && head_dim == 128) return launch_dq_sm90<128>(p, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -618,8 +716,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   p.dks = strides_at(strides, 4);
   p.dvs = strides_at(strides, 5);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_dkv<float, 64>(p, st);
-  if (dtype == 0 && head_dim == 128) return launch_dkv<float, 128>(p, st);
+  if (dtype == 0 && head_dim == 64) return launch_dkv<64>(p, st);
+  if (dtype == 0 && head_dim == 128) return launch_dkv<128>(p, st);
   if (dtype == 1 && head_dim == 32) return launch_dkv_sm90<32>(p, st);
   if (dtype == 1 && head_dim == 64) return launch_dkv_sm90<64>(p, st);
   if (dtype == 1 && head_dim == 128) return launch_dkv_sm90<128>(p, st);

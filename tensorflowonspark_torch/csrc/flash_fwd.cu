@@ -312,9 +312,7 @@ __global__ void __launch_bounds__(flash_sm90::kThreads) flash_fwd_sm90_kernel(co
 
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kBlockK;
-    fs::cp_async_wait_all();
-    fs::fence_proxy_async();
-    __syncthreads();  // tile kt is in; every thread is done with tile kt - 1
+    fs::ring_acquire();  // tile kt is in; every thread is done with tile kt - 1
     if (kt + 1 < n_k) {  // fill the other stage while this one is in the tensor cores
       const uint32_t next = kv_s + ((kt + 1) & 1) * 2 * Tile::kBytes;
       fs::load_tile<D>(next, kp, p.ks.seq, k0 + kBlockK, p.seq_len);
@@ -326,14 +324,7 @@ __global__ void __launch_bounds__(flash_sm90::kThreads) flash_fwd_sm90_kernel(co
 
     // S = Q K^T: SS, K = D
     float s[32];
-    fs::fence_regs(s);
-    fs::wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k)
-      fs::wgmma_ss_m64n64(s, fs::desc_k_major<D>(q_s, k), fs::desc_k_major<D>(k_s, k), k > 0);
-    fs::wgmma_commit();
-    fs::wgmma_wait_all();
-    fs::fence_regs(s);
+    fs::score_tile<D>(s, q_s, k_s);
 
     // Scale in fp32, mask the diagonal or ragged tile, online softmax.
     const bool need_mask = (p.causal && k0 + kBlockK - 1 > q0) || (k0 + kBlockK > p.seq_len);
@@ -370,14 +361,7 @@ __global__ void __launch_bounds__(flash_sm90::kThreads) flash_fwd_sm90_kernel(co
     // O += P V: RS, P from registers in bf16, V MN-major, K = 64 keys
     uint32_t a[4][4];
     fs::to_a_fragments(s, a);
-    fs::fence_regs(o);
-    fs::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fs::wgmma_rs<D>(o, a[kk], fs::desc_mn_major<D>(v_s, kk), 1);
-    fs::wgmma_commit();
-    fs::wgmma_wait_all();
-    fs::fence_regs(o);
-    fs::fence_regs(a);
+    fs::accumulate_tile<D>(o, a, v_s);
   }
 
   // Epilogue: O = acc / l in bf16, L = m ln 2 + ln l in natural-log units.

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core flash kernels:
-// the bf16 forward (csrc/flash_fwd.cu) and the bf16 dK/dV kernel
-// (csrc/flash_bwd.cu).  Both are one warpgroup (128 threads) per 64-row tile
+// the bf16 forward (csrc/flash_fwd.cu) and the bf16 dQ and dK/dV kernels
+// (csrc/flash_bwd.cu).  Each is one warpgroup (128 threads) per 64-row tile
 // whose products all have that tile's rows as M, so the score tile stays in
 // registers and feeds the next product as its A operand.
 //
@@ -19,6 +19,9 @@
 //   8 (e >> 2) + 2 (l % 4) + (e & 1).  Elements 8 kk .. 8 kk + 7 of a
 //   64-column score tile are exactly the A fragment of the k16 step kk of
 //   the next product, so packing them to bf16 pairs is all the conversion.
+// - A step: `ring_acquire` at the top of each turn of the two-stage cp.async
+//   ring, then `score_tile(s)` and `accumulate_tile(s)`, which hold the
+//   fence discipline around every wgmma in one place for all three kernels.
 
 #pragma once
 
@@ -239,6 +242,95 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 32) wgmma_rs_m64n32(d, a, desc_b, accumulate);
   if constexpr (N == 64) wgmma_rs_m64n64(d, a, desc_b, accumulate);
   if constexpr (N == 128) wgmma_rs_m64n128(d, a, desc_b, accumulate);
+}
+
+// ---- the products of one step, issued, waited for and fenced -------------
+//
+// Every kernel runs the same discipline around its products: the registers a
+// wgmma owns are fenced before `wgmma.fence` and after the wait, and a step
+// issues all its products of one kind as one commit group.
+
+// c = A B^T (K = D) for the K-major tiles a and b: SS m64n64k16, D / 16 steps.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&c)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) wgmma_ss_m64n64(c, desc_k_major<D>(a, k), desc_k_major<D>(b, k), k > 0);
+}
+
+// One score tile: c = A B^T.
+template <int D>
+__device__ __forceinline__ void score_tile(float (&c)[32], uint32_t a, uint32_t b) {
+  fence_regs(c);
+  wgmma_fence();
+  issue_scores<D>(c, a, b);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(c);
+}
+
+// Two score tiles in one group: c0 = A0 B0^T, c1 = A1 B1^T.
+template <int D>
+__device__ __forceinline__ void score_tiles(float (&c0)[32], uint32_t a0, uint32_t b0,
+                                            float (&c1)[32], uint32_t a1, uint32_t b1) {
+  fence_regs(c0);
+  fence_regs(c1);
+  wgmma_fence();
+  issue_scores<D>(c0, a0, b0);
+  issue_scores<D>(c1, a1, b1);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(c0);
+  fence_regs(c1);
+}
+
+// acc += A B for the four bf16 k16 A fragments of a 64-wide tile (K = 64
+// rows of b) and the MN-major tile b (N = D): RS m64nDk16.
+template <int D>
+__device__ __forceinline__ void issue_accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                                 uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, a[kk], desc_mn_major<D>(b, kk), 1);
+}
+
+// One accumulation: acc += A B.
+template <int D>
+__device__ __forceinline__ void accumulate_tile(float (&acc)[D / 2], uint32_t (&a)[4][4], uint32_t b) {
+  fence_regs(acc);
+  wgmma_fence();
+  issue_accumulate<D>(acc, a, b);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+  fence_regs(a);
+}
+
+// Two accumulations in one group: acc0 += A0 B0, acc1 += A1 B1.
+template <int D>
+__device__ __forceinline__ void accumulate_tiles(float (&acc0)[D / 2], uint32_t (&a0)[4][4],
+                                                 uint32_t b0, float (&acc1)[D / 2],
+                                                 uint32_t (&a1)[4][4], uint32_t b1) {
+  fence_regs(acc0);
+  fence_regs(acc1);
+  wgmma_fence();
+  issue_accumulate<D>(acc0, a0, b0);
+  issue_accumulate<D>(acc1, a1, b1);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc0);
+  fence_regs(acc1);
+  fence_regs(a0);
+  fence_regs(a1);
+}
+
+// ---- the two-stage ring -------------------------------------------------
+
+// The top of a ring step: this thread's cp.async copies have landed and are
+// visible to the async proxy that wgmma reads through, and every thread of
+// the block is past the previous step, so the other stage may be refilled.
+__device__ __forceinline__ void ring_acquire() {
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
 }
 
 // ---- fragments ----------------------------------------------------------

@@ -22,11 +22,11 @@ default to 128 and are clamped to the sequence length, which must divide by
 them.  The CUDA kernels tile by 64 whatever the blocks are: they only change
 the order of summation.  Gradients come back in the inputs' dtype.
 
-On the card, the bf16 forward and the bf16 dK/dV kernel do their products
-on the tensor cores (``wgmma``, :func:`product_path`) and take head_dim 32,
-64 or 128; the fp32 kernels and the dQ kernel do theirs as fp32 FMAs and
-take 64 or 128, so the wrapper zero-pads head_dim 32 to 64 for them (exact:
-zero columns add nothing to any product or to δ) and slices the result.
+On the card, the bf16 kernels (forward, dQ, dK/dV) do their products on
+the tensor cores (``wgmma``, :func:`product_path`) and take head_dim 32,
+64 or 128; the fp32 kernels do theirs as fp32 FMAs and take 64 or 128, so
+the wrapper zero-pads head_dim 32 to 64 for them (exact: zero columns add
+nothing to any product or to δ) and slices the result.
 Every CUDA input needs a 16-byte aligned base pointer and strides.
 """
 
@@ -49,7 +49,7 @@ _HEAD_DIMS = (32, 64, 128)
 _FMA_HEAD_DIMS = (64, 128)   # what the FMA kernels take; 32 is padded to 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = 16                  # bytes: the kernels' 16-byte vector copies
-_TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+_TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry points: tensor pointers, then (batch, seq, heads, head_dim), the
@@ -65,8 +65,8 @@ _CONFIGURED = set()
 
 def product_path(kernel, dtype):
     """How the CUDA kernel ``kernel`` does its products for inputs of
-    ``dtype``: ``"wgmma"`` (Hopper's tensor cores; the bf16 forward and
-    dK/dV kernels) or ``"fma"`` (fp32 FMAs on the CUDA cores)."""
+    ``dtype``: ``"wgmma"`` (Hopper's tensor cores; every bf16 kernel) or
+    ``"fma"`` (fp32 FMAs on the CUDA cores)."""
     if kernel in _TENSOR_CORE_KERNELS and dtype == torch.bfloat16:
         return "wgmma"
     return "fma"

@@ -15,6 +15,7 @@ from tensorflowonspark_tpu.ops import flash_attention as jax_flash_attention
 from tensorflowonspark_tpu.parallel import ring as jax_ring
 from tensorflowonspark_torch.ops import flash_attention
 from tensorflowonspark_torch.parallel import ring
+from test_torch_kernels_cuda import G_TOL   # the card's gradient tolerance
 
 jfa = importlib.import_module("tensorflowonspark_tpu.ops.flash_attention")
 tfa = importlib.import_module("tensorflowonspark_torch.ops.flash_attention")
@@ -157,6 +158,57 @@ def test_kernel_wrapper_refuses_misaligned_view(kernel):
             tfa._flash_bwd_dq_cuda(q, k, v, out, lse, g, 0.125, True)
         else:
             tfa._flash_bwd_dkv_cuda(q, k, v, g, lse, lse, 0.125, True)
+
+
+def test_bf16_dq_runs_unpadded_on_tensor_cores():
+    """bf16 dQ is a wgmma kernel that takes head_dim 32 as it is; fp32 dQ
+    stays on FMAs and is padded."""
+    assert tfa.product_path("flash_bwd_dq", torch.bfloat16) == "wgmma"
+    assert tfa.product_path("flash_bwd_dq", torch.float32) == "fma"
+    tensors = [torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16)
+               for _ in range(5)]
+    got, head_dim = tfa._padded_for("flash_bwd_dq", tensors)
+    assert head_dim == 32 and all(a is b for a, b in zip(got, tensors))
+    (padded,), _ = tfa._padded_for("flash_bwd_dq", [tensors[0].float()])
+    assert padded.shape[-1] == 64
+
+
+def _dq_as_wgmma_kernel(q, k, v, out, lse, grad_out, causal, scale):
+    """dQ by the arithmetic of the bf16 tensor-core kernel: S and dP are
+    fp32 sums of bf16 products, P = exp2(S·scale·log2e − L·log2e) and
+    dS = P∘(dP − δ) in fp32, dS rounded to bf16 as the A operand of dS·K,
+    fp32 sums, dQ scaled and rounded to bf16 once."""
+    batch, s_len, heads, _ = q.shape
+    log2e = float(np.log2(np.e))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    lse = lse.reshape(batch, heads, s_len, 1)
+    p = torch.exp2(s * (scale * log2e) - lse * log2e)
+    if causal:
+        p = p.tril()
+    delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", grad_out.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    return dq.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_dq_rounding_is_inside_card_tolerance(causal):
+    """A rehearsal of the tensor-core dQ kernel's rounding, not a test of
+    the kernel: a local emulation of its arithmetic (dS rounded to bf16
+    before dS·K) stays within half the card's bf16 tolerance of the exact
+    fp32 formula, on bf16 inputs at a size the card tests use.  The kernel
+    itself is held to that tolerance on the card."""
+    shape = (2, 256, 4, 64)
+    scale = 1.0 / np.sqrt(shape[-1])
+    q, k, v = (_torch(x, "bfloat16") for x in _qkv(shape, seed=21))
+    (g,) = (_torch(x, "bfloat16") for x in _qkv(shape, seed=22)[:1])
+    out, lse = tfa.flash_attention_plain(q, k, v, causal, scale)
+    out = out.to(torch.bfloat16)
+    want, _ = tfa.flash_bwd_dq_plain(q, k, v, out, lse, g, causal, scale)
+    got = _dq_as_wgmma_kernel(q, k, v, out, lse, g, causal, scale)
+    err = (got.float() - want).abs().max().item()
+    assert err <= 0.5 * G_TOL[torch.bfloat16] * want.abs().max().item()
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -55,6 +55,7 @@ def _qkv(shape, dtype, device, seed=0, fused=False):
     ((2, 256, 4, 32), torch.float32, False, False),  # head_dim 32: padded
     ((2, 256, 4, 128), torch.bfloat16, True, False),
     ((1, 96, 2, 64), torch.bfloat16, True, False),   # ragged, tensor cores
+    ((2, 256, 4, 64), torch.bfloat16, False, False),
     ((8, 1024, 16, 64), torch.bfloat16, True, True),  # the training shape
 ])
 def test_kernel_matches_plain(card, shape, dtype, causal, fused):
@@ -99,6 +100,8 @@ G_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     ((2, 256, 4, 32), torch.bfloat16, True, False),  # head_dim 32
     ((2, 256, 4, 32), torch.float32, False, False),
     ((1, 96, 2, 64), torch.bfloat16, True, False),   # ragged, tensor cores
+    ((2, 256, 4, 64), torch.bfloat16, False, False),
+    ((1, 96, 2, 64), torch.bfloat16, False, False),  # ragged, not causal
     ((8, 1024, 16, 64), torch.bfloat16, True, True),  # the training shape
 ])
 def test_backward_kernels_match_plain(card, shape, dtype, causal, fused):
