@@ -22,7 +22,18 @@ weights from a seed) along both paths:
   through the forward and both backward kernels, the loss falls, the flash
   gradients agree with full attention's, a Trainer restored from the last
   checkpoint steps exactly as the original, and the trained export serves
-  the trained model's logits.
+  the trained model's logits;
+- cluster: the Spark-style lifecycle in SPARK input mode, ``cluster.run``
+  on a one-executor ``LocalBackend``: the node forks its manager and its
+  user-fn child, which loads the kernels this process built, trains the
+  same LM from rows that ``TPUCluster.train`` pushes through the node's
+  queue (``DataFeed`` -> ``ShardedFeed``: pinned copies to the card on a
+  side stream -> ``Trainer.fit_feed``) and exports it as the chief; after
+  ``shutdown()`` this process serves the export.  Every row trained once,
+  every attention went through the three kernels in the child, the loss
+  falls, and the served logits are the trained model's.  This process
+  initialized CUDA in the phases before; the executor is a spawned
+  process, so nothing forks from here.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -90,6 +101,22 @@ LOSS_DROP = 0.1
 GRAD_RTOL = 5e-2
 RESUME_TOL = 1e-6
 HANDOFF_TOL = 1e-3
+
+# the cluster phase: 164 rows of 1024 tokens, fed as 4 partitions, make 20
+# full steps of 8 rows and a padded final step of 4 valid rows; windows of
+# 5 steps (the steady figure is the median of the windows after the first)
+CLUSTER_ROWS = 164
+CLUSTER_PARTS = 4
+CLUSTER_LOG_STEPS = 5
+CLUSTER_STEPS = -(-CLUSTER_ROWS // TRAIN_BATCH)
+# the cluster node trains the train phase's init on the same token stream in
+# the same order, so its loss at steps 10 and 20 is the train phase's window
+# loss there; another process may pick other cuBLAS algorithms, so 1e-3
+# nats, while a row out of order or corrupt moves it by O(0.1)
+CLUSTER_LOSS_TOL = 1e-3
+# how long the driver waits, after shutdown(), for the node's last step,
+# export and report
+CLUSTER_REPORT_SECS = 300
 
 # (shape [B, S, H, D], dtype, causal, fused): the serving shape first, then
 # the training shape
@@ -824,6 +851,264 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
     return row
 
 
+def lm_rows(np, seed, n, seq, vocab):
+    """``n`` rows of the JAX LM example's learnable token stream
+    (examples/transformer/transformer_lm.py): each row counts up by one
+    from a random offset."""
+    base = np.arange(seq) % vocab
+    offs = np.random.default_rng(seed).integers(0, vocab, (n, 1))
+    return ((base[None, :] + offs) % vocab).astype(np.int32)
+
+
+def cluster_main(args, ctx):
+    """The cluster phase's user fn, run by the node in the child it forked:
+    the first CUDA call of that process is ``ctx.initialize_distributed()``.
+    Trains the LM from the node's feed, exports it as the chief, writes the
+    trained model's logits next to the export, and reports to
+    ``args["report"]`` (the traceback too when it fails, then re-raises)."""
+    import functools
+    import importlib
+    import traceback
+
+    report = {"child_started": time.time()}
+    try:
+        import numpy as np
+        import torch
+
+        from tensorflowonspark_torch import checkpoint, train
+        from tensorflowonspark_torch.models import get_model, transformer
+        from tensorflowonspark_torch.ops import _build
+        from tensorflowonspark_torch.parallel import infeed
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device = ctx.initialize_distributed(device=args["device"])
+        report["device"] = str(device)
+        report["distributed_ready"] = time.time()
+        if device.type == "cuda":
+            # the parent built every kernel: this loads, it does not build
+            t0 = time.perf_counter()
+            built = _build.build()
+            for name in built:
+                _build.load(name)
+            report["kernel_libs"] = {n: {"cached": r["cached"],
+                                         "build_s": r["seconds"]}
+                                     for n, r in built.items()}
+            report["kernel_load_s"] = time.perf_counter() - t0
+        cfg = args["config"]
+        model = get_model("transformer_lm", **cfg)
+        model.init_weights(torch.Generator().manual_seed(0))
+        lm_loss = transformer.loss_fn(model)
+        losses, rows = [], []
+
+        def loss_fn(params, batch, mask):
+            # keeps each step's loss and valid rows as device scalars (no
+            # sync): read once training is over
+            loss, aux = lm_loss(params, batch, mask)
+            losses.append(loss.detach())
+            rows.append(mask.sum())
+            return loss, aux
+
+        trainer = train.Trainer(
+            loss_fn, dict(model.state_dict()),
+            functools.partial(torch.optim.Adam, lr=args["lr"]),
+            compute_dtype=getattr(torch, cfg["dtype"]),
+            batch_size=args["batch"], log_steps=args["log_steps"],
+            extra_step_flops=args["flash_flops"], device=device)
+        feed = infeed.ShardedFeed(ctx.get_data_feed(), args["batch"],
+                                  transform=lambda t: {"tokens": t},
+                                  device=device)
+        report["model_ready"] = time.time()
+        first, step_ends = {}, []
+
+        def on_steps(step):
+            # host clock as each step's dispatch returns: the gaps show
+            # where the step loop waited on the feed
+            step_ends.append(time.perf_counter())
+            if step == 1:
+                first["t"] = time.time()
+
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        stats = trainer.fit_feed(feed, on_steps=on_steps)   # the main path
+        launches = {"flash_fwd": fa.fwd_launches,
+                    "flash_bwd_dq": fa.bwd_dq_launches,
+                    "flash_bwd_dkv": fa.bwd_dkv_launches}  # ... ends here
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        report["fit_feed_end"] = time.time()
+        log = trainer.history.timestamp_log
+        window_ms = [1e3 * (t1 - t0_) / (s1 - s0)
+                     for (s0, t0_), (s1, t1) in zip(log, log[1:])]
+        later = sorted(window_ms[1:])
+        if checkpoint.should_export(ctx):
+            checkpoint.export_model(
+                args["export_dir"], trainer.state.params, "transformer_lm",
+                model_config=cfg,
+                input_signature={"tokens": {"shape": [None, cfg["max_seq_len"]],
+                                            "dtype": "int32"}})
+            request = np.random.default_rng(args["request_seed"]).integers(
+                0, cfg["vocab_size"], (1, cfg["max_seq_len"]), dtype=np.int32)
+            with torch.inference_mode():
+                logits = torch.func.functional_call(
+                    model, trainer.state.params,
+                    (torch.from_numpy(request).to(device),))
+            np.save(os.path.join(args["export_dir"], "trained_logits.npy"),
+                    logits.float().cpu().numpy())
+        report.update({
+            "rows": float(sum(r.item() for r in rows)),
+            "steps": trainer.state.step,
+            "losses": [x.item() for x in losses],
+            "launches": launches,
+            "window_ms_per_step": window_ms,
+            "steady_ms_per_step": later[len(later) // 2] if later else None,
+            "first_step_end": first.get("t"),
+            "step_interval_ms": [1e3 * (b - a) for a, b in
+                                 zip(step_ends, step_ends[1:])],
+            "infeed": feed.counters_snapshot(),
+            "datafeed": feed.feed.counters_snapshot(),
+            "wire_formats": feed.wire_formats(),
+            "overlap": stats["overlap"],
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if device.type == "cuda" else None)})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args["report"] + ".tmp", "w") as f:
+            json.dump(report, f)
+        os.replace(args["report"] + ".tmp", args["report"])
+
+
+def wait_for_report(path, seconds):
+    """The node's report, once its child wrote it; raises after ``seconds``
+    or when the report carries the child's traceback."""
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError("the cluster node wrote no report within "
+                                 "{} s".format(seconds))
+        time.sleep(0.2)
+    with open(path) as f:
+        report = json.load(f)
+    if "error" in report:
+        raise AssertionError("the cluster node failed:\n" + report["error"])
+    return report
+
+
+def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None):
+    """Train the LM through the cluster lifecycle in SPARK input mode on a
+    one-executor LocalBackend, serve the chief's export here, and check
+    rows, steps, kernel launches in the node, loss and handoff."""
+    from tensorflowonspark_torch import backend, cluster, serving
+
+    vocab, layers = config["vocab_size"], config["num_layers"]
+    seq = config["max_seq_len"]
+    heads, head_dim = config["num_heads"], config["head_dim"]
+    parts = backend.partition(list(lm_rows(np, 0, CLUSTER_ROWS, seq, vocab)),
+                              CLUSTER_PARTS)
+    if device is None:
+        torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        args = {"config": config, "device": device, "lr": LR,
+                "batch": TRAIN_BATCH, "log_steps": CLUSTER_LOG_STEPS,
+                "flash_flops": 7 * seq * seq * head_dim * TRAIN_BATCH
+                * heads * layers,
+                "export_dir": os.path.join(tmp, "export"),
+                "report": os.path.join(tmp, "report.json"),
+                "request_seed": 2}
+        b = backend.LocalBackend(1)
+        try:
+            t_run = time.time()
+            c = cluster.run(b, cluster_main, args, num_executors=1,
+                            input_mode=cluster.InputMode.SPARK)
+            t_ready = time.time()
+            c.train(parts, num_epochs=1)
+            t_fed = time.time()
+            c.shutdown(grace_secs=1)
+            report = wait_for_report(args["report"], CLUSTER_REPORT_SECS)
+        finally:
+            b.stop()
+        t_reported = time.time()
+        request = np.random.default_rng(args["request_seed"]).integers(
+            0, vocab, (1, seq), dtype=np.int32)
+        server = serving.ModelServer(args["export_dir"],
+                                     batch_size=SERVE_BATCH, device=device)
+        served = server.predict_feed({"tokens": request}, 1)["output"]
+        del server
+        trained = np.load(os.path.join(args["export_dir"],
+                                       "trained_logits.npy"))
+    handoff_diff = float(np.abs(served - trained).max())
+    handoff_scale = float(np.abs(trained).max())
+    losses = report["losses"]
+    # steps 10 and 20 against the train phase's windows (None when absent)
+    vs_train = {str(LOG_STEPS * (i + 1)): abs(losses[LOG_STEPS * (i + 1) - 1]
+                                              - want)
+                for i, want in enumerate(train_row.get("window_losses", []))
+                if LOG_STEPS * (i + 1) <= len(losses)}
+    expected = layers * CLUSTER_STEPS if report["device"] != "cpu" else 0
+    steady = report["steady_ms_per_step"]
+    row = {"phase": "cluster", "config": config, "device": report["device"],
+           "backend": "LocalBackend(1)", "input_mode": "SPARK",
+           "rows_fed": CLUSTER_ROWS, "partitions": CLUSTER_PARTS,
+           "rows_trained": report["rows"], "steps": report["steps"],
+           "expected_steps": CLUSTER_STEPS,
+           "first_step_loss": losses[0] if losses else None,
+           "last_step_loss": losses[-1] if losses else None,
+           "losses": losses, "loss_diff_vs_train_phase": vs_train,
+           "loss_tol_vs_train_phase": CLUSTER_LOSS_TOL,
+           "launches": report["launches"], "expected_launches": expected,
+           "window_ms_per_step": report["window_ms_per_step"],
+           "steady_ms_per_step": steady,
+           "train_phase_steady_ms_per_step": train_row.get(
+               "steady_ms_per_step"),
+           "train_phase_ms_per_step": train_row.get("ms_per_step"),
+           "feed_cost_ms_per_step": (
+               steady - train_row["steady_ms_per_step"]
+               if steady is not None
+               and train_row.get("steady_ms_per_step") is not None else None),
+           "bring_up_s": {
+               "cluster_run": t_ready - t_run,
+               "to_child_start": report["child_started"] - t_run,
+               "to_distributed_ready": report["distributed_ready"] - t_run,
+               "child_kernel_load_s": report.get("kernel_load_s"),
+               "to_model_ready": report["model_ready"] - t_run,
+               "to_first_step": (report["first_step_end"] - t_run
+                                 if report["first_step_end"] else None)},
+           "child_kernel_libs": report.get("kernel_libs"),
+           "feed_s": t_fed - t_ready,
+           "end_of_feed_to_report_s": t_reported - t_fed,
+           "rows_per_s_fed": CLUSTER_ROWS / (t_fed - t_ready),
+           "step_interval_ms": report["step_interval_ms"],
+           "infeed": report["infeed"], "datafeed": report["datafeed"],
+           "wire_formats": report["wire_formats"],
+           "overlap": report["overlap"],
+           "max_memory_allocated": report["max_memory_allocated"],
+           "handoff_max_abs_diff": handoff_diff,
+           "handoff_max_abs_logit": handoff_scale,
+           "handoff_tol": HANDOFF_TOL * handoff_scale}
+    emit(row)
+    if report["rows"] != CLUSTER_ROWS or report["steps"] != CLUSTER_STEPS:
+        raise AssertionError("the node trained {} rows in {} steps, expected "
+                             "{} in {}".format(report["rows"], report["steps"],
+                                               CLUSTER_ROWS, CLUSTER_STEPS))
+    if any(n != expected for n in report["launches"].values()):
+        raise AssertionError("kernel launches {} in the node, expected {} "
+                             "each (layers x steps)".format(
+                                 report["launches"], expected))
+    if not (len(losses) == CLUSTER_STEPS and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError("cluster training loss not finite and falling: "
+                             "{}".format(losses))
+    if not all(d <= CLUSTER_LOSS_TOL for d in vs_train.values()):
+        raise AssertionError("the cluster node's losses differ from the train "
+                             "phase's on the same stream: {}".format(vs_train))
+    if not handoff_diff <= HANDOFF_TOL * handoff_scale:
+        raise AssertionError("the served cluster export differs from the "
+                             "trained model by {} (max |logit| {})".format(
+                                 handoff_diff, handoff_scale))
+    return row
+
+
 def main():
     import torch
 
@@ -859,6 +1144,7 @@ def main():
                 "flash_bwd_dkv": bwd_rows[0][1]}
     trained = phase_train(torch, np, fa, metrics, device["kind"],
                           {n: r["kernel_ms"] for n, r in at_train.items()})
+    clustered = phase_cluster(torch, np, trained)
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -875,7 +1161,10 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            "launches": trained["launches"][name],
+            # this slice's main path: the cluster node's fit_feed
+            "launches": clustered["launches"][name],
+            "launches_by_path": {"train": trained["launches"][name],
+                                 "cluster": clustered["launches"][name]},
             "max_abs_err": row.get("max_abs_err", row.get("max_abs_err_o")),
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
@@ -886,8 +1175,7 @@ def main():
             "checked_shapes": (len(fwd_rows) if name == "flash_fwd"
                                else len(bwd_rows))}
         if name == "flash_fwd":
-            entry["launches_by_path"] = {"serve": serve["fwd_launches"],
-                                         "train": entry["launches"]}
+            entry["launches_by_path"]["serve"] = serve["fwd_launches"]
             entry["serve_shape"] = {
                 k: serve_row[k] for k in ("shape", "max_abs_err_o",
                                           "kernel_ms", "kernel_device_ms",

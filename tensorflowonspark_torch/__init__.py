@@ -8,20 +8,35 @@ JAX package wrote in Pallas for the TPU are hand-written CUDA here, under
 ``csrc/``, each beside its plain PyTorch version.  Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.
 
-Ported so far (the serving and training slices):
+Ported so far (the serving, training and cluster slices):
 
-- :mod:`~tensorflowonspark_torch.device`      — device resolution
+- :mod:`~tensorflowonspark_torch.cluster`     — ``cluster.run``, the
+  ``TPUCluster`` lifecycle, SPARK and FILES input modes (copied)
+- :mod:`~tensorflowonspark_torch.node`        — the per-executor node
+  runtime; ``initialize_distributed`` joins a ``torch.distributed`` world
+- copied jax-free planes: ``backend``, ``reservation``, ``standby``,
+  ``manager``, ``datafeed``, ``marker``, ``columnar``, ``wire``,
+  ``shmring`` (+ ``native``), ``fault``, ``telemetry``, ``fsio``, ``util``
+- :mod:`~tensorflowonspark_torch.device`      — device resolution, card
+  pinning
 - :mod:`~tensorflowonspark_torch.ops`         — FlashAttention-2 forward and
   backward kernels
-- :mod:`~tensorflowonspark_torch.parallel`    — reference attention
-- :mod:`~tensorflowonspark_torch.models`      — registry + transformer LM
-  and its loss
+- :mod:`~tensorflowonspark_torch.parallel`    — reference attention, the
+  host-level collectives, the ``ShardedFeed`` infeed
+- :mod:`~tensorflowonspark_torch.models`      — registry, transformer LM,
+  MNIST CNN, their losses
 - :mod:`~tensorflowonspark_torch.convert`     — flax tree <-> state_dict
-- :mod:`~tensorflowonspark_torch.train`       — Trainer (step, fit_feed)
+- :mod:`~tensorflowonspark_torch.train`       — Trainer (step, fit_feed,
+  data-parallel gradient all-reduce)
 - :mod:`~tensorflowonspark_torch.checkpoint`  — CheckpointManager, export /
-  load
+  load, ``should_export``
 - :mod:`~tensorflowonspark_torch.serving`     — ModelServer
 - :mod:`~tensorflowonspark_torch.inference_cli` — run_inference
 - :mod:`~tensorflowonspark_torch.metrics`     — TimeHistory, MFU, peak
-  rates, roofline
+  rates, roofline, card memory counters
+
+CUDA and fork: the cluster layer forks (the manager server, the SPARK-mode
+user-fn child), and a process that has initialized CUDA cannot hand it to
+a forked child.  The driver and the executor shells never initialize CUDA;
+the first CUDA call is in the user's ``main_fun``.
 """

@@ -273,6 +273,18 @@ def _nonfinite_leaves(state_dict):
             if torch.is_floating_point(t) and not bool(torch.isfinite(t).all())]
 
 
+def should_export(ctx):
+    """Who calls :func:`export_model` in a cluster: the chief only, in
+    every world.
+
+    The JAX package's rule differs in multi-process worlds, where every
+    process calls its export because the orbax save is a cross-process
+    collective.  The port writes with ``torch.save`` from one process and
+    has no such collective, so any other process writing the same
+    directory would only race the chief."""
+    return ctx.is_chief()
+
+
 def export_model(export_dir, params, model_name, model_config=None,
                  input_signature=None):
     """Export ``params`` (a ``state_dict`` or an ``nn.Module``) and the

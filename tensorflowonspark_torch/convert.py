@@ -10,7 +10,9 @@ Layouts:
   ``(3, H, Dh)`` <-> one ``(3*H*Dh, d)`` weight and ``(3*H*Dh,)`` bias, the
   ``(3, H, Dh)`` order kept;
 - ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
-- ``Embed`` ``embedding`` <-> ``weight``.
+- ``Embed`` ``embedding`` <-> ``weight``;
+- ``Conv`` kernel ``(H, W, in, out)`` (HWIO) <-> ``Conv2d`` ``weight``
+  ``(out, in, H, W)`` (OIHW).
 """
 
 import numpy as np
@@ -92,4 +94,48 @@ def transformer_params_to_flax(state_dict, num_heads):
             block[flax_name] = {"scale": arr(prefix + name + ".weight"),
                                 "bias": arr(prefix + name + ".bias")}
         tree["block_%d" % i] = block
+    return tree
+
+
+def conv_kernel_to_torch(kernel):
+    """A flax ``Conv`` kernel (HWIO) as a ``Conv2d`` weight (OIHW)."""
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def conv_weight_to_flax(weight):
+    """A ``Conv2d`` weight (OIHW) as a flax ``Conv`` kernel (HWIO)."""
+    return np.ascontiguousarray(
+        weight.detach().cpu().float().numpy().transpose(2, 3, 1, 0))
+
+
+# flax module name -> torch module name in MnistCNN
+_MNIST_CONV = {"Conv_0": "conv0", "Conv_1": "conv1"}
+_MNIST_DENSE = {"Dense_0": "dense0", "Dense_1": "dense1"}
+
+
+def mnist_params_from_flax(tree):
+    """A flax ``MnistCNN`` param tree -> the port's ``state_dict``."""
+    sd = {}
+    for flax_name, name in _MNIST_CONV.items():
+        sd[name + ".weight"] = conv_kernel_to_torch(tree[flax_name]["kernel"])
+        sd[name + ".bias"] = _t(tree[flax_name]["bias"])
+    for flax_name, name in _MNIST_DENSE.items():
+        sd[name + ".weight"] = _t(np.asarray(tree[flax_name]["kernel"]).T)
+        sd[name + ".bias"] = _t(tree[flax_name]["bias"])
+    return sd
+
+
+def mnist_params_to_flax(state_dict):
+    """The port's ``MnistCNN`` ``state_dict`` -> a flax param tree of numpy
+    arrays."""
+    def arr(name):
+        return state_dict[name].detach().cpu().float().numpy().copy()
+
+    tree = {}
+    for flax_name, name in _MNIST_CONV.items():
+        tree[flax_name] = {"kernel": conv_weight_to_flax(
+            state_dict[name + ".weight"]), "bias": arr(name + ".bias")}
+    for flax_name, name in _MNIST_DENSE.items():
+        tree[flax_name] = {"kernel": np.ascontiguousarray(
+            arr(name + ".weight").T), "bias": arr(name + ".bias")}
     return tree

@@ -1,12 +1,18 @@
-"""Device resolution for the port (the counterpart of
-:mod:`tensorflowonspark_tpu.device_info`).
+"""Device resolution and card placement for the port (the counterpart of
+:mod:`tensorflowonspark_tpu.device_info`, which in turn stands for the
+original system's ``gpu_info.py``).
 
 Entry points run on the CUDA card unless the caller asks for the CPU.  With
 no card and no explicit ``"cpu"`` they raise: work never moves to the CPU
 silently.
 """
 
+import logging
+import os
+
 import torch
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device=None):
@@ -32,3 +38,48 @@ def device_report():
     """``{"name", "count"}`` of the CUDA cards this process sees."""
     return {"name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
+
+
+def num_local_cards():
+    """Number of CUDA cards this process sees (after any
+    ``CUDA_VISIBLE_DEVICES`` pinning).  It asks the CUDA driver, so call it
+    where CUDA may start: in a node's user fn, never before the node's
+    forks."""
+    return torch.cuda.device_count()
+
+
+def pin_cards(worker_index, cards_per_worker, total_cards=None):
+    """Bind this process to a deterministic subset of the host's cards.
+
+    The counterpart of the JAX package's ``device_info.pin_chips`` and of
+    the original system's by-worker-index GPU placement for several
+    workers per host (``gpu_info.py:91-102``): worker ``i`` gets cards
+    ``[i*cards_per_worker, (i+1)*cards_per_worker)`` by setting
+    ``CUDA_VISIBLE_DEVICES``.  When the variable is already set, the
+    indices pick from the cards it lists.  ``total_cards``, when given,
+    bounds the request.
+
+    It must run before CUDA initializes in this process (CUDA reads the
+    variable once); it raises ``RuntimeError`` otherwise.  It only sets an
+    environment variable and makes no CUDA call.  Returns the card ids now
+    visible, as the host numbers them."""
+    if torch.cuda.is_initialized():
+        raise RuntimeError(
+            "pin_cards must run before CUDA initializes in this process")
+    first = worker_index * cards_per_worker
+    wanted = list(range(first, first + cards_per_worker))
+    inherited = os.environ.get("CUDA_VISIBLE_DEVICES")
+    host_cards = ([c.strip() for c in inherited.split(",") if c.strip()]
+                  if inherited else None)
+    limit = len(host_cards) if host_cards is not None else total_cards
+    if total_cards is not None and limit is not None:
+        limit = min(limit, total_cards)
+    if limit is not None and wanted[-1] >= limit:
+        raise ValueError(
+            "worker {} requests cards {} beyond this host's {} cards".format(
+                worker_index, wanted, limit))
+    cards = ([host_cards[i] for i in wanted] if host_cards is not None
+             else [str(i) for i in wanted])
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
+    logger.info("pinned worker %d to cards %s", worker_index, cards)
+    return cards

@@ -40,6 +40,34 @@ PEAKS = {
 STEP_MS_BUCKETS = (1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000)
 
 
+def device_memory_counters():
+    """Card memory high-water marks as heartbeat counters, under the JAX
+    package's gauge names: ``device_mem_bytes_in_use_hwm`` (bytes the
+    caching allocator holds for tensors now) and
+    ``device_mem_peak_bytes_hwm`` (its peak), the max over this process's
+    cards, from ``torch.cuda.memory_stats``.
+
+    This runs on the heartbeat thread, which must never be what
+    initializes CUDA (seconds of start-up, and a forked node could no
+    longer use the card): a process that has not initialized CUDA
+    contributes ``{}``."""
+    out = {}
+    try:
+        if not torch.cuda.is_initialized():
+            return out
+        in_use = peak = 0
+        for index in range(torch.cuda.device_count()):
+            stats = torch.cuda.memory_stats(index)
+            in_use = max(in_use, int(stats.get("allocated_bytes.all.current",
+                                               0)))
+            peak = max(peak, int(stats.get("allocated_bytes.all.peak", 0)))
+        out["device_mem_bytes_in_use_hwm"] = in_use
+        out["device_mem_peak_bytes_hwm"] = peak
+    except Exception:  # metrics must never cost a heartbeat
+        logger.debug("device memory stats unavailable", exc_info=True)
+    return out
+
+
 def peak_rates(device_name, dtype="bfloat16"):
     """``(flops_per_sec, bytes_per_sec)`` of ``device_name`` for work in
     ``dtype``.  Raises ``KeyError`` on a device or dtype not in the table."""

@@ -3,7 +3,8 @@
 
 The registry maps exported model names back to constructors, so a server
 can rebuild a model from an export's name and config alone.  So far it
-holds the transformer LM (:mod:`~tensorflowonspark_torch.models.transformer`).
+holds the transformer LM (:mod:`~tensorflowonspark_torch.models.transformer`)
+and the MNIST CNN (:mod:`~tensorflowonspark_torch.models.mnist`).
 """
 
 _REGISTRY = {}
@@ -25,4 +26,4 @@ def get_model(name, **config):
 
 
 # Import for registration side effects.
-from tensorflowonspark_torch.models import transformer  # noqa: E402,F401
+from tensorflowonspark_torch.models import mnist, transformer  # noqa: E402,F401

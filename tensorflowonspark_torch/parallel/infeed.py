@@ -1,0 +1,453 @@
+"""Sharded per-host infeed: Spark-pushed partitions -> device-resident
+local batches (the port's twin of
+:class:`tensorflowonspark_tpu.parallel.infeed.ShardedFeed`).
+
+The JAX package assembles each host's shard of a mesh-sharded global batch
+and transfers it with ``jax.make_array_from_process_local_data``.  The port
+has no mesh: each process of the ``torch.distributed`` world trains on its
+own local batch of ``global_batch_size / world_size`` rows, and the
+Trainer's gradient all-reduce makes the step the global batch's.  Each
+host:
+
+1. drains its queue into **columnar numpy batches** (feeders ship ColChunks
+   as zero-copy framed ring records — :mod:`~tensorflowonspark_torch.wire`),
+2. pads a short final batch to the local batch size with a validity mask,
+3. copies it into **pinned** host tensors and from there to the card with
+   ``non_blocking=True`` on a side CUDA stream; an event recorded after the
+   copies is what the consumer's stream waits on before the step reads the
+   batch, and ``record_stream`` tells the caching allocator that the
+   consumer's stream uses the batch, so its memory is not handed out again
+   while the step may still read it (the pinned host buffers are held by
+   PyTorch's host allocator until their copies complete),
+4. runs a tiny cross-host consensus each step (a gloo all-reduce, see
+   :mod:`~tensorflowonspark_torch.parallel.collectives`) so all hosts agree
+   whether a full step's worth of data exists,
+5. prefetches (two batches by default) on a host thread, so assembly and
+   the host->device copy overlap the device step.
+
+On the CPU (``device="cpu"``, the tests) the batch is the same tensors,
+copied from the feed's arrays, without a stream.  The ``infeed_*``
+counters keep the JAX package's names and ride heartbeats the same way.
+"""
+
+import logging
+import os
+import queue as _queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from tensorflowonspark_torch import telemetry
+from tensorflowonspark_torch.device import resolve_device
+from tensorflowonspark_torch.parallel import collectives
+
+logger = logging.getLogger(__name__)
+
+#: prefetch depth used when the ctor gets ``prefetch=None`` (double
+#: buffering by default; 0 disables the prefetch thread entirely and moves
+#: assembly + transfer back onto the dispatch path)
+PREFETCH_ENV = "TFOS_INFEED_PREFETCH"
+DEFAULT_PREFETCH = 2
+
+#: how long :meth:`ShardedFeed.terminate` waits for the prefetch thread —
+#: it can be mid host->device copy (not interruptible), so the join is
+#: bounded, re-interrupting the feed each round; past the deadline the
+#: queue drain is skipped (single-consumer invariant) and the daemon thread
+#: is abandoned.
+TERMINATE_JOIN_SECS = 30.0
+
+_GROUPED_TODO = ("grouped_batches (K-step groups for multi_step) is not "
+                 "ported yet (ROADMAP.md, Queue 1, item 9: multi_step as "
+                 "CUDA graphs)")
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+class ShardedFeed(object):
+    """Iterator of device-resident local batches from a DataFeed.
+
+    Args:
+      feed: a :class:`~tensorflowonspark_torch.datafeed.DataFeed` (or any
+        object with ``next_batch``/``next_batch_arrays``, ``should_stop``,
+        ``interrupt`` and ``terminate``).
+      global_batch_size: total batch across all processes; this process
+        contributes ``global_batch_size / world_size`` rows per step.
+      preprocess: optional ``fn(items) -> tree of np.ndarray`` turning a
+        list of queue items into columnar arrays (the *row-list* path).
+      transform: optional ``fn(arrays) -> tree of np.ndarray`` applied to
+        the **columnar** batch from ``DataFeed.next_batch_arrays``.
+      pad_final: when the feed ends mid-batch, pad the final batch to full
+        size and attach a validity mask instead of dropping the tail.
+      prefetch: batches assembled and copied to the card ahead on a host
+        thread.  ``None`` reads ``TFOS_INFEED_PREFETCH`` (default 2); 0
+        disables the thread.
+      device: ``"cuda"`` by default; ``"cpu"`` only when asked (with no
+        card otherwise this raises).
+    """
+
+    def __init__(self, feed, global_batch_size, preprocess=None,
+                 transform=None, pad_final=True, prefetch=None, device=None):
+        if preprocess is not None and transform is not None:
+            raise ValueError("pass either preprocess (row-list path) or "
+                             "transform (columnar)")
+        self.device = resolve_device(device)
+        self._num_processes = collectives.world_size()
+        if global_batch_size % self._num_processes:
+            raise ValueError(
+                "global_batch_size {} does not split over {} processes".format(
+                    global_batch_size, self._num_processes))
+        self.feed = feed
+        self.global_batch_size = global_batch_size
+        self.local_batch_size = global_batch_size // self._num_processes
+        self.preprocess = preprocess  # None = columnar next_batch_arrays path
+        self.transform = transform
+        self.pad_final = pad_final
+        if prefetch is None:
+            prefetch = int(os.environ.get(PREFETCH_ENV, "")
+                           or DEFAULT_PREFETCH)
+        self._prefetch_depth = prefetch
+        # Always-on plain-int tallies (read at heartbeat cadence; single
+        # writer: the prefetch thread, or the consumer when prefetch=0).
+        self._n_batches = 0
+        self._assembly_us = 0
+        self._assembly_us_hwm = 0
+        self._put_us = 0
+        self._put_us_hwm = 0
+        self._stream = None          # side stream of the copies (lazy)
+        self._stop = None            # prefetch stop event (set in batches())
+        self._prefetch_thread = None
+        self._prefetch_buf = None    # live prefetch queue (apply_knob target)
+        # Ride this node's heartbeats (duck-typed counters_snapshot).
+        from tensorflowonspark_torch import node as _node_mod
+
+        _node_mod._register_feed(self)
+
+    # -- overlap accounting ----------------------------------------------
+
+    def _tally_assembly(self, start):
+        us = int((time.perf_counter() - start) * 1e6)
+        self._assembly_us += us
+        if us > self._assembly_us_hwm:
+            self._assembly_us_hwm = us
+
+    def _tally_put(self, start):
+        us = int((time.perf_counter() - start) * 1e6)
+        self._put_us += us
+        if us > self._put_us_hwm:
+            self._put_us_hwm = us
+
+    def counters_snapshot(self):
+        """Flat infeed overlap counters under the JAX package's names:
+        ``infeed_batches`` (device transfers), ``infeed_assembly_us`` (host
+        columnar assembly, including time blocked on the upstream feed),
+        ``infeed_put_us`` (host time to issue the pinned copy and the
+        host->device copy; the copy itself runs on the side stream),
+        per-batch ``_hwm`` high-water marks of both,
+        ``train_group_assemble_us`` (0: grouped batches are not ported) and
+        the ``infeed_prefetch_depth_max`` gauge."""
+        return {
+            "infeed_batches": self._n_batches,
+            "infeed_assembly_us": self._assembly_us,
+            "infeed_assembly_us_hwm": self._assembly_us_hwm,
+            "infeed_put_us": self._put_us,
+            "infeed_put_us_hwm": self._put_us_hwm,
+            "train_group_assemble_us": 0,
+            "train_group_assemble_us_hwm": 0,
+            "infeed_prefetch_depth_max": self._prefetch_depth,
+        }
+
+    def apply_knob(self, name, value):
+        """Live-knob hook: ``infeed_prefetch`` retunes the prefetch depth
+        mid-run (applied to the running prefetch queue in place; a feed
+        built with ``prefetch=0`` takes a raise at the next ``batches()``).
+        ``train_steps_per_call`` is not claimed: grouped batches are not
+        ported.  Returns True when the knob was claimed."""
+        if name != "infeed_prefetch":
+            return False
+        depth = max(int(value), 1)
+        self._prefetch_depth = depth
+        buf = self._prefetch_buf
+        if buf is not None:
+            with buf.mutex:
+                buf.maxsize = depth
+                buf.not_full.notify_all()
+        return True
+
+    # -- host-side batch assembly ----------------------------------------
+
+    def _next_local(self):
+        """Assemble this host's local batch as final columnar arrays;
+        returns (arrays, count) or None when no usable rows remain."""
+        start = time.perf_counter()
+        with telemetry.get_tracer().span("infeed/assemble"):
+            local = self._next_local_inner()
+        if local is not None:
+            self._tally_assembly(start)
+        return local
+
+    def _next_local_inner(self):
+        if self.preprocess is not None:
+            # row-list path: user preprocess consumes the raw item lists
+            items = self.feed.next_batch(self.local_batch_size)
+            if isinstance(items, dict):
+                count = len(next(iter(items.values()))) if items else 0
+            else:
+                count = len(items)
+            if count == 0:
+                return None
+            arrays = self.preprocess(items)
+        else:
+            arrays, count = self.feed.next_batch_arrays(self.local_batch_size)
+            if count == 0:
+                return None
+            if self.transform is not None:
+                arrays = self.transform(arrays)
+        if count < self.local_batch_size and not self.pad_final:
+            # partial tail with padding disabled: drop it (documented)
+            logger.info("dropping %d-row partial tail (pad_final=False)", count)
+            return None
+        return arrays, count
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return self._stream
+
+    def _shard(self, arrays, count):
+        """Pad to the local batch size and put the batch on the device;
+        returns ``(batch, mask, count, ready)``, ``ready`` the CUDA event
+        that follows the copies (None on the CPU)."""
+        def to_padded(col):
+            col = np.asarray(col)
+            if count < self.local_batch_size:
+                pad = [(0, self.local_batch_size - count)] + \
+                      [(0, 0)] * (col.ndim - 1)
+                col = np.pad(col, pad)
+            return col
+
+        local = _map(arrays, to_padded)
+        mask = np.zeros((self.local_batch_size,), dtype=np.float32)
+        mask[:count] = 1.0
+        start = time.perf_counter()
+        with telemetry.get_tracer().span("infeed/device_put", rows=count):
+            if self.device.type == "cpu":
+                # copies: the feed's arrays may view buffers it reuses
+                batch = _map(local, lambda x: torch.from_numpy(np.array(x)))
+                mask_t, ready = torch.from_numpy(mask), None
+            else:
+                pinned = _map(local, lambda x: torch.from_numpy(
+                    np.ascontiguousarray(x)).pin_memory())
+                pinned_mask = torch.from_numpy(mask).pin_memory()
+                stream = self._side_stream()
+                with torch.cuda.stream(stream):
+                    batch = _map(pinned, lambda t: t.to(self.device,
+                                                        non_blocking=True))
+                    mask_t = pinned_mask.to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+        self._tally_put(start)
+        self._n_batches += 1
+        return batch, mask_t, count, ready
+
+    def _handoff(self, item):
+        """``(batch, mask)`` of a sharded item, safe to use on the calling
+        thread's current stream: that stream waits for the copies, and the
+        allocator learns that it uses the tensors."""
+        batch, mask, _, ready = item
+        if ready is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(ready)
+            for t in _leaves(batch) + [mask]:
+                t.record_stream(consumer)
+        return batch, mask
+
+    # -- public iteration -------------------------------------------------
+
+    def batches(self, drain="any"):
+        """Generator of ``(batch, mask)`` local batches on the device.
+
+        Every process must iterate in lock-step (the Trainer all-reduces
+        each step); the per-step consensus guarantees they agree on when to
+        stop, even when partitions are uneven across hosts.
+
+        ``drain`` picks the uneven-tail semantics:
+
+        - ``"any"`` (training default): stop as soon as ANY host runs out —
+          a full global batch exists every step; stragglers' tails drop.
+        - ``"all"`` (exact evaluation): run until EVERY host is exhausted —
+          hosts that ran out keep stepping with a zero-mask dummy batch (a
+          masked copy of their last real batch), so no host's rows are ever
+          dropped.  Requires each host to produce at least one real batch.
+        """
+        if drain not in ("any", "all"):
+            raise ValueError(
+                "drain must be 'any' or 'all', got {!r}".format(drain))
+        if drain == "all" and not self.pad_final:
+            raise ValueError(
+                "drain='all' (exact evaluation) requires pad_final=True")
+        stop = self._stop = threading.Event()
+        source = (self._prefetched(stop, self._sharded_iter())
+                  if self._prefetch_depth else self._sharded_iter())
+        template = None
+        try:
+            for item in source:
+                has_data = item is not None
+                if drain == "all":
+                    if has_data:
+                        template = self._handoff(item)
+                        if not collectives.any_host_has_data(True):
+                            break  # unreachable, keeps call counts aligned
+                        yield template
+                    else:
+                        yield from self._drain_dummies(template)
+                        return
+                    continue
+                if not collectives.end_of_data_consensus(has_data):
+                    if has_data:
+                        logger.info(
+                            "dropping a final partial step (%d local rows): "
+                            "another host exhausted its feed", item[2])
+                    break
+                yield self._handoff(item)
+        finally:
+            stop.set()  # wind the prefetch thread down on any exit path
+
+    def _drain_dummies(self, template):
+        """drain="all" epilogue: this host is exhausted — keep the ranks in
+        lock-step with zero-mask dummy steps until every other host is
+        exhausted too."""
+        if template is None:
+            # Raise BEFORE joining any collective: joining first would let
+            # the other hosts proceed into their next step and block on a
+            # reduction this process never enters.
+            raise RuntimeError(
+                "drain='all' needs at least one local batch to shape "
+                "dummy steps; this host's feed was empty (rebalance "
+                "shards so every process gets data)")
+        zero_mask = None
+        while collectives.any_host_has_data(False):
+            if zero_mask is None:
+                zero_mask = template[1] * 0.0
+            yield template[0], zero_mask
+
+    def grouped_batches(self, k):
+        raise NotImplementedError(_GROUPED_TODO)
+
+    def wire_formats(self):
+        """Transport/format counts the underlying feed observed, e.g.
+        ``{"colv1": 120}`` when the zero-copy framed ring path carried every
+        chunk."""
+        return dict(getattr(self.feed, "wire_formats", None) or {})
+
+    def terminate(self):
+        """Terminate feeding early (training hit max steps with data left):
+        marks the node terminating and drains the input queue so blocked
+        feeders unblock (reference ``TFNode.terminate``).
+
+        The queue and shm ring are strictly single-consumer, so the
+        prefetch thread must be fully out before the drain starts: stop the
+        producer, interrupt its blocked get, join it — then drain.  The
+        join is BOUNDED (:data:`TERMINATE_JOIN_SECS`); a thread still alive
+        past it is abandoned with a loud log and the drain skipped."""
+        if self._stop is not None:
+            self._stop.set()
+        t = self._prefetch_thread
+        if t is not None and t.is_alive():
+            deadline = time.monotonic() + TERMINATE_JOIN_SECS
+            while t.is_alive() and time.monotonic() < deadline:
+                self.feed.interrupt()
+                t.join(timeout=0.2)
+            if t.is_alive():
+                logger.error(
+                    "infeed prefetch thread did not exit within %.0fs of "
+                    "terminate(); skipping the queue drain (single-consumer "
+                    "invariant) and abandoning the daemon thread",
+                    TERMINATE_JOIN_SECS)
+                return
+        self.feed.terminate()
+
+    def _local_iter(self):
+        """Yields (arrays, count) per step, then a single None at end-of-feed.
+
+        Stops *without another blocking queue read* once the feed reported
+        end-of-feed — the final partial batch consumes the queue's only None
+        sentinel, so a further next_batch() would block forever.
+        """
+        while not self.feed.should_stop():
+            local = self._next_local()
+            if local is None:
+                break
+            yield local
+        yield None
+
+    def _sharded_iter(self):
+        """Yields ``(batch, mask, count, ready)`` per step, then a single
+        None at end-of-feed."""
+        for local in self._local_iter():
+            if local is None:
+                yield None
+                return
+            yield self._shard(*local)
+
+    def _prefetched(self, stop, source_iter):
+        """Host-thread prefetch: overlap queue drain, numpy assembly AND the
+        host->device copy with the device step.  ``stop`` aborts the
+        producer when the consumer exits early (max_steps / consensus)."""
+        buf = _queue.Queue(maxsize=self._prefetch_depth)
+        self._prefetch_buf = buf
+
+        def _put(item):
+            while not stop.is_set():
+                try:
+                    buf.put(item, timeout=0.2)
+                    return True
+                except _queue.Full:
+                    continue
+            return False
+
+        def _producer():
+            # An exception in the feed (e.g. a dead manager) travels through
+            # the buffer so the consumer re-raises instead of blocking forever
+            # on a producer that died without its None sentinel.
+            try:
+                for item in source_iter:
+                    if not _put(item):
+                        return
+            except BaseException as exc:  # noqa: B036 — relayed, not handled
+                _put(exc)
+
+        t = threading.Thread(target=_producer, name="infeed-prefetch",
+                             daemon=True)
+        self._prefetch_thread = t
+        t.start()
+        while True:
+            # Timed get + producer-liveness check: terminate() from another
+            # thread sets stop and the producer exits WITHOUT its None
+            # sentinel — a bare blocking get would then wait forever.
+            try:
+                item = buf.get(timeout=0.2)
+            except _queue.Empty:
+                if stop.is_set() and not t.is_alive():
+                    return
+                continue
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+            if item is None:
+                return

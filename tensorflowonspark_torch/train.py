@@ -1,14 +1,23 @@
-"""Trainer: the port's training loop on one device (the counterpart of
-:mod:`tensorflowonspark_tpu.train`, its single-device ``steps_per_call=1``
-path).
+"""Trainer: the port's training loop (the counterpart of
+:mod:`tensorflowonspark_tpu.train`, its ``steps_per_call=1`` path).
 
-The JAX Trainer jits a functional step over a replicated pytree; here the
-step runs eagerly: the loss and its backward through autograd (the flash
-attention kernels' backward included), the global grad norm on the
-device, and one ``torch.optim`` step that updates the params in place.
-Nothing in a step reads a value back to the host: the loss and grad norm
-stay device scalars until a :class:`~tensorflowonspark_torch.metrics.TimeHistory`
-window boundary syncs on them.
+The JAX Trainer jits a functional step over a pytree sharded on a mesh;
+here the step runs eagerly on one device per process: the loss and its
+backward through autograd (the flash attention kernels' backward
+included), the global grad norm on the device, and one ``torch.optim``
+step that updates the params in place.  Nothing in a step reads a value
+back to the host: the loss and grad norm stay device scalars until a
+:class:`~tensorflowonspark_torch.metrics.TimeHistory` window boundary syncs
+on them.
+
+In a ``torch.distributed`` world of more than one process (data
+parallelism, each process a local batch of the global one, as
+:class:`~tensorflowonspark_torch.parallel.infeed.ShardedFeed` yields them)
+the step all-reduces the gradients so that the update is the JAX
+Trainer's over the global batch, a padded final batch included: with
+``loss_fn`` a masked mean over rows (every loss of the model zoo), each
+rank's gradient is weighted by its valid rows over the global valid-row
+count before the sum.  Every rank then applies identical gradients.
 """
 
 import dataclasses
@@ -18,7 +27,9 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from tensorflowonspark_torch import fault as fault_mod
 from tensorflowonspark_torch import metrics as metrics_mod
 from tensorflowonspark_torch.device import resolve_device
 
@@ -178,11 +189,34 @@ class Trainer(object):
         loss.backward()
         return loss.detach(), aux
 
+    def _allreduce(self, loss, grads, mask):
+        """Sum the ranks' gradients in place, each weighted by its valid
+        rows over the global valid-row count, so they become the gradient
+        of the masked mean over the global batch; returns that mean's loss.
+        One all-reduce of the two counts, one of the flattened gradients,
+        both on the default group (NCCL on the card)."""
+        rows = mask.sum()
+        totals = torch.stack([rows, loss * rows])
+        dist.all_reduce(totals)
+        global_rows = totals[0].clamp_min(1.0)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        flat.mul_(rows / global_rows)
+        dist.all_reduce(flat)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return totals[1] / global_rows
+
     def _step_core(self, batch, mask):
-        """One optimizer step: ``(loss, aux, grad_norm)``, device scalars."""
+        """One optimizer step: ``(loss, aux, grad_norm)``, device scalars;
+        in a multi-process world the loss and gradients are the global
+        batch's."""
         loss, aux = self._grads(batch, mask)
         grads = [p.grad for p in self.state.params.values()
                  if p.grad is not None]
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            loss = self._allreduce(loss, grads, mask)
         grad_norm = torch.nn.utils.get_total_norm(grads)
         self.state.optimizer.step()
         self.state.step += 1
@@ -260,9 +294,13 @@ class Trainer(object):
         """Train from ``feed`` until it ends (or ``max_steps``); returns the
         final stats.
 
-        ``feed`` is any object whose ``batches()`` yields ``(batch, mask)``;
-        when it has ``terminate()``, an early stop calls it so its producers
-        unblock, and its ``counters_snapshot()`` joins ``stats["overlap"]``.
+        ``feed`` is any object whose ``batches()`` yields ``(batch, mask)``
+        (a :class:`~tensorflowonspark_torch.parallel.infeed.ShardedFeed` in
+        a cluster); when it has ``terminate()``, an early stop calls it so
+        its producers unblock, and its ``counters_snapshot()`` joins
+        ``stats["overlap"]``.  The fault injector of ``TFOS_FAULT_SPEC``
+        (straggler sleep, one NaN batch) hooks every step, as in the JAX
+        Trainer, and the trainer's counters ride this node's heartbeats.
         ``max_steps`` is an **absolute** target for ``state.step``: steps
         taken before count toward it.  ``on_steps``: optional
         ``fn(steps_done)`` called after every step, the hook for periodic
@@ -270,10 +308,16 @@ class Trainer(object):
         ``steps_per_call`` > 1 is not ported yet."""
         if int(steps_per_call) > 1:
             raise NotImplementedError(_MEGASTEP_TODO)
+        from tensorflowonspark_torch import node as node_mod
+
+        node_mod._register_feed(self)
+        injector = fault_mod.from_env()
         last_loss = None
         steps_done = self.state.step
         prev_return = None
         for batch, mask in feed.batches():
+            injector.on_step(steps_done)
+            batch = injector.corrupt_batch(batch, steps_done)
             start = time.perf_counter()
             if prev_return is not None:
                 gap_us = int((start - prev_return) * 1e6)

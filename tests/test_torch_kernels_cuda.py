@@ -190,3 +190,62 @@ def test_public_op_head_dim_32(card, dtype):
     limit = G_TOL[dtype] * want.abs().max().item()
     assert qkv.grad.dtype == dtype
     assert (qkv.grad.float() - want).abs().max().item() <= limit
+
+
+class _RowFeed(object):
+    """Columnar rows served like a DataFeed (``next_batch_arrays``):
+    ``should_stop`` turns true once a read asked for more rows than were
+    left."""
+
+    def __init__(self, rows):
+        self.rows, self.pos, self.done = rows, 0, False
+
+    def next_batch_arrays(self, n):
+        out = self.rows[self.pos:self.pos + n]
+        self.pos += len(out)
+        self.done = len(out) < n
+        return out, len(out)
+
+    def should_stop(self):
+        return self.done
+
+    def interrupt(self):
+        pass
+
+    def terminate(self):
+        pass
+
+
+def test_sharded_feed_on_card_matches_cpu(card):
+    """50 full batches and a padded tail, prefetched two deep onto the card
+    through pinned memory and a side stream, equal the CPU path's batch for
+    batch.  The consumer keeps its stream busy before it copies each batch
+    and drops it right after: a missing event wait would read a batch
+    before its copy ended, a missing ``record_stream`` would let a later
+    copy reuse its memory before the consumer's copy ran."""
+    from tensorflowonspark_torch.parallel.infeed import ShardedFeed
+
+    rows = np.random.default_rng(0).integers(
+        0, 32000, (50 * 8 + 3, 1024)).astype(np.int32)
+
+    def transform(tokens):
+        return {"tokens": tokens}
+
+    want = [(b["tokens"].clone(), m.clone()) for b, m in ShardedFeed(
+        _RowFeed(rows), 8, transform=transform, prefetch=0,
+        device="cpu").batches()]
+    busy = torch.randn(2048, 2048, device=card)
+    got = []
+    feed = ShardedFeed(_RowFeed(rows), 8, transform=transform, prefetch=2,
+                       device=card)
+    for batch, mask in feed.batches():
+        assert batch["tokens"].is_cuda and mask.is_cuda
+        for _ in range(4):
+            busy = torch.tanh(busy @ busy)
+        got.append((batch["tokens"].clone(), mask.clone()))
+        del batch, mask
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 51
+    for (gb, gm), (wb, wm) in zip(got, want):
+        assert torch.equal(gb.cpu(), wb) and torch.equal(gm.cpu(), wm)
+    assert feed.counters_snapshot()["infeed_batches"] == 51

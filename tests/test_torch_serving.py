@@ -178,33 +178,42 @@ def test_roofline_at_the_serving_shape():
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
               "tensorflowonspark_tpu")
 
+# the port's example, imported as a module like the port's own
+_EXAMPLE = os.path.join("examples", "mnist", "mnist_spark_torch.py")
+
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import tensorflowonspark_torch as pkg
-for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(info.name)
+names = [info.name for info in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location("mnist_spark_torch", {example!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
-print(bad)
-sys.exit(1 if bad else 0)
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 25 else 0)
 """
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter that imports every port module (and
-    chip_smoke.py) has no jax, flax, optax, orbax or JAX-package module."""
+    """A fresh interpreter that imports every port module (the copied
+    cluster layer among them), chip_smoke.py and the port's MNIST example
+    has no jax, flax, optax, orbax or JAX-package module."""
     proc = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN)],
+        [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
+                                                  example=_EXAMPLE)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port or of chip_smoke.py imports a forbidden package,
-    not even inside a function."""
+    """No line of the port, of chip_smoke.py or of the port's MNIST example
+    imports a forbidden package, not even inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, _EXAMPLE)]
     for root, _, files in os.walk(os.path.join(REPO,
                                                "tensorflowonspark_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

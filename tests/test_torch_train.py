@@ -21,6 +21,8 @@ from tensorflowonspark_tpu.parallel import batch_sharding, build_mesh
 from tensorflowonspark_torch import checkpoint, convert, train
 from tensorflowonspark_torch.models import transformer
 
+from torch_world import run_world
+
 # batch 8: the 8-device CPU mesh of tests/conftest.py shards it one row per
 # device on the JAX side
 CFG = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=16,
@@ -297,3 +299,48 @@ def test_unported_trainer_methods_raise(flax_params):
         tr.repeat_step(None, None, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.restore_latest(None, validate=True)
+
+
+# the global batch of a padded final step: 6 valid rows of 8
+_PADDED_MASK = np.array([1, 1, 1, 1, 1, 1, 0, 0], np.float32)
+
+
+def _sgd_trainer(state):
+    return train.Trainer(
+        transformer.loss_fn(_torch_model()),
+        {k: torch.from_numpy(v) for k, v in state.items()},
+        functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9),
+        batch_size=BATCH, device="cpu")
+
+
+def _dist_step(rank, state, tokens, mask):
+    """One Trainer step of this rank's half of the global batch (rows
+    ``4 * rank`` on), twice so momentum carries; returns the losses and
+    params."""
+    torch.set_num_threads(1)
+    tr = _sgd_trainer(state)
+    rows = slice(4 * rank, 4 * rank + 4)
+    losses = [tr.step({"tokens": tokens[rows]}, mask[rows])[0].item()
+              for _ in range(2)]
+    return losses, {k: v.detach().numpy() for k, v in tr.state.params.items()}
+
+
+def test_two_process_step_equals_global_batch_step(flax_params):
+    """Two gloo ranks, each with half of a padded global batch (4 and 2
+    valid rows), step exactly as one process on the whole batch: the
+    masked mean is over the global valid rows (not a mean of the local
+    means), and both ranks apply the same gradients."""
+    state = {k: v.numpy() for k, v in
+             convert.transformer_params_from_flax(flax_params).items()}
+    tokens = _tokens(7)
+    tr = _sgd_trainer(state)
+    want_losses = [tr.step({"tokens": tokens}, _PADDED_MASK)[0].item()
+                   for _ in range(2)]
+    ranks = run_world(_dist_step, 2, state, tokens, _PADDED_MASK)
+    for losses, params in ranks:
+        np.testing.assert_allclose(losses, want_losses, rtol=0, atol=1e-6)
+        for name, want in tr.state.params.items():
+            np.testing.assert_allclose(params[name], want.detach().numpy(),
+                                       rtol=0, atol=1e-6, err_msg=name)
+    for name in ranks[0][1]:
+        assert np.array_equal(ranks[0][1][name], ranks[1][1][name]), name
