@@ -22,7 +22,18 @@ weights from a seed) along both paths:
   through the forward and both backward kernels, the loss falls, the flash
   gradients agree with full attention's, a Trainer restored from the last
   checkpoint steps exactly as the original, and the trained export serves
-  the trained model's logits;
+  the trained model's logits; the steady step is timed on batches already
+  on the card, the Trainer's capturable Adam interleaved with a trainer
+  made with ``capturable=False`` (whose losses at steps 10, 20 and 30 are
+  reported beside);
+- train at K = 5: the same init and stream through ``fit_feed(max_steps=30,
+  steps_per_call=5)``: every step after two eager warm-ups is a replay of
+  one captured CUDA graph; the kernels' launches (the counters, which a
+  replay advances by the launches its capture recorded, held to the flash
+  kernels ``torch.profiler`` saw the card execute), the losses at steps 10,
+  20 and 30 against K = 1's, a steady step and a profile of warm groups of
+  5 on device-resident stacks, the capture time, the step-time attribution
+  at K = 1 and K = 5, and a restore into the trainer that captured;
 - cluster: the Spark-style lifecycle in SPARK input mode, ``cluster.run``
   on a one-executor ``LocalBackend``: the node forks its manager and its
   user-fn child, which loads the kernels this process built, trains the
@@ -33,7 +44,13 @@ weights from a seed) along both paths:
   every attention went through the three kernels in the child, the loss
   falls, and the served logits are the trained model's.  This process
   initialized CUDA in the phases before; the executor is a spawned
-  process, so nothing forks from here.
+  process, so nothing forks from here.  Then again with
+  ``TFOS_STEPS_PER_CALL=5`` in the executor's environment: 4 groups of 5
+  and a padded single, all graph replays after the warm-ups, with the
+  losses at steps 10 and 20 against the K = 1 cluster run's.  In both
+  cluster runs the node's ``fit_feed`` runs under ``torch.profiler`` (CUDA
+  activity only), and its launch counters are held to the flash kernels
+  the card executed.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -66,6 +83,9 @@ LOG_STEPS = 10
 LR = 1e-3
 STEADY_STEPS = 10    # warm steps timed after the checks
 PROFILE_STEPS = 3    # warm steps under torch.profiler
+# the steady K = 1 step with capturable Adam (the Trainer's default on the
+# card) and with capturable=False, runs of STEADY_STEPS interleaved
+AB_ROUNDS = 5
 
 # kernel vs plain, same inputs.  O: fp32 sums in another order (1e-4 at
 # |O| <= 4); bf16 O rounds to 8 mantissa bits (2e-2 is one bf16 step below
@@ -117,6 +137,17 @@ CLUSTER_LOSS_TOL = 1e-3
 # how long the driver waits, after shutdown(), for the node's last step,
 # export and report
 CLUSTER_REPORT_SECS = 300
+
+# K steps a dispatch: the train and cluster phases again at K = 5.  Graph
+# replays run the same kernels on the same data; Adam in capturable mode
+# computes its bias corrections as fp32 tensors, not Python floats, and
+# another process may pick other cuBLAS algorithms, so the losses at steps
+# 10, 20 and 30 are held to K = 1's at 1e-3 nats, while a replay that read
+# a stale batch or stale optimizer state moves them by O(0.1)
+MEGA_K = 5
+MEGA_LOSS_TOL = 1e-3
+MEGA_STEADY_GROUPS = 4     # warm groups of 5 timed on device-resident stacks
+MEGA_PROFILE_GROUPS = 2    # warm groups of 5 under torch.profiler
 
 # (shape [B, S, H, D], dtype, causal, fused): the serving shape first, then
 # the training shape
@@ -179,6 +210,31 @@ def device_kernels(prof):
             if str(e.device_type).endswith("CUDA")
             and not getattr(e, "is_user_annotation", False)
             and "#" not in e.key]
+
+
+# the flash kernels' names in a trace (each fragment covers the fp32 and
+# the bf16 variant), by the names of the kernels line
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
+                 "flash_bwd_dkv": "flash_bwd_dkv_"}
+
+
+def counted_on_device(torch, fn):
+    """Run ``fn()`` under ``torch.profiler`` (CUDA activity only) and count
+    the flash kernels the card executed, by name, whether a wrapper
+    launched them or a CUDA graph replay ran them again.  Returns ``(fn's
+    result, {name: executions})``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(FLASH_KERNELS, 0)
+    for e in device_kernels(prof):
+        for name, fragment in FLASH_KERNELS.items():
+            if fragment in e.key:
+                counts[name] += e.count
+    return result, counts
 
 
 def device_ms(torch, fn, iters=10, warmup=2, match=None):
@@ -546,18 +602,47 @@ def phase_serve(torch, np, fa):
     return row
 
 
-def time_steps(torch, trainer, feed, n, first=None):
-    """Mean ms of ``n`` Trainer steps on ``feed``'s batches, host clock
-    from a synchronised start to a synchronised end; ``first()`` runs after
-    the first step."""
+def device_batches(torch, feed, n, device):
+    """``n`` of ``feed``'s batches, already on the card (as the K = 5
+    groups are timed), so a timed step makes no host copy."""
+    out = []
+    for _ in range(n):
+        batch, mask = feed.next_batch()
+        out.append(({"tokens": torch.from_numpy(batch["tokens"]).to(device)},
+                    torch.from_numpy(mask).to(device)))
+    return out
+
+
+def time_steps(torch, trainer, batches, first=None):
+    """Mean ms of one Trainer step on each of ``batches``, host clock from a
+    synchronised start to a synchronised end; ``first()`` runs after the
+    first step."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(n):
-        trainer.step(*feed.next_batch())
+    for i, (batch, mask) in enumerate(batches):
+        trainer.step(batch, mask)
         if i == 0 and first is not None:
             first()
     torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0) / n
+    return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def interleaved_steady(torch, trainers, batches, rounds):
+    """``{name: [ms/step of each run]}``: ``rounds`` runs of
+    :func:`time_steps` per trainer on the same batches, in the order
+    A B, B A, A B, ... so that drift of the host or the clocks falls on
+    both alike."""
+    names = list(trainers)
+    runs = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            runs[name].append(time_steps(torch, trainers[name], batches))
+    return runs
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
 
 
 # lowercased kernel-name fragments -> the group a step's device time is
@@ -575,19 +660,29 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_steps(torch, trainer, feed, n):
-    """Device time of ``n`` Trainer steps by kernel group, from
-    ``torch.profiler`` (CUDA activity): per-step ms by group, the
+def profile_steps(torch, trainer, batches):
+    """Device time of a Trainer step on each of ``batches``, by kernel
+    group (see :func:`profile_run`)."""
+    n = len(batches)
+
+    def run():
+        for batch, mask in batches:
+            trainer.step(batch, mask)
+
+    return profile_run(torch, run, n)
+
+
+def profile_run(torch, run, n):
+    """Device time of ``run()``, which takes ``n`` steps, by kernel group,
+    from ``torch.profiler`` (CUDA activity): per-step ms by group, the
     device-busy sum against the profiled wall time, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [feed.next_batch() for _ in range(n)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch, mask in batches:
-            trainer.step(batch, mask)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     groups, top = {}, []
@@ -635,8 +730,34 @@ class NgramFeed(object):
         while not self.terminated:
             yield self.next_batch()
 
+    def next_group(self, k):
+        """``k`` batches as ``(K, B, S)`` / ``(K, B)`` numpy stacks."""
+        np = self.np
+        items = [self.next_batch() for _ in range(k)]
+        return ({"tokens": np.stack([b["tokens"] for b, _ in items])},
+                np.stack([m for _, m in items]))
+
+    def grouped_batches(self, k):
+        while not self.terminated:
+            yield ("multi",) + self.next_group(k)
+
     def terminate(self):
         self.terminated = True
+
+
+class LossCurve(object):
+    """A summary writer that keeps the Trainer's per-step loss curve
+    (``TimeHistory`` writes one point per step of a K-step dispatch)."""
+
+    def __init__(self):
+        self.losses = {}
+
+    def add_scalars(self, scalars, step):
+        if "loss" in scalars:
+            self.losses[int(step)] = float(scalars["loss"])
+
+    def flush(self):
+        pass
 
 
 def phase_train(torch, np, fa, metrics, kind, kernel_ms):
@@ -659,7 +780,6 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
         full_model = get_model("transformer_lm",
                                **dict(LM_CONFIG, attention="full"))
     loss_fn = transformer.loss_fn(model)
-    optimizer = functools.partial(torch.optim.Adam, lr=LR)
     # the flash kernels' FLOPs, which FlopCounterMode cannot see: causal
     # forward 2 and backward 5 S^2 D products per (batch, head, layer)
     flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
@@ -668,8 +788,10 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
                                               + 2 * d_model * vocab)
                       + flash_flops)
 
-    def new_trainer():
-        return train.Trainer(loss_fn, init, optimizer,
+    def new_trainer(**adam):
+        return train.Trainer(loss_fn, init,
+                             functools.partial(torch.optim.Adam, lr=LR,
+                                               **adam),
                              compute_dtype=torch.bfloat16,
                              batch_size=TRAIN_BATCH, log_steps=LOG_STEPS,
                              extra_step_flops=flash_flops)
@@ -712,6 +834,8 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
                      for (s0, t0_), (s1, t1) in zip(log, log[1:])]
         step_ms = sorted(window_ms)[len(window_ms) // 2]
         step_flops = trainer.history.step_flops
+        # where fit_feed's closed windows went (the Trainer's report)
+        attribution = trainer.attribution_report()
         mfu = metrics.mfu_from_step_time(step_flops, step_ms / 1e3)
         flash_ms = sum(layers * kernel_ms[name] for name in launches)
 
@@ -770,19 +894,39 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
         handoff_diff = float(np.abs(served - trained).max())
         handoff_scale = float(np.abs(trained).max())
 
-        # where a step's time goes, once warm: steps with no checkpoint in
-        # flight, the same with one async save in flight, and a profile
+        # the Trainer's default on the card is capturable Adam (eager and
+        # graph steps share its arithmetic); the same 30 steps with
+        # capturable=False, as a caller may ask, for the loss difference
+        plain = new_trainer(capturable=False)
+        plain_losses = []
+
+        def on_plain_steps(step):
+            if step % LOG_STEPS == 0:
+                plain_losses.append(plain.history.last_synced_value)
+
+        plain.fit_feed(NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab),
+                       max_steps=TRAIN_STEPS, on_steps=on_plain_steps)
+
+        # where a step's time goes, once warm, on batches already on the
+        # card: steps with no checkpoint in flight (capturable Adam and
+        # capturable=False interleaved), the same with one async save in
+        # flight, and a profile
         more = NgramFeed(np, 3, TRAIN_BATCH, SEQ, vocab)
-        steady_ms = time_steps(torch, trainer, more, STEADY_STEPS)
+        steady = interleaved_steady(
+            torch, {"capturable": trainer, "not_capturable": plain},
+            device_batches(torch, more, STEADY_STEPS, dev), AB_ROUNDS)
+        del plain
+        steady_ms = median(steady["capturable"])
         ckpt2 = checkpoint.CheckpointManager(
             os.path.join(tmp, "ckpt2"), save_interval_steps=0,
             async_save=True)
         inflight_ms = time_steps(
-            torch, trainer, more, STEADY_STEPS,
+            torch, trainer, device_batches(torch, more, STEADY_STEPS, dev),
             first=lambda: ckpt2.maybe_save(trainer.state.step,
                                            trainer.state, force=True))
         ckpt2.close()
-        profile = profile_steps(torch, trainer, more, PROFILE_STEPS)
+        profile = profile_steps(
+            torch, trainer, device_batches(torch, more, PROFILE_STEPS, dev))
         # the profiler slows the host; against the unprofiled steady step
         busy = profile["device_busy_ms_per_step"]
         profile["device_idle_share_of_steady_step"] = (
@@ -793,7 +937,7 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
     losses_finite = all(np.isfinite(x) for x in window_losses + [first_loss])
     row = {"phase": "train", "config": LM_CONFIG, "device": str(dev),
            "batch": TRAIN_BATCH, "seq": SEQ, "steps": steps,
-           "optimizer": "torch.optim.Adam(lr={})".format(LR),
+           "optimizer": "torch.optim.Adam(lr={}), capturable".format(LR),
            "first_step_loss": first_loss,
            "window_losses": window_losses, "loss_drop": LOSS_DROP,
            "window_ms_per_step": window_ms, "ms_per_step": step_ms,
@@ -806,6 +950,14 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
            "flash_ms_per_step": flash_ms,
            "flash_share": flash_ms / step_ms,
            "steady_ms_per_step": steady_ms,
+           "capturable_ab": {
+               "runs_ms_per_step": steady,
+               "median_ms_per_step": {k: median(v)
+                                      for k, v in steady.items()},
+               "spread_ms": {k: max(v) - min(v) for k, v in steady.items()},
+               "not_capturable_window_losses": plain_losses,
+               "loss_diff": [abs(a - b) for a, b in zip(plain_losses,
+                                                        window_losses)]},
            "steady_tokens_per_s": TRAIN_BATCH * SEQ / (steady_ms / 1e3),
            "steady_mfu": metrics.mfu_from_step_time(step_flops,
                                                     steady_ms / 1e3),
@@ -813,6 +965,8 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
            "save_in_flight_ms_per_step": inflight_ms,
            "profile": profile,
            "overlap": stats["overlap"],
+           "attribution": attribution,
+           "step_bytes": stats["overlap"].get("train_step_bytes_max"),
            "grad_rel_err_max": grad_rel[worst_grad],
            "grad_rel_err_worst_tensor": worst_grad, "grad_rtol": GRAD_RTOL,
            "checkpoint_latest": saved, "restored_step": restored,
@@ -851,6 +1005,165 @@ def phase_train(torch, np, fa, metrics, kind, kernel_ms):
     return row
 
 
+def phase_train_megastep(torch, np, fa, metrics, k1):
+    """The train phase at K = 5: the same init, stream and async
+    checkpoints through ``fit_feed(steps_per_call=5)``, each step after two
+    eager warm-ups a replay of one captured CUDA graph.  Counts the
+    kernels' launches, holds the losses at steps 10, 20 and 30 to K = 1's,
+    times warm groups on device-resident stacks with and without the
+    profiler, and restores a checkpoint into the trainer that captured."""
+    import functools
+
+    from tensorflowonspark_torch import checkpoint, train
+    from tensorflowonspark_torch.models import get_model, transformer
+
+    vocab, layers = LM_CONFIG["vocab_size"], LM_CONFIG["num_layers"]
+    heads, head_dim = LM_CONFIG["num_heads"], LM_CONFIG["head_dim"]
+    model = get_model("transformer_lm", **LM_CONFIG)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = dict(model.state_dict())
+    loss_fn = transformer.loss_fn(model)
+    flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
+
+    def new_trainer(**kwargs):
+        return train.Trainer(loss_fn, init,
+                             functools.partial(torch.optim.Adam, lr=LR),
+                             compute_dtype=torch.bfloat16,
+                             batch_size=TRAIN_BATCH, log_steps=LOG_STEPS,
+                             extra_step_flops=flash_flops, **kwargs)
+
+    curve = LossCurve()
+    trainer = new_trainer(summary_writer=curve)
+    feed = NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = checkpoint.CheckpointManager(
+            os.path.join(tmp, "ckpt"), save_interval_steps=LOG_STEPS,
+            max_to_keep=2, async_save=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        t0 = time.perf_counter()                      # the main path starts
+        # under the profiler: the flash kernels the card executed, against
+        # the counters (which a replay advances by its capture's launches)
+        stats, executed = counted_on_device(torch, lambda: trainer.fit_feed(
+            feed, max_steps=TRAIN_STEPS, steps_per_call=MEGA_K,
+            on_steps=lambda step: ckpt.maybe_save(step, trainer.state)))
+        fit_s = time.perf_counter() - t0
+        launches = {"flash_fwd": fa.fwd_launches,
+                    "flash_bwd_dq": fa.bwd_dq_launches,
+                    "flash_bwd_dkv": fa.bwd_dkv_launches}  # ... and ends
+        fit_steps = trainer.state.step
+        peak_bytes = torch.cuda.max_memory_allocated()
+        attribution = trainer.attribution_report()
+        snap = trainer.counters_snapshot()
+        log = trainer.history.timestamp_log
+        window_ms = [1e3 * (t1 - t0_) / (s1 - s0)
+                     for (s0, t0_), (s1, t1) in zip(log, log[1:])]
+        checked = [LOG_STEPS * (i + 1) for i in range(TRAIN_STEPS // LOG_STEPS)]
+        losses = {str(step): curve.losses.get(step) for step in checked}
+        vs_k1 = {str(step): (abs(curve.losses[step] - want)
+                             if step in curve.losses else None)
+                 for step, want in zip(checked, k1["window_losses"])}
+
+        # warm groups of 5 on device-resident stacks: host clock from a
+        # synchronised start to a synchronised end, then a profile; the
+        # last async save lands first (its copies would share the card)
+        ckpt.wait_until_finished()
+        more = NgramFeed(np, 3, TRAIN_BATCH, SEQ, vocab)
+        groups = []
+        for _ in range(MEGA_STEADY_GROUPS + MEGA_PROFILE_GROUPS):
+            batch, mask = more.next_group(MEGA_K)
+            groups.append(({"tokens": torch.from_numpy(
+                batch["tokens"]).to(trainer.device)},
+                torch.from_numpy(mask).to(trainer.device)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch, mask in groups[:MEGA_STEADY_GROUPS]:
+            trainer.multi_step(batch, mask)
+        torch.cuda.synchronize()
+        steady_ms = 1e3 * (time.perf_counter() - t0) / (
+            MEGA_STEADY_GROUPS * MEGA_K)
+
+        def profiled():
+            for batch, mask in groups[MEGA_STEADY_GROUPS:]:
+                trainer.multi_step(batch, mask)
+
+        profile = profile_run(torch, profiled, MEGA_PROFILE_GROUPS * MEGA_K)
+        busy = profile["device_busy_ms_per_step"]
+        profile["device_idle_share_of_steady_step"] = (
+            1.0 - busy / steady_ms if busy else None)
+
+        # a checkpoint restored into the trainer that captured: its next
+        # step (a graph replay) against a fresh trainer's eager step
+        ckpt.wait_until_finished()
+        saved = ckpt.latest_step()
+        restored = trainer.restore_latest(ckpt)
+        fresh = new_trainer()
+        fresh.restore_latest(ckpt)
+        fixed, fixed_mask = NgramFeed(np, 1, TRAIN_BATCH, SEQ,
+                                      vocab).next_batch()
+        got = trainer.repeat_step(fixed, fixed_mask, 1)
+        want, _ = fresh.step(fixed, fixed_mask)
+        restore_loss_diff = abs(got.item() - want.item())
+        restore_param_diff = max(
+            (fresh.state.params[k] - t).abs().max().item()
+            for k, t in trainer.state.params.items())
+        ckpt.close()
+        del fresh
+
+    expected = layers * TRAIN_STEPS
+    row = {"phase": "train_megastep", "steps_per_call": MEGA_K,
+           "steps": fit_steps, "fit_feed_s": fit_s,
+           "megastep": stats["megastep"],
+           "launches": launches, "device_launches": executed,
+           "expected_launches": expected,
+           "losses": losses, "k1_window_losses": k1["window_losses"],
+           "loss_diff_vs_k1": vs_k1, "loss_tol_vs_k1": MEGA_LOSS_TOL,
+           "window_ms_per_step": window_ms,
+           "steady_ms_per_step": steady_ms,
+           "k1_steady_ms_per_step": k1["steady_ms_per_step"],
+           "steady_tokens_per_s": TRAIN_BATCH * SEQ / (steady_ms / 1e3),
+           "steady_mfu": metrics.mfu_from_step_time(
+               trainer.history.step_flops, steady_ms / 1e3),
+           "profile": profile,
+           "k1_profile_device_busy_ms_per_step":
+               k1["profile"]["device_busy_ms_per_step"],
+           "capture_s": snap.get("train_compile_us_max", 0) / 1e6,
+           "graphs": len(trainer._graphs),
+           "attribution": attribution, "k1_attribution": k1["attribution"],
+           "overlap": stats["overlap"],
+           "max_memory_allocated": peak_bytes,
+           "checkpoint_latest": saved, "restored_step": restored,
+           "restore_loss_diff": restore_loss_diff,
+           "restore_param_max_diff": restore_param_diff,
+           "restore_tol": RESUME_TOL}
+    emit(row)
+    if fit_steps != TRAIN_STEPS:
+        raise AssertionError("fit_feed took {} steps at K = {}, expected "
+                             "{}".format(fit_steps, MEGA_K, TRAIN_STEPS))
+    if any(n != expected for n in list(launches.values())
+           + list(executed.values())):
+        raise AssertionError("kernel launches {} counted and {} executed on "
+                             "the card over fit_feed at K = {}, expected {} "
+                             "each".format(launches, executed, MEGA_K,
+                                           expected))
+    if trainer.state.step != restored + 1:
+        raise AssertionError("the restored trainer is at step {}, expected "
+                             "{}".format(trainer.state.step, restored + 1))
+    if not all(d is not None and d <= MEGA_LOSS_TOL for d in vs_k1.values()):
+        raise AssertionError("the K = {} losses differ from K = 1's: "
+                             "{}".format(MEGA_K, vs_k1))
+    if saved != TRAIN_STEPS or restored != TRAIN_STEPS:
+        raise AssertionError("checkpoint at step {}, restored {}, expected "
+                             "{}".format(saved, restored, TRAIN_STEPS))
+    if not (restore_loss_diff <= RESUME_TOL
+            and restore_param_diff <= RESUME_TOL):
+        raise AssertionError("the step after a restore into the captured "
+                             "trainer differs: loss {}, params {}".format(
+                                 restore_loss_diff, restore_param_diff))
+    return row
+
+
 def lm_rows(np, seed, n, seq, vocab):
     """``n`` rows of the JAX LM example's learnable token stream
     (examples/transformer/transformer_lm.py): each row counts up by one
@@ -860,11 +1173,34 @@ def lm_rows(np, seed, n, seq, vocab):
     return ((base[None, :] + offs) % vocab).astype(np.int32)
 
 
+class RowCounter(object):
+    """Passes a ShardedFeed on to ``fit_feed`` (single or grouped) and
+    keeps each dispatch's valid rows as device scalars."""
+
+    def __init__(self, feed):
+        self.feed = feed
+        self.rows = []
+
+    def batches(self):
+        for batch, mask in self.feed.batches():
+            self.rows.append(mask.sum())
+            yield batch, mask
+
+    def grouped_batches(self, k):
+        for kind, batch, mask in self.feed.grouped_batches(k):
+            self.rows.append(mask.sum())
+            yield kind, batch, mask
+
+    def __getattr__(self, name):
+        return getattr(self.feed, name)
+
+
 def cluster_main(args, ctx):
     """The cluster phase's user fn, run by the node in the child it forked:
     the first CUDA call of that process is ``ctx.initialize_distributed()``.
-    Trains the LM from the node's feed, exports it as the chief, writes the
-    trained model's logits next to the export, and reports to
+    Trains the LM from the node's feed (K steps a dispatch when the
+    executor's ``TFOS_STEPS_PER_CALL`` says so), exports it as the chief,
+    writes the trained model's logits next to the export, and reports to
     ``args["report"]`` (the traceback too when it fails, then re-raises)."""
     import functools
     import importlib
@@ -899,14 +1235,15 @@ def cluster_main(args, ctx):
         model = get_model("transformer_lm", **cfg)
         model.init_weights(torch.Generator().manual_seed(0))
         lm_loss = transformer.loss_fn(model)
-        losses, rows = [], []
+        losses = []
+        # the per-step loss curve: K-step dispatches write every step's
+        curve = LossCurve()
 
         def loss_fn(params, batch, mask):
-            # keeps each step's loss and valid rows as device scalars (no
-            # sync): read once training is over
+            # keeps each eager step's loss as a device scalar (no sync):
+            # read once training is over
             loss, aux = lm_loss(params, batch, mask)
             losses.append(loss.detach())
-            rows.append(mask.sum())
             return loss, aux
 
         trainer = train.Trainer(
@@ -914,10 +1251,11 @@ def cluster_main(args, ctx):
             functools.partial(torch.optim.Adam, lr=args["lr"]),
             compute_dtype=getattr(torch, cfg["dtype"]),
             batch_size=args["batch"], log_steps=args["log_steps"],
-            extra_step_flops=args["flash_flops"], device=device)
-        feed = infeed.ShardedFeed(ctx.get_data_feed(), args["batch"],
-                                  transform=lambda t: {"tokens": t},
-                                  device=device)
+            extra_step_flops=args["flash_flops"], summary_writer=curve,
+            device=device)
+        feed = RowCounter(infeed.ShardedFeed(
+            ctx.get_data_feed(), args["batch"],
+            transform=lambda t: {"tokens": t}, device=device))
         report["model_ready"] = time.time()
         first, step_ends = {}, []
 
@@ -929,7 +1267,16 @@ def cluster_main(args, ctx):
                 first["t"] = time.time()
 
         fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
-        stats = trainer.fit_feed(feed, on_steps=on_steps)   # the main path
+
+        def main_path():
+            return trainer.fit_feed(feed, on_steps=on_steps)
+
+        if device.type == "cuda":
+            # under the profiler: the flash kernels the card executed
+            stats, report["device_launches"] = counted_on_device(
+                torch, main_path)
+        else:
+            stats = main_path()
         launches = {"flash_fwd": fa.fwd_launches,
                     "flash_bwd_dq": fa.bwd_dq_launches,
                     "flash_bwd_dkv": fa.bwd_dkv_launches}  # ... ends here
@@ -954,10 +1301,16 @@ def cluster_main(args, ctx):
                     (torch.from_numpy(request).to(device),))
             np.save(os.path.join(args["export_dir"], "trained_logits.npy"),
                     logits.float().cpu().numpy())
+        k = stats["megastep"]["steps_per_call"]
         report.update({
-            "rows": float(sum(r.item() for r in rows)),
+            "rows": float(sum(r.item() for r in feed.rows)),
             "steps": trainer.state.step,
-            "losses": [x.item() for x in losses],
+            # eager steps: the loss_fn's own; K > 1: the per-step curve
+            "losses": ([x.item() for x in losses] if k == 1 else
+                       [curve.losses.get(s) for s in
+                        range(1, trainer.state.step + 1)]),
+            "megastep": stats["megastep"],
+            "graphs": len(trainer._graphs),
             "launches": launches,
             "window_ms_per_step": window_ms,
             "steady_ms_per_step": later[len(later) // 2] if later else None,
@@ -965,7 +1318,7 @@ def cluster_main(args, ctx):
             "step_interval_ms": [1e3 * (b - a) for a, b in
                                  zip(step_ends, step_ends[1:])],
             "infeed": feed.counters_snapshot(),
-            "datafeed": feed.feed.counters_snapshot(),
+            "datafeed": feed.feed.feed.counters_snapshot(),
             "wire_formats": feed.wire_formats(),
             "overlap": stats["overlap"],
             "max_memory_allocated": (torch.cuda.max_memory_allocated()
@@ -995,10 +1348,13 @@ def wait_for_report(path, seconds):
     return report
 
 
-def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None):
+def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None,
+                  steps_per_call=1, k1_cluster=None):
     """Train the LM through the cluster lifecycle in SPARK input mode on a
     one-executor LocalBackend, serve the chief's export here, and check
-    rows, steps, kernel launches in the node, loss and handoff."""
+    rows, steps, kernel launches in the node, loss and handoff.  With
+    ``steps_per_call`` > 1 the executor's ``TFOS_STEPS_PER_CALL`` arms K
+    steps a dispatch, and the losses are held to ``k1_cluster``'s."""
     from tensorflowonspark_torch import backend, cluster, serving
 
     vocab, layers = config["vocab_size"], config["num_layers"]
@@ -1019,8 +1375,11 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None):
         b = backend.LocalBackend(1)
         try:
             t_run = time.time()
+            env = ({"TFOS_STEPS_PER_CALL": str(steps_per_call)}
+                   if steps_per_call > 1 else None)
             c = cluster.run(b, cluster_main, args, num_executors=1,
-                            input_mode=cluster.InputMode.SPARK)
+                            input_mode=cluster.InputMode.SPARK,
+                            executor_env=env)
             t_ready = time.time()
             c.train(parts, num_epochs=1)
             t_fed = time.time()
@@ -1040,23 +1399,38 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None):
     handoff_diff = float(np.abs(served - trained).max())
     handoff_scale = float(np.abs(trained).max())
     losses = report["losses"]
-    # steps 10 and 20 against the train phase's windows (None when absent)
-    vs_train = {str(LOG_STEPS * (i + 1)): abs(losses[LOG_STEPS * (i + 1) - 1]
-                                              - want)
-                for i, want in enumerate(train_row.get("window_losses", []))
-                if LOG_STEPS * (i + 1) <= len(losses)}
+    if steps_per_call == 1:
+        # steps 10 and 20 against the train phase's windows
+        want_at = {LOG_STEPS * (i + 1): want for i, want in
+                   enumerate(train_row.get("window_losses", []))}
+    else:
+        # steps 10 and 20 against the K = 1 cluster run's
+        want_at = {step: k1_cluster["losses"][step - 1]
+                   for step in (LOG_STEPS, 2 * LOG_STEPS)}
+    vs_train = {str(step): (abs(losses[step - 1] - want)
+                            if losses[step - 1] is not None else None)
+                for step, want in want_at.items() if step <= len(losses)}
     expected = layers * CLUSTER_STEPS if report["device"] != "cpu" else 0
     steady = report["steady_ms_per_step"]
-    row = {"phase": "cluster", "config": config, "device": report["device"],
+    row = {"phase": "cluster" if steps_per_call == 1 else "cluster_megastep",
+           "config": config, "device": report["device"],
            "backend": "LocalBackend(1)", "input_mode": "SPARK",
+           "steps_per_call_env": steps_per_call,
+           "megastep": report["megastep"], "graphs": report["graphs"],
+           "train_steps_per_call_max": report["overlap"].get(
+               "train_steps_per_call_max"),
            "rows_fed": CLUSTER_ROWS, "partitions": CLUSTER_PARTS,
            "rows_trained": report["rows"], "steps": report["steps"],
            "expected_steps": CLUSTER_STEPS,
            "first_step_loss": losses[0] if losses else None,
            "last_step_loss": losses[-1] if losses else None,
-           "losses": losses, "loss_diff_vs_train_phase": vs_train,
-           "loss_tol_vs_train_phase": CLUSTER_LOSS_TOL,
-           "launches": report["launches"], "expected_launches": expected,
+           "losses": losses,
+           "loss_diff_vs_" + ("train_phase" if steps_per_call == 1
+                              else "k1_cluster"): vs_train,
+           "loss_tol": CLUSTER_LOSS_TOL,
+           "launches": report["launches"],
+           "device_launches": report.get("device_launches"),
+           "expected_launches": expected,
            "window_ms_per_step": report["window_ms_per_step"],
            "steady_ms_per_step": steady,
            "train_phase_steady_ms_per_step": train_row.get(
@@ -1091,17 +1465,26 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None):
         raise AssertionError("the node trained {} rows in {} steps, expected "
                              "{} in {}".format(report["rows"], report["steps"],
                                                CLUSTER_ROWS, CLUSTER_STEPS))
-    if any(n != expected for n in report["launches"].values()):
-        raise AssertionError("kernel launches {} in the node, expected {} "
-                             "each (layers x steps)".format(
-                                 report["launches"], expected))
-    if not (len(losses) == CLUSTER_STEPS and np.isfinite(losses).all()
-            and losses[-1] < losses[0]):
+    executed = report.get("device_launches") or {}
+    if any(n != expected for n in list(report["launches"].values())
+           + list(executed.values())) or (expected and not executed):
+        raise AssertionError("kernel launches {} counted and {} executed on "
+                             "the card in the node, expected {} each (layers "
+                             "x steps)".format(report["launches"], executed,
+                                               expected))
+    if report["megastep"]["steps_per_call"] != steps_per_call:
+        raise AssertionError("the node dispatched {} steps a call, expected "
+                             "{}".format(report["megastep"], steps_per_call))
+    if not (len(losses) == CLUSTER_STEPS and None not in losses
+            and np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("cluster training loss not finite and falling: "
                              "{}".format(losses))
-    if not all(d <= CLUSTER_LOSS_TOL for d in vs_train.values()):
-        raise AssertionError("the cluster node's losses differ from the train "
-                             "phase's on the same stream: {}".format(vs_train))
+    if not all(d is not None and d <= CLUSTER_LOSS_TOL
+               for d in vs_train.values()) or len(vs_train) != len(
+                   [s for s in want_at if s <= CLUSTER_STEPS]):
+        raise AssertionError("the cluster node's losses differ from the "
+                             "reference run's on the same stream: {}".format(
+                                 vs_train))
     if not handoff_diff <= HANDOFF_TOL * handoff_scale:
         raise AssertionError("the served cluster export differs from the "
                              "trained model by {} (max |logit| {})".format(
@@ -1144,7 +1527,10 @@ def main():
                 "flash_bwd_dkv": bwd_rows[0][1]}
     trained = phase_train(torch, np, fa, metrics, device["kind"],
                           {n: r["kernel_ms"] for n, r in at_train.items()})
+    mega = phase_train_megastep(torch, np, fa, metrics, trained)
     clustered = phase_cluster(torch, np, trained)
+    mega_cluster = phase_cluster(torch, np, trained, steps_per_call=MEGA_K,
+                                 k1_cluster=clustered)
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -1161,10 +1547,25 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the cluster node's fit_feed
-            "launches": clustered["launches"][name],
-            "launches_by_path": {"train": trained["launches"][name],
-                                 "cluster": clustered["launches"][name]},
+            # this slice's main path: the cluster node's fit_feed at K = 5;
+            # its counter, held equal to the kernels the profiler saw the
+            # card execute there (device_launches_by_path)
+            "launches": mega_cluster["launches"][name],
+            "device_launches_by_path": {
+                "train_k5": mega["device_launches"][name],
+                "cluster": clustered["device_launches"][name],
+                "cluster_k5": mega_cluster["device_launches"][name]},
+            "launches_by_path": {
+                "train": trained["launches"][name],
+                "train_k5": mega["launches"][name],
+                "cluster": clustered["launches"][name],
+                "cluster_k5": mega_cluster["launches"][name]},
+            # device time per step inside the replayed graph (K = 5) and
+            # in eager steps (K = 1), from the two phases' profiles
+            "graph_device_ms_per_step": mega["profile"][
+                "ms_per_step_by_group"].get(name),
+            "eager_device_ms_per_step": trained["profile"][
+                "ms_per_step_by_group"].get(name),
             "max_abs_err": row.get("max_abs_err", row.get("max_abs_err_o")),
             "ms": row["kernel_ms"], "device_ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],

@@ -15,7 +15,10 @@ in ``main_fun``, in the node's child.
 Run on the CPU (two nodes, gloo):
     python examples/mnist/mnist_spark_torch.py --device cpu --cluster_size 2
 On the cards (one per node): leave out ``--device``.  Without a card and
-without ``--device cpu`` the nodes raise.
+without ``--device cpu`` the nodes raise.  ``--steps_per_call K`` trains K
+steps a dispatch (on the cards: replays of a captured CUDA graph);
+``--log_dir DIR`` has the chief write TensorBoard curves there, and
+``--tensorboard`` launches TensorBoard on it.
 """
 
 import argparse
@@ -31,19 +34,23 @@ def main_fun(args, ctx):
     import numpy as np
     import torch
 
-    from tensorflowonspark_torch import checkpoint
+    from tensorflowonspark_torch import checkpoint, summary
     from tensorflowonspark_torch import train as train_mod
     from tensorflowonspark_torch.models import mnist as mnist_mod
     from tensorflowonspark_torch.parallel import infeed
 
     device = ctx.initialize_distributed(device=args.device)
+    # chief-only TensorBoard curves (loss, throughput, MFU per window)
+    writer = None
+    if getattr(args, "log_dir", None) and ctx.is_chief():
+        writer = summary.SummaryWriter(args.log_dir)
     torch.manual_seed(0)                  # the same init on every node
     model = mnist_mod.build_mnist(dtype="bfloat16")
     trainer = train_mod.Trainer(
         mnist_mod.loss_fn(model), dict(model.state_dict()),
         functools.partial(torch.optim.SGD, lr=args.lr, momentum=0.9),
         compute_dtype=torch.bfloat16, batch_size=args.batch_size,
-        device=device)
+        summary_writer=writer, device=device)
 
     def preprocess(items):
         # CSV-style rows: (label, 784 pixels)
@@ -55,7 +62,13 @@ def main_fun(args, ctx):
     feed = ctx.get_data_feed(train_mode=True)
     sharded = infeed.ShardedFeed(feed, args.batch_size, preprocess=preprocess,
                                  device=device)
-    stats = trainer.fit_feed(sharded, max_steps=args.max_steps)
+    try:
+        stats = trainer.fit_feed(
+            sharded, max_steps=args.max_steps,
+            steps_per_call=getattr(args, "steps_per_call", 1))
+    finally:
+        if writer is not None:
+            writer.close()  # keep the curves even when training fails
 
     if args.export_dir and checkpoint.should_export(ctx):
         checkpoint.export_model(
@@ -90,18 +103,26 @@ def main(argv=None):
     parser.add_argument("--epochs", type=int, default=3)
     parser.add_argument("--lr", type=float, default=0.01)
     parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--steps_per_call", type=int, default=1,
+                        help="train steps per dispatch (on the cards, "
+                             "replays of one captured CUDA graph)")
     parser.add_argument("--num_rows", type=int, default=4096,
                         help="synthetic training rows")
     parser.add_argument("--device", default=None,
                         help="'cpu' to train on the CPU; the nodes' cards "
                              "by default")
     parser.add_argument("--export_dir", default="mnist_export")
+    parser.add_argument("--tensorboard", action="store_true")
+    parser.add_argument("--log_dir", default=None,
+                        help="TensorBoard event dir: the chief writes loss/"
+                             "throughput/MFU curves (summary.SummaryWriter)")
     args, _ = parser.parse_known_args(argv)
 
     b = backend.LocalBackend(args.cluster_size)
     try:
         c = cluster.run(b, main_fun, args, num_executors=args.cluster_size,
-                        input_mode=cluster.InputMode.SPARK)
+                        input_mode=cluster.InputMode.SPARK,
+                        tensorboard=args.tensorboard, log_dir=args.log_dir)
         parts = backend.partition(synthetic_rows(args.num_rows),
                                   args.cluster_size * 4)
         c.train(parts, num_epochs=args.epochs)

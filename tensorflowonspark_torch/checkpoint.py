@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from tensorflowonspark_torch import telemetry
+
 logger = logging.getLogger(__name__)
 
 _DESCRIPTOR = "export.json"
@@ -75,6 +77,14 @@ class CheckpointManager(object):
         the last save (0 = only ``force=True`` saves).
       max_to_keep: retained checkpoints; older step directories are
         removed after each save (None or 0 keeps all).
+      is_chief: whether this process writes.  In a world of more than one
+        process every rank calls :meth:`maybe_save` at the same steps (the
+        JAX package's contract); only the chief writes, since the
+        all-reduced params and optimizer state are the same on every rank.
+        A non-chief records the step it was asked for, so its save gate
+        stays in step with the chief's, and writes nothing.  Every rank
+        restores from the chief's files, once they are written (after the
+        chief's :meth:`wait_until_finished` and a barrier).
       async_save: ``True`` (the default; ``None`` reads
         ``TFOS_ASYNC_CKPT``) makes :meth:`maybe_save` return once the state
         is snapshotted to fresh copies on its device and handed to a
@@ -88,9 +98,10 @@ class CheckpointManager(object):
     """
 
     def __init__(self, directory, save_interval_steps=100, max_to_keep=3,
-                 async_save=None):
+                 is_chief=True, async_save=None):
         self.directory = _fs_path(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.is_chief = bool(is_chief)
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
         if async_save is None:
@@ -139,6 +150,9 @@ class CheckpointManager(object):
                 return False
         if step == self._latest_effective():
             return False  # already saved (e.g. final force after interval hit)
+        if not self.is_chief:
+            self._last_requested = step   # the chief writes this step
+            return True
         if hasattr(state, "state_dict"):
             state = state.state_dict()
         if self.async_save:
@@ -148,19 +162,28 @@ class CheckpointManager(object):
             ready = torch.cuda.Event()   # the side-stream copy waits for it
             ready.record()
         if not self.async_save:
-            self._write(step, state, ready)
+            self._write(step, state, ready, force)
             return True
         self._ensure_worker()
+        telemetry.get_tracer().instant("checkpoint/save_requested",
+                                       step=step, force=force)
         # blocking put: with one save in flight and one queued, a third
         # request waits here instead of stacking snapshots
-        self._save_queue.put((step, state, ready))
+        self._save_queue.put((step, state, ready, force))
         self._last_requested = step
         return True
 
-    def _write(self, step, state, ready):
+    def _write(self, step, state, ready, force):
         """Copy ``state`` to the host (on the side stream, after the
         ``ready`` event of its snapshot), write it under a temporary name,
-        rename it into place and apply retention."""
+        rename it into place and apply retention, in a
+        ``checkpoint/save`` span."""
+        with telemetry.get_tracer().span(
+                "checkpoint/save", step=step, force=force,
+                asynchronous=self.async_save):
+            self._write_files(step, state, ready)
+
+    def _write_files(self, step, state, ready):
         device = _cuda_device(state)
         if device is not None:
             if self._copy_stream is None:
@@ -235,9 +258,10 @@ class CheckpointManager(object):
         step = self._latest_saved()
         if step is None:
             return None, None
-        state = torch.load(
-            os.path.join(self.directory, str(step), _STATE_FILE),
-            map_location=map_location, weights_only=True)
+        with telemetry.get_tracer().span("checkpoint/restore", step=step):
+            state = torch.load(
+                os.path.join(self.directory, str(step), _STATE_FILE),
+                map_location=map_location, weights_only=True)
         logger.info("restored checkpoint step %d from %s", step,
                     self.directory)
         return state, step

@@ -14,6 +14,11 @@ import torch
 
 logger = logging.getLogger(__name__)
 
+#: what :func:`pin_cards` set ``CUDA_VISIBLE_DEVICES`` to, so that
+#: :func:`cards_pinned` can tell a pinned worker from one that inherited
+#: a host-wide list
+PINNED_ENV = "TFOS_PINNED_CARDS"
+
 
 def resolve_device(device=None):
     """The ``torch.device`` to run on: ``cuda:0`` by default.
@@ -81,5 +86,29 @@ def pin_cards(worker_index, cards_per_worker, total_cards=None):
     cards = ([host_cards[i] for i in wanted] if host_cards is not None
              else [str(i) for i in wanted])
     os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
+    os.environ[PINNED_ENV] = os.environ["CUDA_VISIBLE_DEVICES"]
     logger.info("pinned worker %d to cards %s", worker_index, cards)
     return cards
+
+
+def cards_pinned():
+    """Whether this process's ``CUDA_VISIBLE_DEVICES`` is the list that
+    :func:`pin_cards` set (and not changed since)."""
+    pinned = os.environ.get(PINNED_ENV)
+    return bool(pinned) and pinned == os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def default_card(local_rank, visible_cards, pinned):
+    """The index of a node's default card among the ``visible_cards`` this
+    process sees: its first card when :func:`pin_cards` pinned this
+    worker's own cards (the JAX package's ``pin_chips`` leaves a process
+    only its own chips too), else ``local_rank`` (every node on the host
+    sees every card).  Raises ``ValueError`` when that card is not
+    visible."""
+    index = 0 if pinned else local_rank
+    if index >= visible_cards:
+        raise ValueError(
+            "local rank {} has no card of its own among the {} visible "
+            "(pin_cards, or CUDA_VISIBLE_DEVICES listing every card of "
+            "the host)".format(local_rank, visible_cards))
+    return index

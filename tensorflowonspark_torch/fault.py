@@ -464,10 +464,11 @@ class FaultInjector(object):
 
     def corrupt_batch(self, batch, step=None):
         """Training-loop hook: once the host step counter reaches
-        ``nan_batch_at_step``, replace every floating tensor of one batch
-        (a dict of torch tensors or numpy arrays, or one of them) with a
-        NaN-filled copy, on the same device (fires once).  The nonfinite
-        loss/grads then arise through the real step, not a mocked value."""
+        ``nan_batch_at_step``, replace every floating leaf of one batch (a
+        tree of dicts, lists and tuples over torch tensors and numpy
+        arrays) with a NaN-filled copy, on the same device (fires once).
+        The nonfinite loss/grads then arise through the real step, not a
+        mocked value."""
         at = self.spec.get("nan_batch_at_step")
         if at is None or (step is not None and step < at):
             return batch
@@ -485,9 +486,14 @@ class FaultInjector(object):
                 return np.full_like(x, np.nan)
             return x
 
-        if isinstance(batch, dict):
-            return {k: nanify(v) for k, v in batch.items()}
-        return nanify(batch)
+        def tree_map(tree):
+            if isinstance(tree, dict):
+                return {k: tree_map(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(tree_map(v) for v in tree)
+            return nanify(tree)
+
+        return tree_map(batch)
 
     def on_consume(self):
         """ServiceFeed chunk-drain hook: for ``saturate_consumer_secs``

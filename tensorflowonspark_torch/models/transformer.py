@@ -240,8 +240,10 @@ def loss_fn(model, moe_aux_weight=0.01):
         targets = torch.roll(tokens, -1, dims=1)
         ce = F.cross_entropy(logits.float().reshape(batch_size * seq, -1),
                              targets.reshape(-1), reduction="none")
-        pos_mask = torch.ones(seq, device=logits.device)
-        pos_mask[-1] = 0.0
+        # 1 for every position but the last; built on the device with no
+        # host copy, so a CUDA graph can capture it
+        pos_mask = (torch.arange(seq, device=logits.device)
+                    < seq - 1).float()
         ce = (ce.reshape(batch_size, seq) * pos_mask).sum(-1) / pos_mask.sum()
         mask = mask.to(ce.dtype)
         ce = (ce * mask).sum() / mask.sum().clamp_min(1.0)

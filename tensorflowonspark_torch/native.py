@@ -1,12 +1,13 @@
 """Build/load shim for the repo's first-party native host library (the
 port's copy of the JAX package's ``native`` module, reduced to what the
-port loads: ``libshmring``).
+port loads: ``libshmring`` and ``libtfrecord``).
 
 The C++ source lives in the repo's ``native/`` directory.  It is compiled
 on first use with the host toolchain into ``build/native/`` at the repo
 root (a directory ``.gitignore`` lists), never next to the source, and
 loaded via ctypes.  Consumers must tolerate a missing toolchain: the shm
-ring has a pure-Python fallback (the manager queue carries the chunks).
+ring has a pure-Python fallback (the manager queue carries the chunks),
+and so has the TFRecord codec.
 """
 
 import ctypes

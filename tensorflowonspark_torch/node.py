@@ -383,17 +383,26 @@ class TPUNodeContext(object):
         :mod:`~tensorflowonspark_torch.parallel.collectives`.
 
         ``device`` defaults to this node's card: ``cuda:<local rank>``,
-        the rank among this host's training nodes (``"cpu"`` only when
-        asked; with no card that raises, see
+        the rank among this host's training nodes, or ``cuda:0`` when
+        :func:`~tensorflowonspark_torch.device.pin_cards` left this worker
+        only its own cards (see
+        :func:`~tensorflowonspark_torch.device.default_card`; ``"cpu"``
+        only when asked; with no card that raises, see
         :func:`~tensorflowonspark_torch.device.resolve_device`).  This is a
         CUDA call: make it in the user fn, never before the node's forks.
         Joining the world is a no-op for single-process clusters and for
         ps nodes, as in the reference.  Returns the device."""
-        from tensorflowonspark_torch.device import resolve_device
+        from tensorflowonspark_torch import device as device_mod
 
         if device is None:
-            device = "cuda:{}".format(self.local_rank)
-        self.device = resolve_device(device)
+            import torch
+
+            if not torch.cuda.is_available():
+                device_mod.resolve_device("cuda")   # raises: no card
+            device = "cuda:{}".format(device_mod.default_card(
+                self.local_rank, torch.cuda.device_count(),
+                device_mod.cards_pinned()))
+        self.device = device_mod.resolve_device(device)
         if self.device.type == "cuda":
             import torch
 

@@ -39,11 +39,14 @@ from tensorflowonspark_torch.ops import _build
 
 NEG_INF = -1e30
 
-#: Launches of each CUDA kernel in this process.  Only the wrapper that
-#: launches a kernel adds to its count; callers may set them back to 0.
+#: Launches of each CUDA kernel in this process.  The wrapper that
+#: launches a kernel adds one to its count; a replay of a captured CUDA
+#: graph, which launches every kernel captured in it again, adds those
+#: (:func:`add_launches`).  Callers may set them back to 0.
 fwd_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+_LAUNCH_COUNTERS = ("fwd_launches", "bwd_dq_launches", "bwd_dkv_launches")
 
 _HEAD_DIMS = (32, 64, 128)
 _FMA_HEAD_DIMS = (64, 128)   # what the FMA kernels take; 32 is padded to 64
@@ -79,6 +82,22 @@ def kernel_head_dim(kernel, dtype, head_dim):
             and head_dim not in _FMA_HEAD_DIMS):
         return _FMA_HEAD_DIMS[0]
     return head_dim
+
+
+def launch_counts():
+    """``{counter name: launches}`` of this module's kernels."""
+    return {name: globals()[name] for name in _LAUNCH_COUNTERS}
+
+
+def add_launches(counts):
+    """Add ``counts`` (``{counter name: n}``) to the launch counters.  The
+    owner of a CUDA graph calls it once per replay with the launches its
+    capture recorded (a replay launches each of them again), and once with
+    their negatives after the capture, which ran nothing."""
+    for name, n in counts.items():
+        if name not in _LAUNCH_COUNTERS:
+            raise KeyError("no launch counter {!r}".format(name))
+        globals()[name] += n
 
 
 def _default_scale(q, scale):

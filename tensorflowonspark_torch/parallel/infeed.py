@@ -23,7 +23,12 @@ host:
    :mod:`~tensorflowonspark_torch.parallel.collectives`) so all hosts agree
    whether a full step's worth of data exists,
 5. prefetches (two batches by default) on a host thread, so assembly and
-   the host->device copy overlap the device step.
+   the host->device copy overlap the device step,
+6. for ``Trainer.multi_step``, groups K full batches into ``(K, B, ...)``
+   stacks (:meth:`ShardedFeed.grouped_batches`): by default each batch is
+   copied as it arrives and the group is stacked on the card on the
+   prefetch thread's side stream; ``group_assembly="host"`` stacks on the
+   host and makes one pinned copy per group.
 
 On the CPU (``device="cpu"``, the tests) the batch is the same tensors,
 copied from the feed's arrays, without a stream.  The ``infeed_*``
@@ -58,9 +63,12 @@ DEFAULT_PREFETCH = 2
 #: is abandoned.
 TERMINATE_JOIN_SECS = 30.0
 
-_GROUPED_TODO = ("grouped_batches (K-step groups for multi_step) is not "
-                 "ported yet (ROADMAP.md, Queue 1, item 9: multi_step as "
-                 "CUDA graphs)")
+#: how K-step groups are assembled when ``group_assembly=None`` (the JAX
+#: package's variable): ``"device"`` (default) copies each batch as it
+#: arrives and stacks the group on the card; ``"host"`` stacks on the host
+#: and makes one copy per group
+GROUP_ASSEMBLY_ENV = "TFOS_GROUP_ASSEMBLY"
+DEFAULT_GROUP_ASSEMBLY = "device"
 
 
 def _map(tree, fn):
@@ -69,6 +77,17 @@ def _map(tree, fn):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(v, fn) for v in tree)
     return fn(tree)
+
+
+def _map_many(fn, trees):
+    """``fn`` over the matching leaves of several trees of one structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map_many(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map_many(fn, [t[i] for t in trees])
+                           for i in range(len(first)))
+    return fn(*trees)
 
 
 def _leaves(tree):
@@ -99,10 +118,15 @@ class ShardedFeed(object):
         disables the thread.
       device: ``"cuda"`` by default; ``"cpu"`` only when asked (with no
         card otherwise this raises).
+      group_assembly: how :meth:`grouped_batches` builds its stacks:
+        ``"device"`` (stacked on the card from the per-batch copies; fresh
+        buffers every group) or ``"host"`` (``np.stack``, one pinned copy a
+        group).  ``None`` reads ``TFOS_GROUP_ASSEMBLY``.
     """
 
     def __init__(self, feed, global_batch_size, preprocess=None,
-                 transform=None, pad_final=True, prefetch=None, device=None):
+                 transform=None, pad_final=True, prefetch=None, device=None,
+                 group_assembly=None):
         if preprocess is not None and transform is not None:
             raise ValueError("pass either preprocess (row-list path) or "
                              "transform (columnar)")
@@ -122,6 +146,21 @@ class ShardedFeed(object):
             prefetch = int(os.environ.get(PREFETCH_ENV, "")
                            or DEFAULT_PREFETCH)
         self._prefetch_depth = prefetch
+        if group_assembly is None:
+            group_assembly = (os.environ.get(GROUP_ASSEMBLY_ENV, "")
+                              or DEFAULT_GROUP_ASSEMBLY)
+        if group_assembly not in ("device", "host"):
+            raise ValueError(
+                "group_assembly must be 'device' or 'host', got {!r}".format(
+                    group_assembly))
+        self._group_assembly = group_assembly
+        # live group size: grouped_batches(k) seeds _group_k; a
+        # train_steps_per_call knob lands in _group_k_target and is taken at
+        # the next group-fill start, so every group is uniform
+        self._group_k = 0
+        self._group_k_target = None
+        self._group_assemble_us = 0
+        self._group_assemble_us_hwm = 0
         # Always-on plain-int tallies (read at heartbeat cadence; single
         # writer: the prefetch thread, or the consumer when prefetch=0).
         self._n_batches = 0
@@ -159,16 +198,17 @@ class ShardedFeed(object):
         ``infeed_put_us`` (host time to issue the pinned copy and the
         host->device copy; the copy itself runs on the side stream),
         per-batch ``_hwm`` high-water marks of both,
-        ``train_group_assemble_us`` (0: grouped batches are not ported) and
-        the ``infeed_prefetch_depth_max`` gauge."""
+        ``train_group_assemble_us`` (+``_hwm``: host time to launch the
+        device-side stack of a group) and the ``infeed_prefetch_depth_max``
+        gauge."""
         return {
             "infeed_batches": self._n_batches,
             "infeed_assembly_us": self._assembly_us,
             "infeed_assembly_us_hwm": self._assembly_us_hwm,
             "infeed_put_us": self._put_us,
             "infeed_put_us_hwm": self._put_us_hwm,
-            "train_group_assemble_us": 0,
-            "train_group_assemble_us_hwm": 0,
+            "train_group_assemble_us": self._group_assemble_us,
+            "train_group_assemble_us_hwm": self._group_assemble_us_hwm,
             "infeed_prefetch_depth_max": self._prefetch_depth,
         }
 
@@ -176,8 +216,20 @@ class ShardedFeed(object):
         """Live-knob hook: ``infeed_prefetch`` retunes the prefetch depth
         mid-run (applied to the running prefetch queue in place; a feed
         built with ``prefetch=0`` takes a raise at the next ``batches()``).
-        ``train_steps_per_call`` is not claimed: grouped batches are not
-        ported.  Returns True when the knob was claimed."""
+        ``train_steps_per_call`` sets the group size that
+        :meth:`grouped_batches` takes at its next group-fill start (never
+        mid-group); it is refused in a world of more than one process,
+        where a knob reaching the ranks at different steps would break
+        their lock-step.  Returns True when the knob was claimed."""
+        if name == "train_steps_per_call":
+            if self._num_processes > 1:
+                logger.warning(
+                    "refusing live train_steps_per_call retune in a "
+                    "%d-process world (per-process knob delivery skew "
+                    "would desync grouped lock-step)", self._num_processes)
+                return False
+            self._group_k_target = max(int(value), 1)
+            return True
         if name != "infeed_prefetch":
             return False
         depth = max(int(value), 1)
@@ -188,6 +240,17 @@ class ShardedFeed(object):
                 buf.maxsize = depth
                 buf.not_full.notify_all()
         return True
+
+    @property
+    def group_assembly(self):
+        """``"device"`` or ``"host"``: how grouped stacks are built."""
+        return self._group_assembly
+
+    @property
+    def group_donation_safe(self):
+        """True when every group's stacks are fresh buffers (device
+        assembly), the JAX package's condition for donating them."""
+        return self._group_assembly == "device"
 
     # -- host-side batch assembly ----------------------------------------
 
@@ -244,26 +307,34 @@ class ShardedFeed(object):
         local = _map(arrays, to_padded)
         mask = np.zeros((self.local_batch_size,), dtype=np.float32)
         mask[:count] = 1.0
-        start = time.perf_counter()
         with telemetry.get_tracer().span("infeed/device_put", rows=count):
-            if self.device.type == "cpu":
-                # copies: the feed's arrays may view buffers it reuses
-                batch = _map(local, lambda x: torch.from_numpy(np.array(x)))
-                mask_t, ready = torch.from_numpy(mask), None
-            else:
-                pinned = _map(local, lambda x: torch.from_numpy(
-                    np.ascontiguousarray(x)).pin_memory())
-                pinned_mask = torch.from_numpy(mask).pin_memory()
-                stream = self._side_stream()
-                with torch.cuda.stream(stream):
-                    batch = _map(pinned, lambda t: t.to(self.device,
-                                                        non_blocking=True))
-                    mask_t = pinned_mask.to(self.device, non_blocking=True)
-                    ready = torch.cuda.Event()
-                    ready.record(stream)
-        self._tally_put(start)
+            batch, mask_t, ready = self._to_device(local, mask)
         self._n_batches += 1
         return batch, mask_t, count, ready
+
+    def _to_device(self, local, mask):
+        """Numpy ``local`` (a tree) and ``mask`` as tensors on the device:
+        ``(batch, mask, ready)``.  On the card through pinned host tensors,
+        copied on the side stream; ``ready`` is the event after the copies
+        (None on the CPU)."""
+        start = time.perf_counter()
+        if self.device.type == "cpu":
+            # copies: the feed's arrays may view buffers it reuses
+            batch = _map(local, lambda x: torch.from_numpy(np.array(x)))
+            mask_t, ready = torch.from_numpy(mask), None
+        else:
+            pinned = _map(local, lambda x: torch.from_numpy(
+                np.ascontiguousarray(x)).pin_memory())
+            pinned_mask = torch.from_numpy(mask).pin_memory()
+            stream = self._side_stream()
+            with torch.cuda.stream(stream):
+                batch = _map(pinned, lambda t: t.to(self.device,
+                                                    non_blocking=True))
+                mask_t = pinned_mask.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(stream)
+        self._tally_put(start)
+        return batch, mask_t, ready
 
     def _handoff(self, item):
         """``(batch, mask)`` of a sharded item, safe to use on the calling
@@ -347,7 +418,155 @@ class ShardedFeed(object):
             yield template[0], zero_mask
 
     def grouped_batches(self, k):
-        raise NotImplementedError(_GROUPED_TODO)
+        """Generator of ``("multi", batch_stack, mask_stack)`` groups of K
+        full batches on the device (leaves shaped ``(k, local_batch,
+        ...)``) and ``("single", batch, mask)`` items for tails that cannot
+        fill a group, for ``Trainer.fit_feed(steps_per_call=k)``.
+
+        Lock-step across processes, as in the JAX package: before each
+        group all processes agree that they ALL hold a full group; the
+        first disagreement degrades every process to single steps for the
+        rest of the feed (groups already assembled are sliced back into
+        singles), where the per-step end-of-data consensus of
+        :meth:`batches` takes over."""
+        stop = self._stop = threading.Event()
+        source = (self._prefetched(stop, self._grouped_iter(k))
+                  if self._prefetch_depth else self._grouped_iter(k))
+        grouped_ok = True
+        try:
+            for item in source:
+                item = self._handoff_group(item)
+                if grouped_ok:
+                    is_group = item is not None and item[0] == "multi"
+                    if collectives.all_hosts_agree(is_group):
+                        yield item
+                        continue
+                    grouped_ok = False
+                    logger.info("degrading to single-step mode (a process "
+                                "cannot fill a %d-step group)", k)
+                for single in self._degrade(item):
+                    if not collectives.end_of_data_consensus(
+                            single is not None):
+                        return
+                    yield single
+        finally:
+            stop.set()
+
+    def _handoff_group(self, item):
+        """A grouped item, ``(kind, batch, mask)``, safe to use on the
+        calling thread's stream (see :meth:`_handoff`); None stays None."""
+        if item is None:
+            return None
+        kind, batch, mask, ready = item
+        return (kind,) + self._handoff((batch, mask, None, ready))
+
+    @staticmethod
+    def _degrade(item):
+        """Split one grouped item into single-step items (views of an
+        assembled group's slots); a trailing None stays None so the
+        caller's consensus sees end-of-feed.  The group size is read off
+        the mask stack: a group buffered before a knob retune carries its
+        own K."""
+        if item is None:
+            return [None]
+        if item[0] == "single":
+            return [item]
+        _, stack, masks = item
+        return [("single", _map(stack, lambda t: t[i]), masks[i])
+                for i in range(masks.shape[0])]
+
+    def _live_group_k(self):
+        """The current group size, with a pending knob retune folded in.
+        Read only at group-fill starts, so K changes land on group
+        boundaries."""
+        target = self._group_k_target
+        if target and target != self._group_k:
+            logger.info("grouped infeed: steps_per_call %d -> %d (group "
+                        "boundary)", self._group_k, target)
+            self._group_k = target
+        return self._group_k
+
+    def _grouped_iter(self, k):
+        """Yields ``("multi", stack, masks, ready)`` for runs of K full
+        local batches and ``("single", batch, mask, ready)`` for the rest,
+        then a single None.  Once a batch arrives short (the end of the
+        feed) the iterator stays in single mode."""
+        self._group_k = max(int(k), 1)
+        host = self._group_assembly == "host"
+        pending = []   # full batches awaiting a group: arrays (host mode)
+        singles_mode = False   # or sharded items (device mode)
+        group_k = self._live_group_k()
+        for local in self._local_iter():
+            if local is None:
+                break
+            arrays, count = local
+            if not singles_mode and count == self.local_batch_size:
+                if not pending:
+                    group_k = self._live_group_k()
+                pending.append(arrays if host else self._shard(arrays, count))
+                if len(pending) >= group_k:
+                    item = (self._put_group(pending) if host
+                            else self._assemble_group(pending))
+                    pending = []
+                    yield item
+                continue
+            singles_mode = True
+            for p in pending:
+                yield self._single(p, host)
+            pending = []
+            yield self._single(self._shard(arrays, count), False)
+        for p in pending:
+            yield self._single(p, host)
+        yield None
+
+    def _single(self, pending, host):
+        """A pending full batch as a ``("single", ...)`` item."""
+        if host:
+            pending = self._shard(pending, self.local_batch_size)
+        batch, mask, _, ready = pending
+        return ("single", batch, mask, ready)
+
+    def _assemble_group(self, pending):
+        """Stack k batches already copied to the device, on the stream
+        their copies went to (the side stream on the card), so the host
+        never holds the Kx copy; returns a ``"multi"`` item whose event
+        follows the stacking."""
+        group = len(pending)
+        start = time.perf_counter()
+        with telemetry.get_tracer().span("infeed/group_assemble",
+                                         group=group):
+            if self.device.type == "cpu":
+                stack, masks = self._stack(pending)
+                ready = None
+            else:
+                stream = self._side_stream()
+                with torch.cuda.stream(stream):
+                    stack, masks = self._stack(pending)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+        us = int((time.perf_counter() - start) * 1e6)
+        self._group_assemble_us += us
+        self._group_assemble_us_hwm = max(self._group_assemble_us_hwm, us)
+        return ("multi", stack, masks, ready)
+
+    @staticmethod
+    def _stack(pending):
+        """``(batch stack, mask stack)`` of sharded items."""
+        return (_map_many(lambda *leaves: torch.stack(leaves),
+                          [p[0] for p in pending]),
+                torch.stack([p[1] for p in pending]))
+
+    def _put_group(self, pending):
+        """Host assembly: ``np.stack`` k full local batches and copy the
+        group to the device at once (pinned on the card)."""
+        group = len(pending)
+        stack = _map_many(lambda *cols: np.stack([np.asarray(c)
+                                                  for c in cols]), pending)
+        masks = np.ones((group, self.local_batch_size), np.float32)
+        with telemetry.get_tracer().span("infeed/device_put", group=group):
+            stack, masks, ready = self._to_device(stack, masks)
+        self._n_batches += group
+        return ("multi", stack, masks, ready)
 
     def wire_formats(self):
         """Transport/format counts the underlying feed observed, e.g.

@@ -1,14 +1,23 @@
 """Trainer: the port's training loop (the counterpart of
-:mod:`tensorflowonspark_tpu.train`, its ``steps_per_call=1`` path).
+:mod:`tensorflowonspark_tpu.train`).
 
 The JAX Trainer jits a functional step over a pytree sharded on a mesh;
-here the step runs eagerly on one device per process: the loss and its
-backward through autograd (the flash attention kernels' backward
-included), the global grad norm on the device, and one ``torch.optim``
-step that updates the params in place.  Nothing in a step reads a value
-back to the host: the loss and grad norm stay device scalars until a
+here a step runs on one device per process: the loss and its backward
+through autograd (the flash attention kernels' backward included), the
+global grad norm on the device, and one ``torch.optim`` step that updates
+the params in place.  Nothing in a step reads a value back to the host:
+the loss and grad norm stay device scalars until a
 :class:`~tensorflowonspark_torch.metrics.TimeHistory` window boundary syncs
 on them.
+
+K steps per dispatch (:meth:`Trainer.multi_step`, :meth:`Trainer.repeat_step`,
+``fit_feed(steps_per_call=K)``) are the JAX package's ``lax.scan`` groups.
+On the CPU they are K eager steps.  On a CUDA card one optimizer step is
+captured once per batch signature as a ``torch.cuda.CUDAGraph`` (forward,
+backward, the all-reduce in a world of more than one process, grad norm,
+optimizer step) and a dispatch replays it K times, copying slot i of the
+stacked batch into the graph's static buffers before replay i: the host
+launches one graph per step instead of every kernel.
 
 In a ``torch.distributed`` world of more than one process (data
 parallelism, each process a local batch of the global one, as
@@ -21,19 +30,39 @@ count before the sum.  Every rank then applies identical gradients.
 """
 
 import dataclasses
+import importlib
 import logging
 import math
+import os
 import time
+import warnings
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from tensorflowonspark_torch import fault as fault_mod
 from tensorflowonspark_torch import metrics as metrics_mod
+from tensorflowonspark_torch import telemetry
 from tensorflowonspark_torch.device import resolve_device
 
+# the flash kernels' launch counters (the module; ``ops`` re-exports the
+# function under the same name)
+_kernels = importlib.import_module(
+    "tensorflowonspark_torch.ops.flash_attention")
+
 logger = logging.getLogger(__name__)
+
+#: ``fit_feed``'s default K when the caller leaves ``steps_per_call=1``
+#: (the JAX package's variable): cluster runs arm grouped dispatch through
+#: the executors' environment, without code changes
+STEPS_PER_CALL_ENV = "TFOS_STEPS_PER_CALL"
+
+#: eager steps, per batch signature, before a step is captured as a CUDA
+#: graph: they create the optimizer's lazy state, cuBLAS's workspaces and
+#: autograd's buffers, which a capture cannot allocate for later replays
+GRAPH_WARMUP_STEPS = 2
 
 # constructor arguments of the JAX Trainer that this port does not take yet:
 # (JAX default, the ROADMAP.md item that ports it)
@@ -42,11 +71,7 @@ _UNPORTED = {
     "param_sharding": (None, "Queue 1, the parallelism slice (FSDP)"),
     "accum_steps": (1, "Queue 1, the module queue: accum_steps"),
     "aot_cache": (None, "Queue 1, the compile plane"),
-    "summary_writer": (None, "Queue 1, the module queue: summary writer"),
 }
-_MEGASTEP_TODO = ("multi-step dispatch (steps_per_call > 1, multi_step, "
-                  "repeat_step) is not ported yet (ROADMAP.md, Queue 1, the "
-                  "module queue: multi_step as CUDA graphs)")
 
 
 @dataclasses.dataclass
@@ -64,12 +89,72 @@ class TrainState:
                 "opt_state": self.optimizer.state_dict()}
 
     def load_state_dict(self, state):
-        """Copy a :meth:`state_dict` into this state, in place."""
+        """Copy a :meth:`state_dict` into this state, in place: the params,
+        and the values of every optimizer state tensor this optimizer
+        already holds, which keep their storage (a captured CUDA graph
+        reads them at their addresses).  ``capturable`` flags stay as they
+        are; the other hyperparameters come from ``state``."""
+        opt = self.optimizer
         with torch.no_grad():
             for name, t in self.params.items():
                 t.copy_(state["params"][name])
-        self.optimizer.load_state_dict(state["opt_state"])
+        held = {p: dict(s) for p, s in opt.state.items()}
+        flags = [g.get("capturable") for g in opt.param_groups]
+        opt.load_state_dict(state["opt_state"])
+        for group, flag in zip(opt.param_groups, flags):
+            if flag is not None:
+                group["capturable"] = flag
+        _place_steps(opt)
+        with torch.no_grad():
+            for p, loaded in opt.state.items():
+                old = held.get(p, {})
+                for key, value in loaded.items():
+                    prev = old.get(key)
+                    if (isinstance(prev, torch.Tensor)
+                            and isinstance(value, torch.Tensor)
+                            and prev.shape == value.shape):
+                        prev.copy_(value)
+                        loaded[key] = prev
         self.step = int(state["step"])
+
+
+def _asks_not_capturable(factory):
+    """Whether an optimizer factory passes ``capturable=False`` itself (a
+    ``functools.partial``'s keywords say so)."""
+    return getattr(factory, "keywords", {}).get("capturable") is False
+
+
+def _arm_capturable(optimizer):
+    """Set ``capturable=True`` on every param group that has the key (a
+    CUDA graph can then capture ``optimizer.step()``; Adam's step counter
+    lives on the card) and place the step counters accordingly."""
+    for group in optimizer.param_groups:
+        if "capturable" in group:
+            group["capturable"] = True
+    _place_steps(optimizer)
+
+
+def _check_capturable(optimizer):
+    """Raise unless every param group that has ``capturable`` has it on."""
+    if any(group.get("capturable") is False
+           for group in optimizer.param_groups):
+        raise RuntimeError(
+            "the optimizer was made with capturable=False, so its step "
+            "cannot be captured as a CUDA graph: K steps a dispatch on the "
+            "card need it left to the Trainer (or set True)")
+
+
+def _place_steps(optimizer):
+    """Move the ``step`` counter of each param in a capturable group onto
+    that param's device, where capturable ``step()`` reads it."""
+    for group in optimizer.param_groups:
+        if not group.get("capturable"):
+            continue
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            step = state.get("step")
+            if isinstance(step, torch.Tensor) and step.device != p.device:
+                state["step"] = step.to(p.device)
 
 
 def _map(tree, fn):
@@ -80,12 +165,46 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def _first_leaf(tree):
+def _leaves(tree):
     if isinstance(tree, dict):
-        return _first_leaf(next(iter(tree.values())))
+        return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (list, tuple)):
-        return _first_leaf(tree[0])
-    return tree
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _signature(batch, mask):
+    """What a CUDA graph is captured for: the structure, shapes and dtypes
+    of the batch and the mask's shape."""
+    return repr((_map(batch, lambda t: (tuple(t.shape), str(t.dtype))),
+                 tuple(mask.shape)))
+
+
+class _StepGraph(object):
+    """One optimizer step captured as a CUDA graph: the static batch and
+    mask it reads, the loss and grad norm it writes (overwritten by every
+    replay), the gradients it keeps alive, and the kernel launches one
+    replay makes."""
+
+    def __init__(self, graph, batch, mask, loss, grad_norm, grads,
+                 launches):
+        self.graph = graph
+        self.batch = batch
+        self.mask = mask
+        self.loss = loss
+        self.grad_norm = grad_norm
+        self.grads = grads
+        self.launches = launches
+
+    def load(self, batch, mask):
+        """Copy one batch into the static buffers (on the current stream)."""
+        for dst, src in zip(_leaves(self.batch), _leaves(batch)):
+            dst.copy_(src)
+        self.mask.copy_(mask)
+
+    def replay(self):
+        self.graph.replay()
+        _kernels.add_launches(self.launches)
 
 
 class Trainer(object):
@@ -99,6 +218,13 @@ class Trainer(object):
         trainer copies it onto its device.
       optimizer: a factory ``params -> torch.optim.Optimizer``, e.g.
         ``functools.partial(torch.optim.Adam, lr=1e-3)`` for ``optax.adam``.
+        On a card its param groups get ``capturable=True`` where they have
+        the key, so that eager steps and CUDA graph replays do the same
+        arithmetic, unless the factory is a ``functools.partial`` that
+        passes ``capturable=False``: then eager steps keep it, and
+        :meth:`multi_step` and :meth:`repeat_step` raise before their first
+        step.  An optimizer whose step cannot be captured raises at the
+        first capture.
       compute_dtype: cast floating batch inputs to this dtype in the step
         (the model's own ``dtype`` sets its compute precision).
       batch_size: global batch size, for throughput metrics.
@@ -108,16 +234,21 @@ class Trainer(object):
         Added to the counted figure for MFU.
       step_flops_override: the whole MFU numerator, stated by the model
         owner; no counting happens.
+      summary_writer: optional
+        :class:`~tensorflowonspark_torch.summary.SummaryWriter` (chief-only
+        by the caller's convention): window scalars and the per-step loss
+        curve land in TensorBoard.
       device: ``"cuda"`` by default; ``"cpu"`` only when asked.
 
-    ``mesh``, ``param_sharding``, ``accum_steps``, ``aot_cache`` and
-    ``summary_writer`` raise ``NotImplementedError`` at any value other
-    than the JAX default: they are not ported yet.
+    ``mesh``, ``param_sharding``, ``accum_steps`` and ``aot_cache`` raise
+    ``NotImplementedError`` at any value other than the JAX default: they
+    are not ported yet.
     """
 
     def __init__(self, loss_fn, init_params, optimizer, compute_dtype=None,
                  batch_size=None, log_steps=20, extra_step_flops=0,
-                 step_flops_override=None, device=None, **unported):
+                 step_flops_override=None, summary_writer=None, device=None,
+                 **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError("Trainer() got an unexpected keyword "
@@ -134,13 +265,20 @@ class Trainer(object):
         self.log_steps = log_steps
         self.extra_step_flops = extra_step_flops
         self.step_flops_override = step_flops_override
+        self.summary_writer = summary_writer
         params = {name: torch.as_tensor(t).detach().to(self.device, copy=True)
                   .requires_grad_(True) for name, t in init_params.items()}
         self.state = TrainState(step=0, params=params,
                                 optimizer=optimizer(list(params.values())))
+        if self.device.type == "cuda" and not _asks_not_capturable(
+                optimizer):
+            # eager steps and graph replays share one optimizer arithmetic
+            # (capturable Adam computes its bias corrections on the card,
+            # not in Python floats), so K = 1 and K > 1 train alike
+            _arm_capturable(self.state.optimizer)
         self.history = None
         # dispatch-overlap and goodput tallies (the JAX Trainer's keys):
-        # host-side time between one step returning and the next starting
+        # host-side time between one dispatch returning and the next
         self._dispatch_count = 0
         self._dispatch_gap_us = 0
         self._dispatch_gap_us_hwm = 0
@@ -155,29 +293,44 @@ class Trainer(object):
         self._flops_per_sec = None   # latest achieved FLOP/s
         self._acct_history = None    # TimeHistory the accountant follows
         self._windows_seen = 0       # timestamp_log entries consumed
+        # the first step's cost (estimate_step_cost) and its roofline
+        self._step_bytes = None
+        self._roofline = None
+        self._compile_secs = None    # CUDA graph warm-up + capture wall
         # training health, read at window boundaries only
-        self._health_grad_norm = None  # device scalar from the last step
+        self._health_grad_norm = None  # device scalar from the last dispatch
         self._health_windows = 0
         self._health_loss = None       # last FINITE loss
         self._health_grad = None       # last finite grad norm
         self._nonfinite_loss = 0
         self._nonfinite_grad = 0
+        # megastep: dispatched steps, the K of the last dispatch and the
+        # session's largest K (the tail of a feed degrades to singles)
         self._steps_total = 0
+        self._steps_per_call_gauge = 0
+        self._steps_per_call_hwm = 0
+        # CUDA graphs by batch signature, eager warm-ups taken per
+        # signature, and the side stream that warms up and captures
+        self._graphs = {}
+        self._warmups = {}
+        self._capture_stream = None
 
     # -- the step ---------------------------------------------------------
 
-    def _prepare(self, batch, mask):
-        """The batch and mask on the device; floating batch inputs cast to
-        ``compute_dtype``; a missing mask is all ones."""
-        def put(x):
-            t = torch.as_tensor(x).to(self.device)
-            if self.compute_dtype is not None and t.is_floating_point():
-                t = t.to(self.compute_dtype)
-            return t
+    def _put(self, x):
+        t = torch.as_tensor(x).to(self.device)
+        if self.compute_dtype is not None and t.is_floating_point():
+            t = t.to(self.compute_dtype)
+        return t
 
-        batch = _map(batch, put)
+    def _prepare(self, batch, mask, stacked=False):
+        """The batch and mask on the device; floating batch inputs cast to
+        ``compute_dtype``; a missing mask is all ones (``[K, B]`` for a
+        ``stacked`` group)."""
+        batch = _map(batch, self._put)
         if mask is None:
-            mask = torch.ones(_first_leaf(batch).shape[0], device=self.device)
+            shape = _leaves(batch)[0].shape[:2 if stacked else 1]
+            mask = torch.ones(shape, device=self.device)
         else:
             mask = torch.as_tensor(mask).to(self.device, torch.float32)
         return batch, mask
@@ -208,25 +361,35 @@ class Trainer(object):
             offset += g.numel()
         return totals[1] / global_rows
 
-    def _step_core(self, batch, mask):
-        """One optimizer step: ``(loss, aux, grad_norm)``, device scalars;
-        in a multi-process world the loss and gradients are the global
-        batch's."""
+    def _step_math(self, batch, mask):
+        """The work of one optimizer step, the step counter left alone
+        (what a CUDA graph captures): ``(loss, aux, grad_norm)``, device
+        scalars; in a multi-process world the loss and gradients are the
+        global batch's."""
         loss, aux = self._grads(batch, mask)
         grads = [p.grad for p in self.state.params.values()
                  if p.grad is not None]
         if dist.is_initialized() and dist.get_world_size() > 1:
             loss = self._allreduce(loss, grads, mask)
         grad_norm = torch.nn.utils.get_total_norm(grads)
-        self.state.optimizer.step()
-        self.state.step += 1
+        with warnings.catch_warnings():
+            # a capturable optimizer stepped eagerly: meant (see __init__)
+            warnings.filterwarnings("ignore", message=".*capturable=True")
+            self.state.optimizer.step()
         return loss, aux, grad_norm
+
+    def _step_core(self, batch, mask):
+        """One optimizer step: ``(loss, aux, grad_norm)``."""
+        result = self._step_math(batch, mask)
+        self.state.step += 1
+        return result
 
     def _new_history(self, step_flops):
         self.history = metrics_mod.TimeHistory(
             batch_size=self.batch_size or 0, log_steps=self.log_steps,
             step_flops=step_flops,
-            peak_flops=metrics_mod.peak_flops_per_device(self.device))
+            peak_flops=metrics_mod.peak_flops_per_device(self.device),
+            summary_writer=self.summary_writer)
         self.history.on_train_begin()
 
     def _step_flops(self, counted):
@@ -239,18 +402,43 @@ class Trainer(object):
             return None
         return counted + self.extra_step_flops
 
+    def _set_cost(self, cost):
+        """Keep one step's :func:`~tensorflowonspark_torch.metrics.estimate_step_cost`:
+        the MFU numerator, the bytes and the roofline of the attribution
+        report (None on the CPU, which has no peak rates)."""
+        flops = self._step_flops(cost["flops"])
+        self.history.step_flops = flops
+        self._step_bytes = cost["bytes_accessed"]
+        self._roofline = metrics_mod.roofline(
+            flops, self._step_bytes,
+            peak_flops=metrics_mod.peak_flops_per_device(self.device),
+            peak_bps=metrics_mod.peak_bytes_per_sec_per_device(self.device))
+
+    def _counted_step(self, batch, mask):
+        """One eager optimizer step; the trainer's first also starts the
+        metrics recorder and counts the step's FLOPs and bytes."""
+        if self.history is not None:
+            return self._step_core(batch, mask)
+        self._new_history(self._step_flops(None))
+        if self.step_flops_override is not None:
+            return self._step_core(batch, mask)
+        cost, result = metrics_mod.estimate_step_cost(self._step_core, batch,
+                                                      mask)
+        self._set_cost(cost)
+        return result
+
     def compile_and_measure(self, example_batch, example_mask=None):
-        """Build the kernels and count the per-step FLOPs for MFU with one
-        forward and backward on ``example_batch`` (the params do not
+        """Build the kernels and count the per-step FLOPs and bytes with
+        one forward and backward on ``example_batch`` (the params do not
         change; their grads are cleared).  Returns the step FLOPs."""
         if self.history is None:
-            counted = None
+            self._new_history(self._step_flops(None))
             if self.step_flops_override is None:
                 batch, mask = self._prepare(example_batch, example_mask)
-                counted, _ = metrics_mod.estimate_step_flops(
-                    self._grads, batch, mask)
+                cost, _ = metrics_mod.estimate_step_cost(self._grads, batch,
+                                                         mask)
                 self.state.optimizer.zero_grad(set_to_none=True)
-            self._new_history(self._step_flops(counted))
+                self._set_cost(cost)
         return self.history.step_flops
 
     def reset_history(self):
@@ -260,35 +448,168 @@ class Trainer(object):
         if self.history is not None:
             self._new_history(self.history.step_flops)
 
+    def _note_dispatch(self, k):
+        self._steps_per_call_gauge = k
+        self._steps_per_call_hwm = max(self._steps_per_call_hwm, k)
+        self._steps_total += k
+
     def step(self, batch, mask=None):
-        """Run one step on the whole batch; returns ``(loss, aux)``, the
-        loss a device scalar.  The first step also counts the step FLOPs
-        (under ``FlopCounterMode``) unless :meth:`compile_and_measure` did."""
+        """Run one eager step on the whole batch; returns ``(loss, aux)``,
+        the loss a device scalar.  The first step also counts the step
+        FLOPs and bytes unless :meth:`compile_and_measure` did."""
         batch, mask = self._prepare(batch, mask)
-        if self.history is None:
-            self._new_history(None)
-            if self.step_flops_override is None:
-                counted, result = metrics_mod.estimate_step_flops(
-                    self._step_core, batch, mask)
-            else:
-                counted, result = None, self._step_core(batch, mask)
-            self.history.step_flops = self._step_flops(counted)
-        else:
-            result = self._step_core(batch, mask)
-        loss, aux, self._health_grad_norm = result
-        self._steps_total += 1
+        loss, aux, self._health_grad_norm = self._counted_step(batch, mask)
+        self._note_dispatch(1)
         # TimeHistory syncs on the loss at window boundaries: honest
         # ms/step and MFU; within a window the steps queue freely
         self.history.on_step_end(loss)
         return loss, aux
 
     def multi_step(self, batches, masks, donate_batches=False):
-        raise NotImplementedError(_MEGASTEP_TODO)
+        """Run K steps in one dispatch; ``batches``/``masks`` leaves carry a
+        leading dim K (:meth:`~tensorflowonspark_torch.parallel.infeed.ShardedFeed.grouped_batches`
+        yields them).  Returns the final step's loss as a device scalar.
+        The ``[K]`` per-step losses go to the metrics recorder (a dense
+        TensorBoard curve); window boundaries sync only the on-device loss
+        mean, and the grad-norm mean stays on the device for the health
+        gauges: within a window nothing is read back to the host.
+
+        On the card the steps are replays of the cached CUDA graph (see
+        :meth:`_graph_steps`), on the CPU K eager steps.
+        ``donate_batches`` is the JAX signature's and is ignored: the port
+        never donates.  Each replay reads a copy of its slot, so the
+        stacks' memory returns to the allocator as soon as the caller drops
+        them."""
+        del donate_batches
+        batches, masks = self._prepare(batches, masks, stacked=True)
+        k = int(masks.shape[0])
+        return self._dispatch_group(
+            k, lambda i: (_map(batches, lambda t: t[i]), masks[i]))
 
     def repeat_step(self, batch, mask, k):
-        raise NotImplementedError(_MEGASTEP_TODO)
+        """Run ``k`` steps on one batch in one dispatch (the synthetic-
+        benchmark twin of :meth:`multi_step`); returns the final step's
+        loss, with the same per-step accounting."""
+        batch, mask = self._prepare(batch, mask)
+        return self._dispatch_group(int(k), lambda i: (batch, mask))
+
+    def _dispatch_group(self, k, slot):
+        """``k`` steps, step i on ``slot(i) -> (batch, mask)``: the
+        per-step losses and grad norms stay on the device."""
+        if self.device.type == "cuda":
+            losses, grad_norms = self._graph_steps(k, slot)
+        else:
+            results = [self._counted_step(*slot(i)) for i in range(k)]
+            losses = torch.stack([r[0] for r in results])
+            grad_norms = torch.stack([r[2] for r in results])
+        self._health_grad_norm = grad_norms.mean()
+        self._note_dispatch(k)
+        self.history.on_steps_end(k, losses, window_value=losses.mean())
+        return losses[-1]
+
+    # -- CUDA graphs ------------------------------------------------------
+
+    def _graph_steps(self, k, slot):
+        """``k`` optimizer steps on the card: eager steps on the capture
+        stream until this batch signature has had
+        :data:`GRAPH_WARMUP_STEPS` (they are real steps: the first
+        dispatch's own first steps), then one capture, then a replay per
+        step.  Returns the ``[k]`` losses and grad norms, copies on the
+        device (a replay overwrites the graph's own outputs)."""
+        _check_capturable(self.state.optimizer)
+        losses = torch.empty(k, device=self.device)
+        grad_norms = torch.empty(k, device=self.device)
+        for i in range(k):
+            batch, mask = slot(i)
+            key = _signature(batch, mask)
+            graph = self._graphs.get(key)
+            if graph is None and self._warmups.get(key, 0) < \
+                    GRAPH_WARMUP_STEPS:
+                loss, grad_norm = self._warmup_step(key, batch, mask)
+            else:
+                if graph is None:
+                    graph = self._capture(key, batch, mask)
+                else:
+                    graph.load(batch, mask)
+                graph.replay()
+                self.state.step += 1
+                loss, grad_norm = graph.loss, graph.grad_norm
+            losses[i] = loss
+            grad_norms[i] = grad_norm
+        return losses, grad_norms
+
+    def _side_stream(self):
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(device=self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._capture_stream.wait_stream(current)
+        return self._capture_stream, current
+
+    def _warmup_step(self, key, batch, mask):
+        """One eager step on the capture stream before ``key``'s capture;
+        its wall time (synchronised) counts toward ``compile_secs``."""
+        t0 = time.perf_counter()
+        stream, current = self._side_stream()
+        with torch.cuda.stream(stream):
+            loss, _, grad_norm = self._counted_step(batch, mask)
+        current.wait_stream(stream)
+        stream.synchronize()
+        self._warmups[key] = self._warmups.get(key, 0) + 1
+        self._compile_secs = ((self._compile_secs or 0.0)
+                              + time.perf_counter() - t0)
+        return loss, grad_norm
+
+    def _capture(self, key, batch, mask):
+        """Capture one optimizer step on ``batch``'s signature into a CUDA
+        graph whose static buffers hold ``batch`` and ``mask``.  Capture
+        runs nothing, so the caller replays it for this batch.  Other
+        threads (the infeed's prefetch, the checkpoint writer) may make
+        CUDA calls meanwhile: the capture's error mode is thread-local.
+        A failed capture raises; nothing falls back to eager steps, and
+        the process's CUDA random-number state may be left mid-capture, so
+        the error ends the run."""
+        t0 = time.perf_counter()
+        static_batch = _map(batch, lambda t: t.clone())
+        static_mask = mask.clone()
+        stream, current = self._side_stream()
+        self.state.optimizer.zero_grad(set_to_none=True)
+        before = _kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                loss, _, grad_norm = self._step_math(static_batch,
+                                                     static_mask)
+        except RuntimeError as err:
+            raise RuntimeError(
+                "capturing the train step as a CUDA graph failed (batch "
+                "signature {}): {}".format(key, err)) from err
+        current.wait_stream(stream)
+        launches = {name: n - before[name]
+                    for name, n in _kernels.launch_counts().items()}
+        _kernels.add_launches({name: -n for name, n in launches.items()})
+        entry = _StepGraph(graph, static_batch, static_mask, loss, grad_norm,
+                           [p.grad for p in self.state.params.values()],
+                           launches)
+        self._graphs[key] = entry
+        self._compile_secs = ((self._compile_secs or 0.0)
+                              + time.perf_counter() - t0)
+        logger.info("captured the train step as a CUDA graph (%s) after %d "
+                    "warm-up steps: %.3f s with the warm-ups", key,
+                    self._warmups.get(key, 0), self._compile_secs)
+        return entry
 
     # -- the loop ---------------------------------------------------------
+
+    def apply_knob(self, name, value):
+        """Live-knob hook: ``train_steps_per_call`` is claimed, so a push
+        is acknowledged (the :class:`ShardedFeed` of the same process
+        regroups at its next group-fill start; ``train_steps_per_call_max``
+        shows the K that ran).  ``train_rollback`` comes with
+        ``fit_supervised`` (ROADMAP.md, Queue 1, item C): not claimed here,
+        like every other knob.  Returns True when claimed."""
+        del value
+        return name == "train_steps_per_call"
 
     def fit_feed(self, feed, max_steps=None, steps_per_call=1, on_steps=None):
         """Train from ``feed`` until it ends (or ``max_steps``); returns the
@@ -299,23 +620,42 @@ class Trainer(object):
         a cluster); when it has ``terminate()``, an early stop calls it so
         its producers unblock, and its ``counters_snapshot()`` joins
         ``stats["overlap"]``.  The fault injector of ``TFOS_FAULT_SPEC``
-        (straggler sleep, one NaN batch) hooks every step, as in the JAX
-        Trainer, and the trainer's counters ride this node's heartbeats.
+        (straggler sleep, one NaN batch) hooks every dispatch, as in the
+        JAX Trainer, and the trainer's counters ride this node's
+        heartbeats.  Each dispatch is a ``train/dispatch`` trace span.
+
+        ``steps_per_call`` > 1 pulls K-step groups from the feed's
+        ``grouped_batches(K)`` and runs each as one :meth:`multi_step`;
+        single items (a feed's tail) run through :meth:`repeat_step` with
+        k = 1, so on the card a padded final batch replays the same graph.
+        Leaving ``steps_per_call=1`` reads :data:`STEPS_PER_CALL_ENV`.
         ``max_steps`` is an **absolute** target for ``state.step``: steps
-        taken before count toward it.  ``on_steps``: optional
-        ``fn(steps_done)`` called after every step, the hook for periodic
-        checkpoints (``lambda s: ckpt.maybe_save(s, trainer.state)``).
-        ``steps_per_call`` > 1 is not ported yet."""
-        if int(steps_per_call) > 1:
-            raise NotImplementedError(_MEGASTEP_TODO)
+        taken before count toward it, and a group may overshoot it by at
+        most K-1.  ``on_steps``: optional ``fn(steps_done)`` called after
+        every dispatch, the hook for periodic checkpoints (``lambda s:
+        ckpt.maybe_save(s, trainer.state)``)."""
         from tensorflowonspark_torch import node as node_mod
 
         node_mod._register_feed(self)
+        tracer = telemetry.get_tracer()
         injector = fault_mod.from_env()
+        steps_per_call = int(steps_per_call)
+        if steps_per_call <= 1:
+            env_k = os.environ.get(STEPS_PER_CALL_ENV, "")
+            if env_k:
+                try:
+                    steps_per_call = max(int(env_k), 1)
+                except ValueError:
+                    logger.warning("ignoring non-integer %s=%r",
+                                   STEPS_PER_CALL_ENV, env_k)
+        if steps_per_call > 1:
+            source = feed.grouped_batches(steps_per_call)
+        else:
+            source = (("single", b, m) for b, m in feed.batches())
         last_loss = None
         steps_done = self.state.step
         prev_return = None
-        for batch, mask in feed.batches():
+        for kind, batch, mask in source:
             injector.on_step(steps_done)
             batch = injector.corrupt_batch(batch, steps_done)
             start = time.perf_counter()
@@ -327,8 +667,16 @@ class Trainer(object):
                 # the gap net of the previous on_steps hook went to the feed
                 self._goodput_infeed_starved_us += max(
                     0, gap_us - self._last_drain_us)
-            loss, _ = self.step(batch, mask)
-            steps_done += 1
+            with tracer.span("train/dispatch", kind=kind):
+                if kind == "multi":
+                    loss = self.multi_step(batch, mask)
+                    steps_done += int(mask.shape[0])
+                elif steps_per_call > 1:
+                    loss = self.repeat_step(batch, mask, 1)
+                    steps_done += 1
+                else:
+                    loss, _ = self.step(batch, mask)
+                    steps_done += 1
             prev_return = time.perf_counter()
             self._goodput_dispatch_us += int((prev_return - start) * 1e6)
             self._dispatch_count += 1
@@ -357,9 +705,11 @@ class Trainer(object):
             stats = {}
         stats["overlap"] = overlap
         stats["megastep"] = {
-            "steps_per_call": 1,
-            "steps_per_call_last": 1,
-            "group_assembly": None,
+            "steps_per_call": steps_per_call,
+            "steps_per_call_last": self._steps_per_call_gauge or 1,
+            "group_assembly": (getattr(feed, "group_assembly", None)
+                               if steps_per_call > 1 else None),
+            # the port donates neither (see multi_step)
             "donate_state": False,
             "donate_batches": False,
         }
@@ -386,8 +736,14 @@ class Trainer(object):
     # -- accounting -------------------------------------------------------
 
     def counters_snapshot(self):
-        """Flat dispatch, goodput, step-time and health counters under the
-        JAX Trainer's names (see its ``counters_snapshot``)."""
+        """Flat dispatch, goodput, step-time, health and attribution
+        counters under the JAX Trainer's names (see its
+        ``counters_snapshot``): ``train_steps_per_call_max`` the session's
+        largest K, ``train_compile_us_max`` the CUDA graph warm-up and
+        capture wall time (when a graph was captured),
+        ``train_step_bytes_max`` the first step's counted bytes, and
+        ``attrib_<bucket>_pct_max`` of :meth:`attribution_report` once a
+        window closed."""
         snap = {
             "dispatch_count": self._dispatch_count,
             "dispatch_gap_us": self._dispatch_gap_us,
@@ -395,6 +751,8 @@ class Trainer(object):
         }
         if self._steps_total:
             snap["train_steps_total"] = self._steps_total
+        if self._steps_per_call_hwm:
+            snap["train_steps_per_call_max"] = self._steps_per_call_hwm
         if self._step_ms_count:
             running = 0
             for bound in metrics_mod.STEP_MS_BUCKETS:
@@ -420,7 +778,38 @@ class Trainer(object):
                 snap["train_loss_max"] = self._health_loss
             if self._health_grad is not None:
                 snap["train_grad_norm_max"] = round(self._health_grad, 6)
+        if self._compile_secs is not None:
+            snap["train_compile_us_max"] = int(self._compile_secs * 1e6)
+        if self._step_bytes:
+            snap["train_step_bytes_max"] = self._step_bytes
+        attrib = self.attribution_report()
+        if attrib:
+            for name, pct in attrib.items():
+                snap["attrib_%s_max" % name] = round(pct, 4)
         return snap
+
+    def attribution_report(self):
+        """Decompose the closed-window step-loop wall time into the
+        :data:`~tensorflowonspark_torch.metrics.ATTRIBUTION_BUCKETS`
+        percentages (summing to 100), or None before the first window
+        closes (the JAX Trainer's report).
+
+        ``device_compute`` is closed-window steps times the roofline's
+        ``ideal_step_seconds`` from the first step's counted FLOPs and
+        bytes (0 on the CPU, which has no peak rates); ``collective`` is 0
+        (no timing source, as in the JAX package); ``infeed_starved`` and
+        ``ckpt_drain`` are the goodput tallies; ``unattributed`` is the
+        rest: the device below its roofline plus host work the other
+        buckets do not see."""
+        measured_us = self._step_ms_sum_us
+        if not measured_us:
+            return None
+        ideal = (self._roofline or {}).get("ideal_step_seconds")
+        device_us = self._step_ms_count * ideal * 1e6 if ideal else 0.0
+        return metrics_mod.attribute_step_time(
+            measured_us, device_us,
+            infeed_starved_us=self._goodput_infeed_starved_us,
+            ckpt_drain_us=self._goodput_ckpt_drain_us)
 
     def _account_windows(self):
         """Fold newly closed TimeHistory windows into the step-time
@@ -463,15 +852,16 @@ class Trainer(object):
 
     def _sync_health(self, hist):
         """Fold one boundary's loss and grad norm into the health gauges:
-        the boundary just synced, so reading them stalls nothing."""
+        the boundary just synced, so reading them stalls nothing.  The
+        synced value is a step's loss or a K-step dispatch's loss mean
+        (NaN and Inf propagate through the mean)."""
         self._health_windows += 1
         val = hist.last_synced_value
         if val is not None:
-            val = float(val)
-            if math.isfinite(val):
-                self._health_loss = val
-            else:
-                self._nonfinite_loss += 1
+            arr = np.asarray(val, dtype=np.float64).ravel()
+            self._nonfinite_loss += int((~np.isfinite(arr)).sum())
+            if arr.size and math.isfinite(arr[-1]):
+                self._health_loss = float(arr[-1])
         gnorm, self._health_grad_norm = self._health_grad_norm, None
         if gnorm is not None:
             gval = float(gnorm)

@@ -105,3 +105,42 @@ def test_async_worker_error_surfaces(tmp_path):
     mgr.wait_until_finished()
     assert mgr.latest_step() == 2
     mgr.close()
+
+
+def _rank_saves(rank, directory):
+    """Both ranks of a world call ``maybe_save`` at the same steps on one
+    directory; only rank 0, the chief, writes.  After the chief's writes
+    land (and a barrier) both restore the newest step."""
+    import os
+
+    import torch.distributed as dist
+
+    mgr = checkpoint.CheckpointManager(directory, save_interval_steps=2,
+                                       max_to_keep=2, is_chief=rank == 0)
+    accepted = []
+    w = torch.zeros(3)
+    for step in range(1, 7):
+        w += 1.0                       # the same on both ranks
+        accepted.append(mgr.maybe_save(step, {"w": w, "step": step}))
+    mgr.wait_until_finished()
+    dist.barrier()
+    state, at = mgr.restore_latest()
+    # the save gate stays in step: no error, nothing accepted mid-interval
+    again = mgr.maybe_save(7, {"w": w, "step": 7})
+    mgr.close()
+    return (accepted, at, state["w"].tolist(), again,
+            sorted(os.listdir(directory)))
+
+
+def test_only_the_chief_writes_and_every_rank_restores(tmp_path):
+    """Two gloo ranks save on one directory: exactly one copy of each step
+    lands (retention keeps two), the next ``maybe_save`` raises nothing on
+    either rank, and both ranks restore the chief's state."""
+    from torch_world import run_world
+
+    ranks = run_world(_rank_saves, 2, str(tmp_path))
+    for accepted, at, w, again, listing in ranks:
+        assert accepted == [False, True, False, True, False, True]
+        assert at == 6 and w == [6.0, 6.0, 6.0] and again is False
+        assert listing == ["4", "6"]
+    assert checkpoint.CheckpointManager(str(tmp_path)).is_chief

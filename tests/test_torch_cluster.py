@@ -278,11 +278,12 @@ def test_unported_planes_raise(unported):
         cluster.run(object(), _raise_fun, None, num_executors=1, **unported)
 
 
-def _example(*argv):
+def _example(*argv, env=None):
     return subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "mnist",
                                       "mnist_spark_torch.py"), *argv],
-        capture_output=True, text=True, timeout=120)
+        capture_output=True, text=True, timeout=120,
+        env=None if env is None else dict(os.environ, **env))
 
 
 def test_mnist_example_trains_on_the_cpu(tmp_path):
@@ -293,6 +294,37 @@ def test_mnist_example_trains_on_the_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     state, descriptor = checkpoint.load_model(export, validate=True)
     assert descriptor["model_config"] == {"dtype": "bfloat16"}
+
+
+def test_mnist_example_steps_per_call_and_tensorboard(tmp_path):
+    """--steps_per_call 4 trains in groups, and with --tensorboard and
+    --log_dir the chief writes a tfevents file TensorBoard can load."""
+    log_dir = str(tmp_path / "tb")
+    # max_steps: the chief finishes (and closes its writer) before the
+    # cluster's shutdown, which in SPARK mode may stop a child mid-tail.
+    # No prefetch: the nodes read each group as they dispatch it, so the
+    # feed (and with it TPUCluster.train) ends only once the chief has
+    # reached max_steps; a prefetch of 2 groups reads all 8 steps' rows
+    # ahead, and on a loaded host shutdown's 5 s grace can end before the
+    # chief's first steps
+    proc = _example("--device", "cpu", "--cluster_size", "2", "--num_rows",
+                    "512", "--batch_size", "32", "--epochs", "1",
+                    "--max_steps", "8", "--steps_per_call", "4",
+                    "--tensorboard", "--log_dir", log_dir, "--export_dir",
+                    str(tmp_path / "export"),
+                    env={"TFOS_INFEED_PREFETCH": "0"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    files = [f for f in os.listdir(log_dir) if "tfevents" in f]
+    assert len(files) == 1, os.listdir(log_dir)     # the chief's only
+    loader = pytest.importorskip(
+        "tensorboard.backend.event_processing.event_file_loader")
+    events = list(loader.EventFileLoader(
+        os.path.join(log_dir, files[0])).Load())
+    tags = {v.tag for e in events for v in e.summary.value}
+    assert {"loss", "avg_exp_per_second"} <= tags, tags
+    steps = sorted({e.step for e in events for v in e.summary.value
+                    if v.tag == "loss"})
+    assert steps == list(range(1, 9))            # the per-step curve
 
 
 def test_mnist_example_without_a_card_raises(tmp_path):
@@ -322,6 +354,26 @@ def test_pin_cards(monkeypatch):
         device.pin_cards(2, 2)
 
 
+def test_default_card_after_pin_cards(monkeypatch):
+    """A worker that pin_cards left one card trains on cuda:0, whatever its
+    local rank; unpinned, local rank r takes card r of the host's; a card
+    that is not visible raises."""
+    from tensorflowonspark_torch import device
+
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    monkeypatch.delenv(device.PINNED_ENV, raising=False)
+    assert not device.cards_pinned()
+    assert device.default_card(3, 4, pinned=False) == 3
+    device.pin_cards(3, 1, total_cards=4)
+    assert device.cards_pinned()
+    assert device.default_card(3, 1, device.cards_pinned()) == 0
+    with pytest.raises(ValueError, match="local rank 3"):
+        device.default_card(3, 1, pinned=False)
+    # a later change of the visible list is not this worker's pinning
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3")
+    assert not device.cards_pinned()
+
+
 def test_heartbeat_memory_counters_leave_cuda_alone():
     """The heartbeat's card-memory leg is empty, and starts nothing, in a
     process that has not initialized CUDA (the executor shells)."""
@@ -331,3 +383,110 @@ def test_heartbeat_memory_counters_leave_cuda_alone():
         pytest.skip("CUDA is initialized in this process")
     assert metrics.device_memory_counters() == {}
     assert not torch.cuda.is_initialized()
+
+
+# -- K steps per dispatch through the cluster, and its trace spans -----------
+
+TRUE_W = np.array([3.14, 1.618], np.float32)
+MEGA_ROWS = 36           # a node: 4 full steps of 8 rows, a padded step of 4
+
+
+def _regression_rows(ids):
+    x = np.random.default_rng(5).random((max(ids) + 1, 2)).astype(np.float32)
+    return [[float(i)] + x[i].tolist() + [float(x[i] @ TRUE_W)] for i in ids]
+
+
+def _regression_preprocess(items):
+    rows = np.asarray(items, np.float32)
+    return {"x": rows[:, 1:3], "y": rows[:, 3]}
+
+
+def _linear_loss(params, batch, mask):
+    pred = batch["x"] @ params["w"] + params["b"]
+    err = (pred - batch["y"]) ** 2 * mask
+    return err.sum() / mask.sum().clamp_min(1.0), pred
+
+
+def _megastep_fun(args, ctx):
+    """A node that trains the linear model with periodic checkpoints (the
+    chief writes), restores the newest one and reports its params and the
+    megastep stamp; K comes from TFOS_STEPS_PER_CALL when the cluster's
+    executor_env sets it."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    device = ctx.initialize_distributed(device="cpu")
+    trainer = train.Trainer(
+        _linear_loss, {"w": np.zeros(2, np.float32),
+                       "b": np.zeros((), np.float32)},
+        functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9),
+        batch_size=GLOBAL_BATCH, log_steps=2, device=device)
+    feed = infeed.ShardedFeed(ctx.get_data_feed(), GLOBAL_BATCH,
+                              preprocess=_regression_preprocess,
+                              device=device)
+    ckpt = checkpoint.CheckpointManager(args.ckpt_dir, save_interval_steps=4,
+                                        is_chief=ctx.is_chief())
+    stats = trainer.fit_feed(
+        feed, on_steps=lambda s: ckpt.maybe_save(s, trainer.state))
+    ckpt.wait_until_finished()
+    dist.barrier()
+    _, restored = ckpt.restore_latest()
+    ckpt.close()
+    report = {"params": {k: v.detach().numpy().tolist()
+                         for k, v in trainer.state.params.items()},
+              "steps": trainer.state.step, "restored": restored,
+              "megastep": stats["megastep"],
+              "k_max": stats["overlap"].get("train_steps_per_call_max")}
+    path = os.path.join(args.out_dir, "rank-{}.json".format(ctx.process_id))
+    with open(path + ".tmp", "w") as f:
+        json.dump(report, f)
+    os.replace(path + ".tmp", path)
+
+
+def _megastep_run(tmp, env=None, telemetry_dir=None):
+    os.makedirs(tmp)
+    args = types.SimpleNamespace(out_dir=tmp,
+                                 ckpt_dir=os.path.join(tmp, "ckpt"))
+    parts = [_regression_rows(range(p * MEGA_ROWS, (p + 1) * MEGA_ROWS))
+             for p in range(2)]
+    b = backend.LocalBackend(2)
+    try:
+        c = cluster.run(b, _megastep_fun, args, num_executors=2,
+                        input_mode=cluster.InputMode.SPARK,
+                        heartbeat_interval=1.0, executor_env=env,
+                        telemetry=telemetry_dir is not None,
+                        telemetry_dir=telemetry_dir)
+        c.train(parts, num_epochs=1)
+        c.shutdown(grace_secs=1)
+        return _reports(tmp, 2)
+    finally:
+        b.stop()
+
+
+def test_cluster_steps_per_call_from_env_matches_k1_and_traces(tmp_path):
+    """Two nodes, K = 4 armed by TFOS_STEPS_PER_CALL in the executors'
+    environment (the twin of scripts/ci_assert_megastep.py): the final
+    params equal the K = 1 cluster's, the stamp says K = 4, and with
+    telemetry on the trace files hold the dispatch and checkpoint spans."""
+    want = _megastep_run(str(tmp_path / "k1"))
+    tdir = str(tmp_path / "telemetry")
+    got = _megastep_run(str(tmp_path / "k4"),
+                        env={train.STEPS_PER_CALL_ENV: "4"},
+                        telemetry_dir=tdir)
+    for w, g in zip(want, got):
+        assert w["steps"] == g["steps"] == 5
+        assert w["restored"] == g["restored"] == 4
+        for name in w["params"]:
+            np.testing.assert_allclose(g["params"][name], w["params"][name],
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+        assert w["megastep"]["steps_per_call"] == 1
+        assert g["megastep"]["steps_per_call"] == 4 and g["k_max"] == 4
+    names = set()
+    for name in os.listdir(tdir):
+        if name.startswith("trace-"):
+            with open(os.path.join(tdir, name)) as f:
+                trace = json.load(f)
+            events = trace["traceEvents"] if isinstance(trace, dict) else trace
+            names.update(e.get("name") for e in events)
+    assert {"train/dispatch", "checkpoint/save_requested", "checkpoint/save",
+            "checkpoint/restore"} <= names, sorted(n for n in names if n)

@@ -111,9 +111,14 @@ def test_counters_have_the_jax_keys():
     assert snap["infeed_prefetch_depth_max"] == 0
     assert feed.apply_knob("infeed_prefetch", 3) is True
     assert feed.counters_snapshot()["infeed_prefetch_depth_max"] == 3
-    assert feed.apply_knob("train_steps_per_call", 4) is False
-    with pytest.raises(NotImplementedError, match="item 9"):
-        feed.grouped_batches(4)
+    # grouped batches are ported (tests/test_torch_megastep.py holds them
+    # against the JAX package's): the knob is claimed, groups come out
+    assert feed.apply_knob("train_steps_per_call", 4) is True
+    grouped = ShardedFeed(StubFeed(_rows(16)), GLOBAL_BATCH,
+                          transform=_columnar, prefetch=0, device="cpu")
+    out = list(grouped.grouped_batches(2))
+    assert [kind for kind, _, _ in out] == ["multi"]
+    assert out[0][1]["x"].shape == (2, GLOBAL_BATCH, 3)
 
 
 def test_prefetch_depth_from_env(monkeypatch):

@@ -97,3 +97,43 @@ def test_mnist_example_on_two_cards(two_cards, tmp_path):
     state, descriptor = checkpoint.load_model(export, validate=True)
     assert descriptor["model_name"] == "mnist_cnn"
     assert set(state) == set(mnist.build_mnist().state_dict())
+
+
+def _group_steps(device, rows, k=4):
+    """K = 4 MNIST steps from the same seeded init as one ``multi_step``
+    (graph replays, the NCCL all-reduce inside the graph) on ``rows`` of
+    each global batch; returns the final loss and the params."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = mnist.build_mnist()
+    tr = train.Trainer(mnist.loss_fn(model), dict(model.state_dict()),
+                       functools.partial(torch.optim.SGD, lr=0.1,
+                                         momentum=0.9),
+                       batch_size=8, device=device)
+    images, labels = _batch()
+    shift = [np.roll(images, i, axis=1) for i in range(k)]
+    stack = {"image": np.stack([s[rows] for s in shift]),
+             "label": np.stack([labels[rows]] * k)}
+    loss = tr.multi_step(stack, np.stack([MASK[rows]] * k))
+    return loss.item(), {n: v.detach().cpu().numpy()
+                         for n, v in tr.state.params.items()}
+
+
+def _rank_group_steps(rank):
+    return _group_steps(torch.device("cuda", rank),
+                        slice(4 * rank, 4 * rank + 4))
+
+
+def test_two_card_multi_step_equals_one_card_steps(two_cards):
+    """Two NCCL ranks run K = 4 steps as graph replays, the all-reduce
+    captured in the graph, and end where one card's 4 steps on the whole
+    padded batch end."""
+    ranks = run_world(_rank_group_steps, 2, backend="nccl")
+    want_loss, want_params = _group_steps(torch.device("cuda", 0),
+                                          slice(0, 8))
+    for loss, params in ranks:
+        assert abs(loss - want_loss) <= TOL
+        for name, want in want_params.items():
+            np.testing.assert_allclose(params[name], want, rtol=0, atol=TOL,
+                                       err_msg=name)

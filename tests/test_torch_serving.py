@@ -192,8 +192,10 @@ import chip_smoke
 spec = importlib.util.spec_from_file_location("mnist_spark_torch", {example!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 25 else 0)
+missing = sorted(set(pkg.__name__ + "." + m for m in (
+    "summary", "tfrecord", "example_proto")) - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 25 else 0)
 """
 
 

@@ -6,6 +6,7 @@ come from numpy seeds and reach both sides as numpy.
 checkpoint manager."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -163,6 +164,18 @@ class _Feed(object):
             self.yielded += 1
             yield {"tokens": _tokens(100 + i)}, np.ones(BATCH, np.float32)
 
+    def grouped_batches(self, k):
+        """K-step groups of the same batches, as ``ShardedFeed`` yields
+        them, the last group short of K as singles."""
+        items = list(self.batches())
+        for start in range(0, len(items) - len(items) % k, k):
+            group = items[start:start + k]
+            yield ("multi",
+                   {"tokens": np.stack([b["tokens"] for b, _ in group])},
+                   np.stack([m for _, m in group]))
+        for batch, mask in items[len(items) - len(items) % k:]:
+            yield ("single", batch, mask)
+
     def terminate(self):
         self.terminated = True
 
@@ -196,8 +209,12 @@ def test_fit_feed_max_steps_hook_and_stats(flax_params):
     short = _Feed(2)
     tr.fit_feed(short, max_steps=100)
     assert tr.state.step == 7 and not short.terminated
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.fit_feed(_Feed(1), steps_per_call=4)
+    # four steps a dispatch: one group of 4, then a single
+    grouped, seen = _Feed(5), []
+    stats = tr.fit_feed(grouped, steps_per_call=4, on_steps=seen.append)
+    assert seen == [11, 12] and tr.state.step == 12
+    assert stats["megastep"]["steps_per_call"] == 4
+    assert stats["overlap"]["train_steps_per_call_max"] == 4
 
 
 @pytest.mark.parametrize("attention", ["full", "flash"])
@@ -281,24 +298,64 @@ def test_trainer_without_cpu_raises_when_no_cuda(flax_params, monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh": object()}, {"param_sharding": "fsdp"}, {"accum_steps": 2},
-    {"aot_cache": "/nonexistent"}, {"summary_writer": object()},
+    {"aot_cache": "/nonexistent"}, {"summary_writer": "tfevents"},
 ])
-def test_unported_trainer_arguments_raise(flax_params, kwargs):
+def test_unported_trainer_arguments_raise(flax_params, kwargs, tmp_path):
+    name = next(iter(kwargs))
+    if name == "summary_writer":
+        # ported: a real writer is accepted and gets the window's scalars
+        from tensorflowonspark_torch import summary
+
+        with summary.SummaryWriter(str(tmp_path)) as writer:
+            tr = _trainer(flax_params, summary_writer=writer, log_steps=1)
+            tr.step({"tokens": _tokens(5)})
+        assert os.path.getsize(writer.path) > 100
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _trainer(flax_params, **kwargs)
     # the JAX defaults are accepted
-    name = next(iter(kwargs))
     _trainer(flax_params, **{name: train._UNPORTED[name][0]})
 
 
 def test_unported_trainer_methods_raise(flax_params):
-    tr = _trainer(flax_params)
+    """multi_step and repeat_step are ported (K steps equal K single
+    steps; tests/test_torch_megastep.py holds them against the JAX
+    Trainer); restore_latest(validate=True) is not."""
+    single, multi, rep = (_trainer(flax_params) for _ in range(3))
+    batches = [{"tokens": _tokens(60 + i)} for i in range(2)]
+    for b in batches:
+        want, _ = single.step(b)
+    got = multi.multi_step(
+        {"tokens": np.stack([b["tokens"] for b in batches])},
+        np.ones((2, BATCH), np.float32))
+    np.testing.assert_allclose(got.item(), want.item(), rtol=LOSS_RTOL)
+    rep.repeat_step(batches[0], None, 2)
+    assert multi.state.step == rep.state.step == 2
+    for name, t in single.state.params.items():
+        np.testing.assert_allclose(multi.state.params[name].detach().numpy(),
+                                   t.detach().numpy(), rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.multi_step(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.repeat_step(None, None, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.restore_latest(None, validate=True)
+        single.restore_latest(None, validate=True)
+
+
+def test_corrupt_batch_maps_over_the_whole_tree(monkeypatch):
+    """The NaN-batch fault reaches every floating leaf of a nested batch
+    (tensors and arrays, in dicts, lists and tuples), leaves integer leaves
+    alone, and fires once."""
+    from tensorflowonspark_torch import fault
+
+    monkeypatch.setenv("TFOS_FAULT_SPEC", '{"nan_batch_at_step": 3}')
+    injector = fault.from_env()
+    batch = {"x": (torch.ones(2, 3), torch.arange(4)),
+             "y": {"z": np.ones((2,), np.float32),
+                   "ids": [np.arange(3)]}}
+    assert injector.corrupt_batch(batch, 2) is batch      # not yet
+    out = injector.corrupt_batch(batch, 3)
+    assert torch.isnan(out["x"][0]).all() and isinstance(out["x"], tuple)
+    assert torch.equal(out["x"][1], torch.arange(4))
+    assert np.isnan(out["y"]["z"]).all()
+    assert np.array_equal(out["y"]["ids"][0], np.arange(3))
+    assert injector.corrupt_batch(batch, 4) is batch      # fired once
 
 
 # the global batch of a padded final step: 6 valid rows of 8
