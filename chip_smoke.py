@@ -50,7 +50,24 @@ weights from a seed) along both paths:
   losses at steps 10 and 20 against the K = 1 cluster run's.  In both
   cluster runs the node's ``fit_feed`` runs under ``torch.profiler`` (CUDA
   activity only), and its launch counters are held to the flash kernels
-  the card executed.
+  the card executed;
+- supervised: the same LM, init and stream at K = 5 through
+  ``train.fit_supervised`` with checkpoints every 10 steps: (a) a feed
+  that fails (retryably) after step 15, resumed from step 10, ends at step
+  30 with the params of the train-at-K = 5 phase's uninterrupted run; (b)
+  the same after the ``corrupt_checkpoint`` fault garbled the newest step,
+  which is quarantined as ``<step>.corrupt``; (c) a NaN batch at step 16
+  poisons the params, the ``train_rollback`` knob pushed through
+  ``node.apply_knobs`` halts the run, the poisoned step is quarantined and
+  training resumes from the last valid one; (d) ``accum_steps=2`` and (e)
+  ``remat=True`` at K = 1 and K = 5 beside plain runs on the same batches,
+  with their peak memory and steady step (remat's losses equal the plain
+  run's; accum's one step from the same params equals the full batch's,
+  and its K = 5 run its K = 1 run); (f) ``Trainer.evaluate`` of the
+  trained params over 20 held-out rows (two full batches and a padded
+  one), flash against full attention.  The launch counters of (a), (d),
+  (e) and (f) are held to the flash kernels the profiler saw the card
+  execute.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -59,6 +76,7 @@ one card; without CUDA, or without the package beside it, it fails.
 
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -149,6 +167,38 @@ MEGA_LOSS_TOL = 1e-3
 MEGA_STEADY_GROUPS = 4     # warm groups of 5 timed on device-resident stacks
 MEGA_PROFILE_GROUPS = 2    # warm groups of 5 under torch.profiler
 
+# the supervised phase: fit_supervised at K = 5 with a save every 10 steps;
+# the first feed fails after step 15 ((a); (b) after step 25, once a save
+# of step 20 was garbled); a NaN batch at step 16 for (c).  A resumed run
+# replays the uninterrupted run's kernels, graph and data from a restored
+# state that is a bit copy, so its params are held to RESUME_TOL.
+SUPERVISED_SAVE_STEPS = 10
+CRASH_STEP = 15
+CORRUPT_CRASH_STEP = 25
+NAN_STEP = 12          # the first group at or after it: steps 16-20
+# accum_steps=2 splits a batch of 8 into two of 4, and each micro-batch's
+# bf16 weight gradients are rounded on their own: a different arithmetic,
+# which 30 Adam steps at lr 1e-3 amplify like any other (on the card,
+# Adam with capturable=False, an fp32 bias-correction difference, ends
+# 5e-5, 0.026 and 0.135 nats off at steps 10, 20 and 30; PERF.md).  So the accum run's losses there
+# are reported beside the plain run's, not held; what is held is one step
+# from the same params and batch: the loss within 1e-3 nats and each
+# gradient within GRAD_RTOL of its norm (about two bf16 steps; a
+# micro-batch weighted wrongly is off by O(1)), and the K = 5 run against
+# the K = 1 run at MEGA_LOSS_TOL.  remat runs the same forward twice with
+# the same kernels: its losses are held to the plain run's at RESUME_TOL.
+ACCUM_STEPS = 2
+ACCUM_LOSS_TOL = 1e-3
+REMAT_LOSS_TOL = RESUME_TOL
+SUPERVISED_STEADY_GROUPS = 2
+# evaluate: 20 held-out rows in batches of 8; the mean token loss and top-1
+# accuracy through the flash forward against full attention on the same
+# params.  LOGIT_TOL bounds a logit's difference relative to max|logit|;
+# the means over 20 x 1023 tokens move far less, so both are held to
+# LOGIT_TOL absolute (nats, and a share of tokens)
+EVAL_ROWS = 20
+EVAL_TOL = LOGIT_TOL
+
 # (shape [B, S, H, D], dtype, causal, fused): the serving shape first, then
 # the training shape
 FLASH_CASES = [
@@ -212,6 +262,10 @@ def device_kernels(prof):
             and "#" not in e.key]
 
 
+# trailing work before a counting profiler stops (see counted_on_device)
+TRACE_TAIL_KERNELS = 256
+TRACE_TAIL_SECS = 0.5
+
 # the flash kernels' names in a trace (each fragment covers the fp32 and
 # the bf16 variant), by the names of the kernels line
 FLASH_KERNELS = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
@@ -229,6 +283,15 @@ def counted_on_device(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         result = fn()
         torch.cuda.synchronize()
+        # the trace can miss the records of the last kernels before the
+        # profiler stops (seen on the card: the last layers' backward
+        # kernels of a 30-step run): trailing kernels of another name and
+        # a pause give them time to land
+        tail = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_TAIL_KERNELS):
+            tail.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_TAIL_SECS)
     counts = dict.fromkeys(FLASH_KERNELS, 0)
     for e in device_kernels(prof):
         for name, fragment in FLASH_KERNELS.items():
@@ -1054,6 +1117,9 @@ def phase_train_megastep(torch, np, fa, metrics, k1):
                     "flash_bwd_dkv": fa.bwd_dkv_launches}  # ... and ends
         fit_steps = trainer.state.step
         peak_bytes = torch.cuda.max_memory_allocated()
+        # the uninterrupted run's params, for the supervised phase
+        final_params = {k: v.detach().cpu()
+                        for k, v in trainer.state.params.items()}
         attribution = trainer.attribution_report()
         snap = trainer.counters_snapshot()
         log = trainer.history.timestamp_log
@@ -1161,6 +1227,472 @@ def phase_train_megastep(torch, np, fa, metrics, k1):
         raise AssertionError("the step after a restore into the captured "
                              "trainer differs: loss {}, params {}".format(
                                  restore_loss_diff, restore_param_diff))
+    return row, final_params
+
+
+class TokenRows(object):
+    """Rows of tokens served like a DataFeed's columnar path
+    (``next_batch_arrays``), for a :class:`ShardedFeed`."""
+
+    def __init__(self, tokens):
+        self.tokens = tokens
+        self.pos = 0
+        self.done = False
+
+    def next_batch_arrays(self, n):
+        rows = self.tokens[self.pos:self.pos + n]
+        self.pos += len(rows)
+        if len(rows) < n:
+            self.done = True
+        return {"tokens": rows}, len(rows)
+
+    def should_stop(self):
+        return self.done
+
+    def interrupt(self):
+        pass
+
+    def terminate(self):
+        pass
+
+
+class SupervisedFeed(NgramFeed):
+    """The phase stream from the step a trainer resumes at (the batches
+    before it are drawn and dropped), in groups of K.  ``crash_at``: raise
+    a retryable injected failure once the trainer reached that step.
+    ``row_weight``: every batch carries a float ``row_weight`` of ones (a
+    NaN batch then has something to poison).  ``rollback``: once the
+    trainer's health counters saw a nonfinite loss, drop the fault spec
+    (the poison was in the data) and push the ``train_rollback`` knob
+    through ``node.apply_knobs``, as the remediator does."""
+
+    def __init__(self, np, trainer, crash_at=None, row_weight=False,
+                 rollback=None):
+        super().__init__(np, 0, TRAIN_BATCH, SEQ, LM_CONFIG["vocab_size"])
+        self.trainer = trainer
+        self.crash_at = crash_at
+        self.row_weight = row_weight
+        self.rollback = rollback
+        for _ in range(trainer.state.step):
+            self.next_batch()
+
+    def next_batch(self):
+        batch, mask = super().next_batch()
+        if self.row_weight:
+            batch["row_weight"] = self.np.ones(TRAIN_BATCH, self.np.float32)
+        return batch, mask
+
+    def next_group(self, k):
+        items = [self.next_batch() for _ in range(k)]
+        return ({name: self.np.stack([b[name] for b, _ in items])
+                 for name in items[0][0]},
+                self.np.stack([m for _, m in items]))
+
+    def grouped_batches(self, k):
+        from tensorflowonspark_torch import fault, node
+
+        while not self.terminated:
+            if (self.crash_at is not None
+                    and self.trainer.state.step >= self.crash_at):
+                fault.fail("injected feed loss after step {}".format(
+                    self.trainer.state.step))
+            if (self.rollback is not None and self.trainer.counters_snapshot()
+                    .get("train_nonfinite_loss", 0)):
+                os.environ.pop(fault.FAULT_SPEC_ENV, None)
+                node.apply_knobs({"train_rollback": self.rollback})
+                self.rollback = None
+            yield ("multi",) + self.next_group(k)
+
+
+def launches_of(fa):
+    return {"flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_bwd_dkv": fa.bwd_dkv_launches}
+
+
+def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
+    """Supervised training at full width and depth (the train phases'
+    config, init, stream and optimizer): ``fit_supervised`` at K = 5
+    through a crash, a corrupt newest checkpoint and a poison rollback;
+    ``accum_steps=2`` and ``remat=True`` at K = 1 and K = 5; and
+    ``Trainer.evaluate`` of the trained params.  ``k1`` and ``k5`` are the
+    train phases' rows, ``uninterrupted`` the params of the K = 5 run's 30
+    steps (on the host)."""
+    import functools
+    import gc
+    import shutil
+
+    from tensorflowonspark_torch import checkpoint, fault, train
+    from tensorflowonspark_torch.models import get_model, transformer
+    from tensorflowonspark_torch.parallel.infeed import ShardedFeed
+
+    vocab, layers = LM_CONFIG["vocab_size"], LM_CONFIG["num_layers"]
+    heads, head_dim = LM_CONFIG["num_heads"], LM_CONFIG["head_dim"]
+    model = get_model("transformer_lm", **LM_CONFIG)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = dict(model.state_dict())
+    flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
+    checked = [LOG_STEPS * (i + 1) for i in range(TRAIN_STEPS // LOG_STEPS)]
+
+    def new_trainer(loss_fn=None, **kwargs):
+        return train.Trainer(loss_fn or transformer.loss_fn(model), init,
+                             functools.partial(torch.optim.Adam, lr=LR),
+                             compute_dtype=torch.bfloat16,
+                             batch_size=TRAIN_BATCH, log_steps=LOG_STEPS,
+                             extra_step_flops=flash_flops, **kwargs)
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def param_diff(trainer):
+        return max((trainer.state.params[k].detach().cpu() - t).abs().max()
+                   .item() for k, t in uninterrupted.items())
+
+    def supervised(trainer, directory, max_steps=TRAIN_STEPS, **feed_kwargs):
+        """fit_supervised at K = 5 from fresh SupervisedFeeds, under the
+        profiler; returns what it measured."""
+        ckpt = checkpoint.CheckpointManager(
+            directory, save_interval_steps=SUPERVISED_SAVE_STEPS,
+            max_to_keep=2, async_save=True)
+        starts = []
+
+        def factory():
+            starts.append(trainer.state.step)
+            kwargs = dict(feed_kwargs)
+            if len(starts) > 1:
+                kwargs.pop("crash_at", None)
+            return SupervisedFeed(np, trainer, **kwargs)
+
+        policy = fault.RetryPolicy(max_attempts=3, initial_backoff=0.05,
+                                   extra_retryable=["injected"])
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        t0 = time.perf_counter()                  # the main path starts
+        stats, executed = counted_on_device(torch, lambda: (
+            train.fit_supervised(trainer, factory, ckpt, retry_policy=policy,
+                                 max_steps=max_steps,
+                                 steps_per_call=MEGA_K)))
+        wall_s = time.perf_counter() - t0
+        launches = launches_of(fa)                # ... and ends
+        snap = trainer.counters_snapshot()
+        out = {"feed_starts": starts, "steps": trainer.state.step,
+               "wall_s": wall_s, "final_loss": stats["loss"],
+               "recovery_us": snap.get("goodput_recovery_us", 0),
+               "rollbacks": snap.get("train_rollbacks_total", 0),
+               "checkpoints": sorted(os.listdir(ckpt.directory)),
+               "launches": launches, "device_launches": executed}
+        ckpt.close()
+        return out
+
+    def plain_fit(trainer, k):
+        """fit_feed of the phase stream, 30 steps at K = ``k``, under the
+        profiler: the losses at steps 10, 20 and 30, peak memory and
+        launches."""
+        curve, window = LossCurve(), {}
+        trainer.summary_writer = curve   # read at the first step
+
+        def on_steps(step):
+            if k == 1 and step % LOG_STEPS == 0:
+                window[step] = trainer.history.last_synced_value
+
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        _, executed = counted_on_device(torch, lambda: trainer.fit_feed(
+            NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab), max_steps=TRAIN_STEPS,
+            steps_per_call=k, on_steps=on_steps))
+        launches = launches_of(fa)
+        peak = torch.cuda.max_memory_allocated()
+        losses = window if k == 1 else {s: curve.losses.get(s)
+                                        for s in checked}
+        return {"losses": {str(s): losses.get(s) for s in checked},
+                "max_memory_allocated": peak, "launches": launches,
+                "device_launches": executed}
+
+    def accum_step_check(trainer):
+        """One step's loss and gradients at ``accum_steps=2`` against
+        ``accum_steps=1`` (the trainer's own ``_grads``, the work of a
+        step before the optimizer) on the trainer's params and a fresh
+        batch."""
+        batch, mask = trainer._prepare(*NgramFeed(
+            np, 1, TRAIN_BATCH, SEQ, vocab).next_batch())
+        names = list(trainer.state.params)
+        out = {}
+        for a in (1, ACCUM_STEPS):
+            trainer.accum_steps = a
+            loss, _ = trainer._grads(batch, mask)
+            out[a] = (loss.item(), [trainer.state.params[n].grad.float()
+                                    for n in names])
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        rel = {n: ((g - g1).norm() / g1.norm().clamp_min(1e-30)).item()
+               for n, g1, g in zip(names, out[1][1], out[ACCUM_STEPS][1])}
+        worst = max(rel, key=rel.get)
+        return {"loss_accum1": out[1][0], "loss_accum2": out[ACCUM_STEPS][0],
+                "loss_diff": abs(out[ACCUM_STEPS][0] - out[1][0]),
+                "grad_rel_err_max": rel[worst],
+                "grad_rel_err_worst_tensor": worst, "grad_rtol": GRAD_RTOL}
+
+    def steady(trainer, k):
+        """ms per step of warm steps on batches already on the card: 10
+        single steps at K = 1, groups of 5 at K = 5."""
+        more = NgramFeed(np, 3, TRAIN_BATCH, SEQ, vocab)
+        dev = trainer.device
+        if k == 1:
+            return time_steps(torch, trainer,
+                              device_batches(torch, more, STEADY_STEPS, dev))
+        groups = []
+        for _ in range(SUPERVISED_STEADY_GROUPS):
+            batch, mask = more.next_group(k)
+            groups.append(({"tokens": torch.from_numpy(
+                batch["tokens"]).to(dev)}, torch.from_numpy(mask).to(dev)))
+        trainer.multi_step(*groups[0])          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch, mask in groups:
+            trainer.multi_step(batch, mask)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (len(groups) * k)
+
+    def group_profile(trainer):
+        """Device time of one warm group of K steps, by kernel group."""
+        batch, mask = NgramFeed(np, 4, TRAIN_BATCH, SEQ,
+                                vocab).next_group(MEGA_K)
+        dev = trainer.device
+        batch = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
+        mask = torch.from_numpy(mask).to(dev)
+        prof = profile_run(torch, lambda: trainer.multi_step(batch, mask),
+                           MEGA_K)
+        return {"device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                "ms_per_step_by_group": prof["ms_per_step_by_group"]}
+
+    k1_losses = {str(s): v for s, v in zip(checked, k1["window_losses"])}
+    k5_losses = k5["losses"]
+    row = {"phase": "supervised", "steps_per_call": MEGA_K,
+           "save_interval_steps": SUPERVISED_SAVE_STEPS,
+           "resume_tol": RESUME_TOL}
+    tmp = tempfile.mkdtemp()
+    try:
+        # (a) crash -> resume
+        trainer = new_trainer()
+        a = supervised(trainer, os.path.join(tmp, "a"), crash_at=CRASH_STEP)
+        a["param_max_diff_vs_uninterrupted"] = param_diff(trainer)
+        row["crash_resume"] = a
+        final = {k: v.detach().cpu() for k, v in
+                 trainer.state.params.items()}   # evaluated in (f)
+        del trainer
+        release()
+
+        # (b) the newest checkpoint corrupt -> quarantined
+        trainer = new_trainer()
+        first = supervised(trainer, os.path.join(tmp, "b"),
+                           max_steps=SUPERVISED_SAVE_STEPS)
+        os.environ[fault.FAULT_SPEC_ENV] = json.dumps(
+            {"corrupt_checkpoint": True})
+        try:
+            # the manager resolves its fault injector once, when made
+            b = supervised(trainer, os.path.join(tmp, "b"),
+                           crash_at=CORRUPT_CRASH_STEP)
+        finally:
+            os.environ.pop(fault.FAULT_SPEC_ENV, None)
+        b["first_run_checkpoints"] = first["checkpoints"]
+        b["param_max_diff_vs_uninterrupted"] = param_diff(trainer)
+        row["corrupt_quarantine"] = b
+        del trainer
+        release()
+
+        # (c) poison -> rollback
+        lm_loss = transformer.loss_fn(model)
+
+        def weighted_loss(params, batch, mask):
+            return lm_loss(params, {"tokens": batch["tokens"]},
+                           mask * batch["row_weight"])
+
+        trainer = new_trainer(weighted_loss)
+        os.environ[fault.FAULT_SPEC_ENV] = json.dumps(
+            {"nan_batch_at_step": NAN_STEP})
+        try:
+            c = supervised(trainer, os.path.join(tmp, "c"), row_weight=True,
+                           rollback="poison-1")
+        finally:
+            os.environ.pop(fault.FAULT_SPEC_ENV, None)
+        c["param_max_diff_vs_uninterrupted"] = param_diff(trainer)
+        c["nonfinite_loss_windows"] = trainer.counters_snapshot().get(
+            "train_nonfinite_loss")
+        row["poison_rollback"] = c
+        del trainer
+        release()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) accum_steps=2 and (e) remat=True, at K = 1 and K = 5, against the
+    # plain step on the same batches, all without checkpoints (so that
+    # their peak memory compares)
+    with torch.device("meta"):   # its params always come from a dict
+        remat_model = get_model("transformer_lm",
+                                **dict(LM_CONFIG, remat=True))
+    variants = {}
+    for name, make in (
+            ("plain", new_trainer),
+            ("accum2", lambda: new_trainer(accum_steps=ACCUM_STEPS)),
+            ("remat", lambda: new_trainer(transformer.loss_fn(remat_model)))):
+        for k in (1, MEGA_K):
+            trainer = make()
+            run = plain_fit(trainer, k)
+            run["steady_ms_per_step"] = steady(trainer, k)
+            if name == "accum2" and k == 1:
+                run["one_step_vs_accum1"] = accum_step_check(trainer)
+            if k > 1:
+                run["profile"] = group_profile(trainer)
+            if k > 1:
+                k1_run = variants[name + "_k1"]["losses"]
+                run["loss_diff_vs_k1"] = {
+                    s: abs(v - k1_run[s]) for s, v in run["losses"].items()}
+            want = (variants["plain_k{}".format(k)]["losses"]
+                    if name != "plain" else k1_losses if k == 1
+                    else k5_losses)
+            run["loss_diff_vs_plain"] = {
+                s: (abs(v - want[s]) if v is not None else None)
+                for s, v in run["losses"].items()}
+            variants["{}_k{}".format(name, k)] = run
+            del trainer
+            release()
+    row["accum_steps"] = ACCUM_STEPS
+    row["accum_loss_tol"] = ACCUM_LOSS_TOL
+    row["remat_loss_tol"] = REMAT_LOSS_TOL
+    row["variants"] = variants
+    row["train_phases"] = {
+        "k1": {"max_memory_allocated": k1["max_memory_allocated"],
+               "steady_ms_per_step": k1["steady_ms_per_step"]},
+        "k5": {"max_memory_allocated": k5["max_memory_allocated"],
+               "steady_ms_per_step": k5["steady_ms_per_step"]}}
+
+    # (f) evaluate the trained params over held-out rows, flash and full
+    trainer = new_trainer()
+    with torch.no_grad():
+        for name, t in trainer.state.params.items():
+            t.copy_(final[name])
+    del final
+    with torch.device("meta"):   # its params always come from a dict
+        full_model = get_model("transformer_lm",
+                               **dict(LM_CONFIG, attention="full"))
+    rows = lm_rows(np, 5, EVAL_ROWS, SEQ, vocab)
+    seen = []
+
+    def lm_metric(net):
+        def metric(params, batch, mask):
+            tokens = batch["tokens"].long()
+            logits = torch.func.functional_call(net, params, (tokens,))
+            targets = torch.roll(tokens, -1, dims=1)
+            pos = (torch.arange(SEQ, device=tokens.device)
+                   < SEQ - 1).float()
+            ce = torch.nn.functional.cross_entropy(
+                logits.reshape(-1, vocab), targets.reshape(-1),
+                reduction="none").reshape(tokens.shape)
+            hit = (logits.argmax(-1) == targets).float()
+            row_ce = (ce * pos).sum(-1) / pos.sum()
+            row_acc = (hit * pos).sum(-1) / pos.sum()
+            seen.append(mask.sum())
+            return ({"loss": (row_ce * mask).sum(),
+                     "accuracy": (row_acc * mask).sum()}, mask.sum())
+        return metric
+
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    t0 = time.perf_counter()                      # the main path starts
+    got, executed = counted_on_device(torch, lambda: trainer.evaluate(
+        ShardedFeed(TokenRows(rows), TRAIN_BATCH), lm_metric(model)))
+    eval_s = time.perf_counter() - t0
+    eval_launches = launches_of(fa)               # ... and ends
+    eval_rows = [float(m) for m in seen]
+    want = trainer.evaluate(ShardedFeed(TokenRows(rows), TRAIN_BATCH),
+                            lm_metric(full_model))
+    row["evaluate"] = {
+        "rows": EVAL_ROWS, "batch_rows": eval_rows, "flash": got,
+        "full": want, "tol": EVAL_TOL, "wall_s": eval_s,
+        "diff": {k: abs(got[k] - want[k]) for k in got},
+        "launches": eval_launches, "device_launches": executed}
+    del trainer
+    release()
+    emit(row)
+
+    # the checks
+    steps_a = (CRASH_STEP + TRAIN_STEPS - SUPERVISED_SAVE_STEPS) * layers
+    expected = {
+        "crash_resume": dict.fromkeys(launches_of(fa), steps_a),
+        "accum2_k1": dict.fromkeys(launches_of(fa),
+                                   ACCUM_STEPS * layers * TRAIN_STEPS),
+        "remat_k1": {"flash_fwd": 2 * layers * TRAIN_STEPS,
+                     "flash_bwd_dq": layers * TRAIN_STEPS,
+                     "flash_bwd_dkv": layers * TRAIN_STEPS},
+        "evaluate": {"flash_fwd": layers * 3, "flash_bwd_dq": 0,
+                     "flash_bwd_dkv": 0}}
+    expected["accum2_k5"] = expected["accum2_k1"]
+    expected["remat_k5"] = expected["remat_k1"]
+    expected["plain_k1"] = expected["plain_k5"] = dict.fromkeys(
+        launches_of(fa), layers * TRAIN_STEPS)
+    counted = {"crash_resume": row["crash_resume"],
+               "evaluate": row["evaluate"]}
+    counted.update(variants)
+    for name, want_n in expected.items():
+        got_n = counted[name]
+        if got_n["launches"] != want_n or got_n["device_launches"] != want_n:
+            raise AssertionError(
+                "{}: kernel launches {} counted and {} executed on the "
+                "card, expected {}".format(name, got_n["launches"],
+                                           got_n["device_launches"], want_n))
+    for name, starts in (("crash_resume", [0, SUPERVISED_SAVE_STEPS]),
+                         ("corrupt_quarantine", [SUPERVISED_SAVE_STEPS] * 2),
+                         ("poison_rollback", [0, SUPERVISED_SAVE_STEPS])):
+        r = row[name]
+        if r["feed_starts"] != starts or r["steps"] != TRAIN_STEPS:
+            raise AssertionError(
+                "{}: feeds started at steps {} and ended at step {}, "
+                "expected {} and {}".format(name, r["feed_starts"],
+                                            r["steps"], starts, TRAIN_STEPS))
+        if not math.isfinite(r["final_loss"]):
+            raise AssertionError("{}: final loss {}".format(
+                name, r["final_loss"]))
+    for name in ("crash_resume", "corrupt_quarantine"):
+        diff = row[name]["param_max_diff_vs_uninterrupted"]
+        if not diff <= RESUME_TOL:
+            raise AssertionError(
+                "{}: the params differ from the uninterrupted run's by "
+                "{}".format(name, diff))
+    if "20.corrupt" not in row["corrupt_quarantine"]["checkpoints"]:
+        raise AssertionError("the garbled step 20 was not quarantined: "
+                             "{}".format(row["corrupt_quarantine"]))
+    c = row["poison_rollback"]
+    if c["rollbacks"] != 1 or "20.corrupt" not in c["checkpoints"]:
+        raise AssertionError("the poisoned step 20 was not rolled back: "
+                             "{}".format(c))
+    for name, run in variants.items():
+        # plain: the train phases' runs again, in the same process; accum:
+        # reported, and held one step at a time below
+        tol = {"plain": RESUME_TOL, "remat": REMAT_LOSS_TOL}.get(
+            name.split("_")[0])
+        if tol is not None and not all(
+                d is not None and d <= tol
+                for d in run["loss_diff_vs_plain"].values()):
+            raise AssertionError("{}: losses differ from the plain run's "
+                                 "(plain: the train phases'): {}".format(
+                                     name, run["loss_diff_vs_plain"]))
+        diff = run.get("loss_diff_vs_k1", {})
+        if not all(d <= MEGA_LOSS_TOL for d in diff.values()):
+            raise AssertionError("{}: the K = {} losses differ from K = "
+                                 "1's: {}".format(name, MEGA_K, diff))
+    one = variants["accum2_k1"]["one_step_vs_accum1"]
+    if not (one["loss_diff"] <= ACCUM_LOSS_TOL
+            and one["grad_rel_err_max"] <= GRAD_RTOL):
+        raise AssertionError("accum_steps={}: one step differs from the "
+                             "full batch's: {}".format(ACCUM_STEPS, one))
+    ev = row["evaluate"]
+    if ev["batch_rows"] != [TRAIN_BATCH, TRAIN_BATCH,
+                            EVAL_ROWS - 2 * TRAIN_BATCH]:
+        raise AssertionError("evaluate saw batches of {} rows".format(
+            ev["batch_rows"]))
+    if not (all(math.isfinite(v) for v in got.values())
+            and all(d <= EVAL_TOL for d in ev["diff"].values())):
+        raise AssertionError("evaluate: flash {} against full {}".format(
+            got, want))
     return row
 
 
@@ -1527,7 +2059,9 @@ def main():
                 "flash_bwd_dkv": bwd_rows[0][1]}
     trained = phase_train(torch, np, fa, metrics, device["kind"],
                           {n: r["kernel_ms"] for n, r in at_train.items()})
-    mega = phase_train_megastep(torch, np, fa, metrics, trained)
+    mega, mega_params = phase_train_megastep(torch, np, fa, metrics, trained)
+    supervised = phase_supervised(torch, np, fa, trained, mega, mega_params)
+    del mega_params
     clustered = phase_cluster(torch, np, trained)
     mega_cluster = phase_cluster(torch, np, trained, steps_per_call=MEGA_K,
                                  k1_cluster=clustered)
@@ -1542,24 +2076,34 @@ def main():
     sources = {"flash_fwd": "tensorflowonspark_torch/csrc/flash_fwd.cu",
                "flash_bwd_dq": "tensorflowonspark_torch/csrc/flash_bwd.cu",
                "flash_bwd_dkv": "tensorflowonspark_torch/csrc/flash_bwd.cu"}
+    variants = supervised["variants"]
+    supervised_paths = {
+        "supervised_k5": supervised["crash_resume"],
+        "accum2": variants["accum2_k1"], "accum2_k5": variants["accum2_k5"],
+        "remat": variants["remat_k1"], "remat_k5": variants["remat_k5"],
+        "eval": supervised["evaluate"]}
     kernels = []
     for name, row in at_train.items():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the cluster node's fit_feed at K = 5;
-            # its counter, held equal to the kernels the profiler saw the
-            # card execute there (device_launches_by_path)
-            "launches": mega_cluster["launches"][name],
-            "device_launches_by_path": {
-                "train_k5": mega["device_launches"][name],
-                "cluster": clustered["device_launches"][name],
-                "cluster_k5": mega_cluster["device_launches"][name]},
-            "launches_by_path": {
-                "train": trained["launches"][name],
-                "train_k5": mega["launches"][name],
-                "cluster": clustered["launches"][name],
-                "cluster_k5": mega_cluster["launches"][name]},
+            # this slice's main path: fit_supervised at K = 5 through a
+            # crash and a resume; its counter, held equal to the kernels the
+            # profiler saw the card execute there (device_launches_by_path)
+            "launches": supervised["crash_resume"]["launches"][name],
+            "device_launches_by_path": dict(
+                {"train_k5": mega["device_launches"][name],
+                 "cluster": clustered["device_launches"][name],
+                 "cluster_k5": mega_cluster["device_launches"][name]},
+                **{path: run["device_launches"][name]
+                   for path, run in supervised_paths.items()}),
+            "launches_by_path": dict(
+                {"train": trained["launches"][name],
+                 "train_k5": mega["launches"][name],
+                 "cluster": clustered["launches"][name],
+                 "cluster_k5": mega_cluster["launches"][name]},
+                **{path: run["launches"][name]
+                   for path, run in supervised_paths.items()}),
             # device time per step inside the replayed graph (K = 5) and
             # in eager steps (K = 1), from the two phases' profiles
             "graph_device_ms_per_step": mega["profile"][

@@ -3,9 +3,11 @@
 
 - :class:`CheckpointManager` — periodic, retained, atomic checkpoints of a
   train state (any nested dict/list of tensors and numbers, or an object
-  with ``state_dict()``), with an async depth-1 writer and restore-latest.
-  Steps are laid out as ``<directory>/<step>/state.pt``, written by
-  ``torch.save`` under a temporary name and renamed into place.
+  with ``state_dict()``), with an async depth-1 writer, restore-latest and
+  the validated restore that quarantines a bad step as
+  ``<step>.corrupt``.  Steps are laid out as
+  ``<directory>/<step>/state.pt``, written by ``torch.save`` under a
+  temporary name and renamed into place.
 - :func:`export_model` / :func:`load_model` — the serving export: a
   directory holding ``export.json`` (the JAX package's descriptor keys:
   ``model_name``, ``model_config``, ``input_signature``) and
@@ -23,7 +25,7 @@ import threading
 
 import torch
 
-from tensorflowonspark_torch import telemetry
+from tensorflowonspark_torch import fault, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -113,8 +115,14 @@ class CheckpointManager(object):
         self._save_error = None       # worker exception, re-raised at a sync
         self._last_requested = None   # newest step handed to the worker
         self._copy_stream = None      # side stream of the device-to-host copy
+        # resolved once: the corrupt_checkpoint fault fires once per
+        # process, and a fresh from_env() per save would re-arm it
+        self._injector = fault.from_env()
 
     def _saved_steps(self):
+        """The committed steps, oldest first: digit-named directories only,
+        so neither a write in progress (``<step>.tmp<pid>``) nor a
+        quarantined step (``<step>.corrupt``) is listed."""
         return sorted(int(name) for name in os.listdir(self.directory)
                       if name.isdigit()
                       and os.path.isdir(os.path.join(self.directory, name)))
@@ -182,6 +190,9 @@ class CheckpointManager(object):
                 "checkpoint/save", step=step, force=force,
                 asynchronous=self.async_save):
             self._write_files(step, state, ready)
+        # chaos only: the save has landed, so the injector garbles a
+        # finished step directory
+        self._injector.corrupt_checkpoint(self.directory)
 
     def _write_files(self, step, state, ready):
         device = _cuda_device(state)
@@ -266,6 +277,82 @@ class CheckpointManager(object):
                     self.directory)
         return state, step
 
+    def restore_latest_valid(self, map_location="cpu"):
+        """Like :meth:`restore_latest`, but validate before trusting: a step
+        directory may be partial (the writer was preempted), corrupt, or
+        hold a state saved after a poisoned (nonfinite) update.
+
+        Per candidate, newest first: the step directory must exist with
+        content, ``torch.load`` must succeed, and every floating-point
+        leaf of the whole tree (the optimizer state included) must be
+        finite.  A step that fails is quarantined, renamed to
+        ``<step>.corrupt`` (``.corrupt.N`` when taken) with a
+        ``checkpoint/quarantine`` trace instant, and the next older step is
+        tried.  Returns ``(state, step)`` from the newest valid step, or
+        ``(None, None)`` when none is left (train from scratch)."""
+        self._drain_pending()
+        tracer = telemetry.get_tracer()
+        tried = set()
+        while True:
+            step = self._latest_saved()
+            # the save gate follows what is left on disk, so a step
+            # trained again after a quarantine is saved again
+            self._last_requested = step
+            if step is None:
+                return None, None
+            if step in tried:
+                # the quarantine did not take it out of the listing: give
+                # up rather than loop
+                logger.error("checkpoint step %d remains listed after "
+                             "quarantine; recovering from scratch", step)
+                return None, None
+            tried.add(step)
+            step_dir = os.path.join(self.directory, str(step))
+            try:
+                with tracer.span("checkpoint/restore", step=step,
+                                 validated=True):
+                    if not os.path.isdir(step_dir) or not os.listdir(step_dir):
+                        raise ValueError("step dir {} missing or empty "
+                                         "(uncommitted save)".format(step_dir))
+                    state = torch.load(os.path.join(step_dir, _STATE_FILE),
+                                       map_location=map_location,
+                                       weights_only=True)
+                    poisoned = _nonfinite_leaves(state)
+                    if poisoned:
+                        raise ValueError(
+                            "nonfinite values in restored state: {}".format(
+                                ", ".join(poisoned[:4])))
+            except Exception:
+                logger.warning(
+                    "checkpoint step %d failed validation; quarantining and "
+                    "falling back to the previous retained step", step,
+                    exc_info=True)
+                tracer.instant("checkpoint/quarantine", step=step)
+                self._quarantine(step_dir)
+                continue
+            logger.info("restored validated checkpoint step %d from %s",
+                        step, self.directory)
+            return state, step
+
+    @staticmethod
+    def _quarantine(step_dir):
+        """Rename a bad step directory to ``<step>.corrupt`` (suffixed
+        ``.N`` if taken), out of the listing but kept for inspection;
+        tolerates a directory that is already gone."""
+        if not os.path.isdir(step_dir):
+            return
+        target = step_dir + ".corrupt"
+        n = 0
+        while os.path.exists(target):
+            n += 1
+            target = "{}.corrupt.{}".format(step_dir, n)
+        try:
+            os.rename(step_dir, target)
+            logger.warning("quarantined bad checkpoint: %s -> %s",
+                           step_dir, target)
+        except OSError:
+            logger.exception("could not quarantine %s", step_dir)
+
     def latest_step(self):
         """Newest saved step, or None; pending async saves are flushed
         first, so it includes every accepted :meth:`maybe_save`."""
@@ -291,10 +378,25 @@ class CheckpointManager(object):
                              "%.0fs; abandoning it", _CLOSE_JOIN_SECS)
 
 
-def _nonfinite_leaves(state_dict):
-    """Names of floating-point tensors holding any NaN or Inf."""
-    return [name for name, t in state_dict.items()
-            if torch.is_floating_point(t) and not bool(torch.isfinite(t).all())]
+def _nonfinite_leaves(tree, prefix=""):
+    """Key paths of the floating-point tensors in ``tree`` (nested dicts,
+    lists and tuples; other leaves are skipped) that hold any NaN or Inf,
+    keys joined by dots: ``opt_state.state.3.exp_avg`` in a
+    :meth:`~tensorflowonspark_torch.train.TrainState.state_dict`, the
+    param name in a flat ``state_dict``.  One device sync per float leaf;
+    recovery path only."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        if (isinstance(tree, torch.Tensor) and torch.is_floating_point(tree)
+                and not bool(torch.isfinite(tree).all())):
+            return [prefix or "<root>"]
+        return []
+    return [path for key, value in items
+            for path in _nonfinite_leaves(
+                value, "{}.{}".format(prefix, key) if prefix else str(key))]
 
 
 def should_export(ctx):

@@ -11,6 +11,13 @@ The same model as the flax one, with its numerics:
 - the readout is weight-tied to the token embedding, computed in ``dtype``
   and returned as fp32.
 
+``remat=True`` recomputes each block's activations in the backward instead
+of keeping them (flax ``nn.remat(Block)``, which renames no param, so the
+converter maps the same tree): every block runs under
+``torch.utils.checkpoint`` while gradients are recorded, so a training step
+runs the flash forward twice per layer and a server (no gradients) never
+pays for the recompute.
+
 ``attention`` picks the core contraction: ``"full"`` is
 :func:`~tensorflowonspark_torch.parallel.ring.reference_attention`,
 ``"flash"`` the hand-written CUDA kernel
@@ -29,6 +36,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tensorflowonspark_torch.models import register_model
@@ -156,6 +164,22 @@ class Block(nn.Module):
         return x + self.mlp_out(h)
 
 
+def _remat_block(block, x):
+    """``block(x)`` under ``torch.utils.checkpoint``: only ``x`` is kept
+    for the backward, which runs the block's forward again.  The params
+    are passed in explicitly, as the tensors the block holds now (the
+    ones ``torch.func.functional_call`` swapped in), so the recompute,
+    which runs after that call has returned, reads the same tensors."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(x, *tensors):
+        return torch.func.functional_call(block, dict(zip(names, tensors)),
+                                          (x,))
+
+    return torch.utils.checkpoint.checkpoint(run, x, *tensors,
+                                             use_reentrant=False)
+
+
 class TransformerLM(nn.Module):
     """Token ids ``[batch, seq]`` -> fp32 logits ``[batch, seq, vocab]``.
 
@@ -169,11 +193,7 @@ class TransformerLM(nn.Module):
                  ep_mode="gspmd", mesh=None, ep_batch_axes=None, remat=False,
                  dtype=torch.float32):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat (recompute each block's activations in the "
-                "backward) is not ported yet (ROADMAP.md, Queue 1, the "
-                "module queue: remat)")
+        self.remat = bool(remat)
         dtype = _torch_dtype(dtype)
         self.dtype = dtype
         d_model = num_heads * head_dim
@@ -199,8 +219,9 @@ class TransformerLM(nn.Module):
     def forward(self, tokens):
         seq = tokens.shape[1]
         x = self.embed(tokens.long()) + self.pos_embed.weight[:seq].to(self.dtype)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = _remat_block(block, x) if remat else block(x)
         x = self.ln_f(x)
         return (x @ self.embed.weight.to(self.dtype).t()).float()
 

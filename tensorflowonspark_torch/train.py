@@ -19,6 +19,17 @@ optimizer step) and a dispatch replays it K times, copying slot i of the
 stacked batch into the graph's static buffers before replay i: the host
 launches one graph per step instead of every kernel.
 
+``accum_steps`` = A splits each batch into A micro-batches along dim 0 and
+adds up their gradients weighted by their valid rows, on the device, before
+the one optimizer step: the same update as the full batch for a masked-mean
+loss, with about 1/A of its activation memory.
+
+:func:`fit_supervised` wraps :meth:`Trainer.fit_feed` in the JAX package's
+recovery loop: a validated restore of the newest good checkpoint before
+every attempt, periodic saves, a chief-only emergency save on preemption,
+retries with backoff, and the ``train_rollback`` knob's halt, which
+quarantines poisoned checkpoints and resumes from the last valid one.
+
 In a ``torch.distributed`` world of more than one process (data
 parallelism, each process a local batch of the global one, as
 :class:`~tensorflowonspark_torch.parallel.infeed.ShardedFeed` yields them)
@@ -69,7 +80,6 @@ GRAPH_WARMUP_STEPS = 2
 _UNPORTED = {
     "mesh": (None, "Queue 1, the parallelism slice"),
     "param_sharding": (None, "Queue 1, the parallelism slice (FSDP)"),
-    "accum_steps": (1, "Queue 1, the module queue: accum_steps"),
     "aot_cache": (None, "Queue 1, the compile plane"),
 }
 
@@ -239,8 +249,17 @@ class Trainer(object):
         by the caller's convention): window scalars and the per-step loss
         curve land in TensorBoard.
       device: ``"cuda"`` by default; ``"cpu"`` only when asked.
+      accum_steps: A > 1 runs each step as A sequential micro-batches of
+        B/A rows (B must divide, else ``ValueError``) against the same
+        params: gradients and losses are added up weighted by each
+        micro-batch's ``mask.sum()`` and divided by ``max(sum, 1)``, on
+        the device.  For a masked-MEAN loss (every loss of the model zoo)
+        that is the full-batch update, padded rows included; ``aux`` is the
+        last micro-batch's.  The step FLOPs are the full-batch step's (the
+        micro-batches' products add up to it); the counted bytes are the
+        dispatched step's, which reads the params once per micro-batch.
 
-    ``mesh``, ``param_sharding``, ``accum_steps`` and ``aot_cache`` raise
+    ``mesh``, ``param_sharding`` and ``aot_cache`` raise
     ``NotImplementedError`` at any value other than the JAX default: they
     are not ported yet.
     """
@@ -248,7 +267,7 @@ class Trainer(object):
     def __init__(self, loss_fn, init_params, optimizer, compute_dtype=None,
                  batch_size=None, log_steps=20, extra_step_flops=0,
                  step_flops_override=None, summary_writer=None, device=None,
-                 **unported):
+                 accum_steps=1, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError("Trainer() got an unexpected keyword "
@@ -259,6 +278,10 @@ class Trainer(object):
                     "Trainer({}=...) is not ported yet (ROADMAP.md, "
                     "{})".format(name, item))
         self.device = resolve_device(device)
+        if int(accum_steps) < 1:
+            raise ValueError("accum_steps must be >= 1, got {}".format(
+                accum_steps))
+        self.accum_steps = int(accum_steps)
         self.loss_fn = loss_fn
         self.compute_dtype = compute_dtype
         self.batch_size = batch_size
@@ -285,6 +308,7 @@ class Trainer(object):
         self._goodput_dispatch_us = 0
         self._goodput_infeed_starved_us = 0
         self._goodput_ckpt_drain_us = 0
+        self._goodput_recovery_us = 0   # fit_supervised: restores + backoff
         self._last_drain_us = 0
         self._step_ms_hist = {}      # bucket bound (ms) -> window steps
         self._step_ms_count = 0      # steps covered by closed windows
@@ -314,6 +338,12 @@ class Trainer(object):
         self._graphs = {}
         self._warmups = {}
         self._capture_stream = None
+        # the train_rollback knob: the armed token, the tokens seen (a knob
+        # push is re-broadcast on every heartbeat) and fit_supervised's
+        # rollbacks so far
+        self._rollback_req = None
+        self._rollback_tokens = set()
+        self._rollbacks = 0
 
     # -- the step ---------------------------------------------------------
 
@@ -336,11 +366,47 @@ class Trainer(object):
         return batch, mask
 
     def _grads(self, batch, mask):
-        """Loss, aux and the params' ``.grad`` of one batch."""
+        """Loss, aux and the params' ``.grad`` of one batch (of its
+        ``accum_steps`` micro-batches, see :meth:`_accum_grads`)."""
         self.state.optimizer.zero_grad(set_to_none=True)
+        if self.accum_steps > 1:
+            return self._accum_grads(batch, mask)
         loss, aux = self.loss_fn(self.state.params, batch, mask)
         loss.backward()
         return loss.detach(), aux
+
+    def _accum_grads(self, batch, mask):
+        """The JAX Trainer's micro-batch accumulation: per micro-batch the
+        loss and gradients against the same params, added up times
+        ``w = mask.sum()``, then divided by ``max(sum of w, 1)``.  Every
+        sum stays a device tensor (a CUDA graph captures it)."""
+        a = self.accum_steps
+        rows = int(mask.shape[0])
+        for t in _leaves(batch) + [mask]:
+            if t.shape[0] % a:
+                raise ValueError(
+                    "batch dim {} not divisible by accum_steps {}".format(
+                        t.shape[0], a))
+        size = rows // a
+        params = list(self.state.params.values())
+        g_sum = [None] * len(params)    # a param no micro-batch uses: None
+        l_sum = w_sum = mask.new_zeros(())
+        for i in range(a):
+            part = slice(i * size, (i + 1) * size)
+            m = mask[part]
+            loss, aux = self.loss_fn(self.state.params,
+                                     _map(batch, lambda t: t[part]), m)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            w = m.sum()
+            for j, g in enumerate(grads):
+                if g is not None:
+                    g_sum[j] = g * w if g_sum[j] is None else g_sum[j] + g * w
+            l_sum = l_sum + loss.detach() * w
+            w_sum = w_sum + w
+        w_safe = w_sum.clamp_min(1.0)
+        for p, g in zip(params, g_sum):
+            p.grad = None if g is None else g / w_safe
+        return l_sum / w_safe, aux
 
     def _allreduce(self, loss, grads, mask):
         """Sum the ranks' gradients in place, each weighted by its valid
@@ -602,13 +668,29 @@ class Trainer(object):
     # -- the loop ---------------------------------------------------------
 
     def apply_knob(self, name, value):
-        """Live-knob hook: ``train_steps_per_call`` is claimed, so a push
-        is acknowledged (the :class:`ShardedFeed` of the same process
-        regroups at its next group-fill start; ``train_steps_per_call_max``
-        shows the K that ran).  ``train_rollback`` comes with
-        ``fit_supervised`` (ROADMAP.md, Queue 1, item C): not claimed here,
-        like every other knob.  Returns True when claimed."""
-        del value
+        """Live-knob hook (``node.apply_knobs``; :meth:`fit_feed` registers
+        the trainer).  Returns True when claimed.
+
+        ``train_steps_per_call`` is claimed, so a push is acknowledged (the
+        :class:`ShardedFeed` of the same process regroups at its next
+        group-fill start; ``train_steps_per_call_max`` shows the K that
+        ran).
+
+        ``train_rollback`` is the poison-step command: ``value`` is a
+        one-shot token (knob pushes are re-broadcast on every heartbeat, so
+        a token seen before is acknowledged and dropped).  A new token arms
+        a halt: the next dispatch boundary of :meth:`fit_feed` (a group
+        boundary at K > 1) raises
+        :class:`~tensorflowonspark_torch.fault.PoisonRollback`, which
+        :func:`fit_supervised` turns into a validated restore: poisoned
+        checkpoint steps are quarantined as ``<step>.corrupt`` and training
+        resumes from the last valid one."""
+        if name == "train_rollback":
+            token = str(value)
+            if token not in self._rollback_tokens:
+                self._rollback_tokens.add(token)
+                self._rollback_req = token
+            return True
         return name == "train_steps_per_call"
 
     def fit_feed(self, feed, max_steps=None, steps_per_call=1, on_steps=None):
@@ -622,7 +704,12 @@ class Trainer(object):
         ``stats["overlap"]``.  The fault injector of ``TFOS_FAULT_SPEC``
         (straggler sleep, one NaN batch) hooks every dispatch, as in the
         JAX Trainer, and the trainer's counters ride this node's
-        heartbeats.  Each dispatch is a ``train/dispatch`` trace span.
+        heartbeats.  Each dispatch is a ``train/dispatch`` trace span.  An
+        armed ``train_rollback`` (:meth:`apply_knob`) halts the loop at the
+        next dispatch boundary: ``feed.terminate()``, a
+        ``train/rollback_halt`` instant, then
+        :class:`~tensorflowonspark_torch.fault.PoisonRollback`.  On any exit
+        the feed's iterator is closed, so its prefetch thread winds down.
 
         ``steps_per_call`` > 1 pulls K-step groups from the feed's
         ``grouped_batches(K)`` and runs each as one :meth:`multi_step`;
@@ -655,45 +742,64 @@ class Trainer(object):
         last_loss = None
         steps_done = self.state.step
         prev_return = None
-        for kind, batch, mask in source:
-            injector.on_step(steps_done)
-            batch = injector.corrupt_batch(batch, steps_done)
-            start = time.perf_counter()
-            if prev_return is not None:
-                gap_us = int((start - prev_return) * 1e6)
-                self._dispatch_gap_us += gap_us
-                self._dispatch_gap_us_hwm = max(self._dispatch_gap_us_hwm,
-                                                gap_us)
-                # the gap net of the previous on_steps hook went to the feed
-                self._goodput_infeed_starved_us += max(
-                    0, gap_us - self._last_drain_us)
-            with tracer.span("train/dispatch", kind=kind):
-                if kind == "multi":
-                    loss = self.multi_step(batch, mask)
-                    steps_done += int(mask.shape[0])
-                elif steps_per_call > 1:
-                    loss = self.repeat_step(batch, mask, 1)
-                    steps_done += 1
+        try:
+            for kind, batch, mask in source:
+                if self._rollback_req is not None:
+                    # the poison-step command: every further step would
+                    # train on poisoned params; stop dispatching, unblock
+                    # the feed's producers, hand over to fit_supervised
+                    token, self._rollback_req = self._rollback_req, None
+                    if hasattr(feed, "terminate"):
+                        feed.terminate()
+                    tracer.instant("train/rollback_halt", step=steps_done,
+                                   token=token)
+                    raise fault_mod.PoisonRollback(step=steps_done,
+                                                   token=token)
+                injector.on_step(steps_done)
+                batch = injector.corrupt_batch(batch, steps_done)
+                start = time.perf_counter()
+                if prev_return is not None:
+                    gap_us = int((start - prev_return) * 1e6)
+                    self._dispatch_gap_us += gap_us
+                    self._dispatch_gap_us_hwm = max(
+                        self._dispatch_gap_us_hwm, gap_us)
+                    # the gap net of the previous on_steps hook went to
+                    # the feed
+                    self._goodput_infeed_starved_us += max(
+                        0, gap_us - self._last_drain_us)
+                with tracer.span("train/dispatch", kind=kind):
+                    if kind == "multi":
+                        loss = self.multi_step(batch, mask)
+                        steps_done += int(mask.shape[0])
+                    elif steps_per_call > 1:
+                        loss = self.repeat_step(batch, mask, 1)
+                        steps_done += 1
+                    else:
+                        loss, _ = self.step(batch, mask)
+                        steps_done += 1
+                prev_return = time.perf_counter()
+                self._goodput_dispatch_us += int((prev_return - start) * 1e6)
+                self._dispatch_count += 1
+                self._account_windows()
+                last_loss = loss
+                if on_steps is not None:
+                    drain_t0 = time.perf_counter()
+                    on_steps(steps_done)
+                    self._last_drain_us = int(
+                        (time.perf_counter() - drain_t0) * 1e6)
+                    self._goodput_ckpt_drain_us += self._last_drain_us
                 else:
-                    loss, _ = self.step(batch, mask)
-                    steps_done += 1
-            prev_return = time.perf_counter()
-            self._goodput_dispatch_us += int((prev_return - start) * 1e6)
-            self._dispatch_count += 1
-            self._account_windows()
-            last_loss = loss
-            if on_steps is not None:
-                drain_t0 = time.perf_counter()
-                on_steps(steps_done)
-                self._last_drain_us = int(
-                    (time.perf_counter() - drain_t0) * 1e6)
-                self._goodput_ckpt_drain_us += self._last_drain_us
-            else:
-                self._last_drain_us = 0
-            if max_steps and steps_done >= max_steps:
-                if hasattr(feed, "terminate"):
-                    feed.terminate()
-                break
+                    self._last_drain_us = 0
+                if max_steps and steps_done >= max_steps:
+                    if hasattr(feed, "terminate"):
+                        feed.terminate()
+                    break
+        finally:
+            # however the loop ends, close the feed's iterator: a
+            # ShardedFeed's prefetch thread winds down with it
+            close = getattr(source, "close", None)
+            if close is not None:
+                close()
         overlap = dict(self.counters_snapshot())
         if hasattr(feed, "counters_snapshot"):
             overlap.update(feed.counters_snapshot())
@@ -717,21 +823,65 @@ class Trainer(object):
 
     def restore_latest(self, ckpt_manager, validate=False):
         """Restore the newest checkpoint of ``ckpt_manager`` into this
-        trainer's state (params, optimizer state, step); returns the
-        restored step, or None when there is no checkpoint yet."""
-        if validate:
-            raise NotImplementedError(
-                "restore_latest(validate=True) needs restore_latest_valid, "
-                "which is not ported yet (ROADMAP.md, Queue 1, the module "
-                "queue: restore_latest_valid)")
+        trainer's state (params, optimizer state, step), in place, so a
+        captured CUDA graph stays valid; returns the restored step, or None
+        when there is no checkpoint yet.
+
+        ``validate=True`` uses
+        :meth:`~tensorflowonspark_torch.checkpoint.CheckpointManager.restore_latest_valid`:
+        a partial, corrupt or nonfinite newest step is quarantined and the
+        previous retained step restored instead."""
+        restore = (ckpt_manager.restore_latest_valid if validate
+                   else ckpt_manager.restore_latest)
         # loaded to the host: the params are copied into place and the
         # optimizer puts its state where its own policy keeps it
-        state, step = ckpt_manager.restore_latest(map_location="cpu")
+        state, step = restore(map_location="cpu")
         if step is None:
             return None
         self.state.load_state_dict(state)
         logger.info("trainer state restored at step %d", step)
         return step
+
+    def evaluate(self, feed, metric_fn, cache_key=None):
+        """Exact evaluation over ``feed.batches(drain="all")`` (every
+        process's rows count: an exhausted process steps zero-mask dummies
+        while others still have rows).
+
+        ``metric_fn(params, batch, mask) -> (sums, weight)`` runs under
+        ``torch.no_grad()`` per batch: ``sums`` a dict of mask-weighted
+        sums over the batch, ``weight`` its real-row count (``mask.sum()``
+        for per-row metrics).  Sums and weights add up on the device; one
+        readback at the end.  Returns ``{name: sum / max(weight, 1)}``,
+        e.g. top-1 accuracy from ``{"accuracy": ((pred == label) *
+        mask).sum()}, mask.sum()``.  In a multi-process world the caller's
+        ``metric_fn`` reduces across processes, if it wants global figures.
+
+        ``cache_key`` is the JAX signature's key for its jit cache; eager
+        PyTorch compiles nothing, so nothing is cached and it is
+        ignored."""
+        del cache_key
+        totals, weight_total = None, None
+        with torch.no_grad():
+            for batch, mask in feed.batches(drain="all"):
+                batch = _map(batch, lambda t: torch.as_tensor(t).to(
+                    self.device))
+                mask = torch.as_tensor(mask).to(self.device, torch.float32)
+                sums, weight = metric_fn(self.state.params, batch, mask)
+                sums = {k: torch.as_tensor(v, device=self.device)
+                        for k, v in sums.items()}
+                weight = torch.as_tensor(weight, device=self.device)
+                if totals is None:
+                    totals, weight_total = sums, weight
+                else:
+                    totals = {k: totals[k] + v for k, v in sums.items()}
+                    weight_total = weight_total + weight
+        if totals is None:
+            return {}
+        names = sorted(totals)
+        values = torch.stack([weight_total.float()]
+                             + [totals[k].float() for k in names]).tolist()
+        weight_total = max(values[0], 1.0)
+        return {k: v / weight_total for k, v in zip(names, values[1:])}
 
     # -- accounting -------------------------------------------------------
 
@@ -741,7 +891,9 @@ class Trainer(object):
         ``counters_snapshot``): ``train_steps_per_call_max`` the session's
         largest K, ``train_compile_us_max`` the CUDA graph warm-up and
         capture wall time (when a graph was captured),
-        ``train_step_bytes_max`` the first step's counted bytes, and
+        ``train_step_bytes_max`` the first step's counted bytes,
+        ``goodput_recovery_us`` :func:`fit_supervised`'s restores and
+        backoff, ``train_rollbacks_total`` its poison rollbacks, and
         ``attrib_<bucket>_pct_max`` of :meth:`attribution_report` once a
         window closed."""
         snap = {
@@ -763,7 +915,8 @@ class Trainer(object):
         for key, val in (
                 ("goodput_dispatch_us", self._goodput_dispatch_us),
                 ("goodput_infeed_starved_us", self._goodput_infeed_starved_us),
-                ("goodput_ckpt_drain_us", self._goodput_ckpt_drain_us)):
+                ("goodput_ckpt_drain_us", self._goodput_ckpt_drain_us),
+                ("goodput_recovery_us", self._goodput_recovery_us)):
             if val:
                 snap[key] = val
         if self._mfu_pct is not None:
@@ -782,6 +935,8 @@ class Trainer(object):
             snap["train_compile_us_max"] = int(self._compile_secs * 1e6)
         if self._step_bytes:
             snap["train_step_bytes_max"] = self._step_bytes
+        if self._rollbacks:
+            snap["train_rollbacks_total"] = self._rollbacks
         attrib = self.attribution_report()
         if attrib:
             for name, pct in attrib.items():
@@ -869,3 +1024,134 @@ class Trainer(object):
                 self._health_grad = gval
             else:
                 self._nonfinite_grad += 1
+
+
+#: poison rollbacks one fit_supervised call takes before it re-raises (a
+#: bound on a pathological loop, e.g. every checkpoint quarantined and the
+#: state in memory poisoned too)
+MAX_ROLLBACKS = 4
+
+
+def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
+                   max_steps=None, steps_per_call=1, profiler=None,
+                   transfer_guard=None, publish=None):
+    """Supervised :meth:`Trainer.fit_feed` (the JAX package's
+    ``fit_supervised``): restore the newest valid checkpoint, train with
+    periodic checkpoints, and on a retryable failure back off, restore and
+    try again from the last saved step.
+
+    Args:
+      trainer: a :class:`Trainer`; its current state seeds the first
+        attempt when no checkpoint exists yet.
+      feed_factory: zero-argument callable returning a FRESH feed per
+        attempt (a feed whose consumer failed mid-batch cannot be reused).
+        It is called after the attempt's restore, so it may read
+        ``trainer.state.step`` to start where training resumes.
+      ckpt_manager: a
+        :class:`~tensorflowonspark_torch.checkpoint.CheckpointManager`;
+        ``maybe_save`` runs after every dispatch, and a final ``force``
+        save has landed when this returns.
+      retry_policy: a :class:`~tensorflowonspark_torch.fault.RetryPolicy`
+        (the default policy when None).  Only retryable failures re-enter
+        the loop; user-code errors re-raise at once.
+      max_steps / steps_per_call: forwarded to :meth:`Trainer.fit_feed`.
+
+    Every attempt opens with ``trainer.restore_latest(validate=True)`` in a
+    ``train/restore`` span and trains in a ``train/fit_attempt`` span.  The
+    chief registers an emergency save with
+    :func:`~tensorflowonspark_torch.node.on_preemption` (a SIGTERM lands
+    the current step past the interval gate) and removes it on the way
+    out.  A :class:`~tensorflowonspark_torch.fault.PoisonRollback` (the
+    ``train_rollback`` knob) loops back to the validated restore with no
+    backoff and no attempt used, at most :data:`MAX_ROLLBACKS` times, with
+    a ``train/rollback`` instant.  Another error that the policy retries
+    emits ``train/retry``, sleeps the backoff and adds it, with the
+    restores, to ``goodput_recovery_us``.
+
+    ``profiler``, ``transfer_guard`` and ``publish`` raise
+    ``NotImplementedError``: they wait for other parts of the port
+    (ROADMAP.md).  Returns the final fit stats dict."""
+    from tensorflowonspark_torch import node as node_mod
+
+    for name, value, item in (
+            ("profiler", profiler, "item K, device observability"),
+            ("transfer_guard", transfer_guard,
+             "item C, the rest: the hot-loop transfer guard"),
+            ("publish", publish,
+             "item G, the train-to-serve handoff to the fleet")):
+        if value is not None:
+            raise NotImplementedError(
+                "fit_supervised({}=...) is not ported yet (ROADMAP.md, "
+                "{})".format(name, item))
+    policy = retry_policy or fault_mod.RetryPolicy()
+    tracer = telemetry.get_tracer()
+
+    def _emergency_save():
+        # the preemption drain: land whatever progress exists before the
+        # process unwinds, past the interval gate
+        step = int(trainer.state.step)
+        logger.warning("preemption: emergency checkpoint at step %d", step)
+        ckpt_manager.maybe_save(step, trainer.state, force=True)
+        ckpt_manager.wait_until_finished()
+
+    # chief-only: it runs inside a signal handler on one process, so it
+    # cannot be a collective, and only the chief writes
+    if ckpt_manager.is_chief:
+        node_mod.on_preemption(_emergency_save)
+
+    def _on_steps(step):
+        ckpt_manager.maybe_save(step, trainer.state)
+
+    attempt = 0
+    rollbacks = 0
+    try:
+        while True:
+            restore_t0 = time.perf_counter()
+            with tracer.span("train/restore", attempt=attempt + 1):
+                restored = trainer.restore_latest(ckpt_manager, validate=True)
+            trainer._goodput_recovery_us += int(
+                (time.perf_counter() - restore_t0) * 1e6)
+            if restored is not None:
+                logger.info("supervised fit: resuming from checkpoint step "
+                            "%d", restored)
+            try:
+                with tracer.span("train/fit_attempt", attempt=attempt + 1,
+                                 restored_step=restored):
+                    stats = trainer.fit_feed(feed_factory(),
+                                             max_steps=max_steps,
+                                             steps_per_call=steps_per_call,
+                                             on_steps=_on_steps)
+                ckpt_manager.maybe_save(int(trainer.state.step),
+                                        trainer.state, force=True)
+                ckpt_manager.wait_until_finished()
+                return stats
+            except fault_mod.PoisonRollback as rb:
+                # a control-plane command, not a failure: no attempt used,
+                # no backoff
+                rollbacks += 1
+                if rollbacks > MAX_ROLLBACKS:
+                    raise
+                trainer._rollbacks = rollbacks
+                logger.warning(
+                    "poison rollback %d/%d at step %s: restoring the last "
+                    "VALID checkpoint (poisoned steps quarantined as "
+                    "<step>.corrupt)", rollbacks, MAX_ROLLBACKS, rb.step)
+                tracer.instant("train/rollback", step=rb.step,
+                               token=rb.token, rollbacks=rollbacks)
+            except Exception as e:
+                attempt += 1
+                if (not policy.is_retryable(e)
+                        or attempt >= policy.max_attempts):
+                    raise
+                delay = policy.backoff(attempt - 1)
+                logger.warning(
+                    "supervised fit attempt %d/%d failed (%s: %s); restoring "
+                    "the latest checkpoint and retrying in %.1fs", attempt,
+                    policy.max_attempts, type(e).__name__, e, delay)
+                tracer.instant("train/retry", attempt=attempt,
+                               delay_secs=delay, error=repr(e))
+                time.sleep(delay)
+                # the backoff is recovery wall time: the card sits idle
+                trainer._goodput_recovery_us += int(delay * 1e6)
+    finally:
+        node_mod.remove_preemption_callback(_emergency_save)

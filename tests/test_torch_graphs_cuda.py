@@ -3,7 +3,8 @@ a captured CUDA graph against K eager steps, the kernels' launch counters
 under replay against the kernels the profiler saw the card execute, an
 optimizer made with ``capturable=False``, restoring state into a trainer
 that captured, a capture while the infeed's prefetch thread pins memory,
-grouped batches stacked on the card, and a capture that fails.
+grouped batches stacked on the card, a capture that fails, and captures of
+a step with ``accum_steps=2`` and of the ``remat=True`` LM.
 
 Marked ``cuda``; each test skips with a reason where no CUDA card is
 present.  No jax here (the machine with the card has none), so run it with
@@ -50,14 +51,15 @@ def card():
     return torch.device("cuda:0")
 
 
-def _init(dtype="float32"):
-    model = transformer.build_transformer(**CFG, dtype=dtype)
+def _init(dtype="float32", **model_kwargs):
+    model = transformer.build_transformer(**CFG, dtype=dtype, **model_kwargs)
     model.init_weights(torch.Generator().manual_seed(0))
     return model, dict(model.state_dict())
 
 
-def _trainer(device, dtype="float32", optimizer="adam", **kwargs):
-    model, init = _init(dtype)
+def _trainer(device, dtype="float32", optimizer="adam", model_kwargs=None,
+             **kwargs):
+    model, init = _init(dtype, **(model_kwargs or {}))
     return train.Trainer(
         transformer.loss_fn(model), init, OPTIMIZERS[optimizer],
         compute_dtype=getattr(torch, dtype), batch_size=BATCH,
@@ -354,3 +356,40 @@ def test_a_failed_capture_raises(card):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split()[-4:] == [
         "RAISED", "True", str(train.GRAPH_WARMUP_STEPS), "0"], proc.stdout
+
+
+# per step: accum_steps=2 runs every kernel once a layer per micro-batch;
+# remat runs the forward again in the backward
+OPTIONS = {
+    "accum2": ({"accum_steps": 2}, {}, (2, 2, 2)),
+    "remat": ({}, {"remat": True}, (2, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_accum_and_remat_captures_equal_eager_steps(card, option):
+    """A group of 4 (2 eager warm-ups, a capture, 2 replays) with the
+    option gives the params of 4 eager steps with it, to 1e-6 (the same
+    kernels, cuBLAS calls and optimizer arithmetic on the same card); the
+    launches the capture recorded, per step, times 4 equal the flash
+    kernels the profiler saw the card execute."""
+    trainer_kwargs, model_kwargs, per_layer = OPTIONS[option]
+    layers, k = CFG["num_layers"], 4
+    stack, masks = _group(7, k=k)
+
+    def make():
+        return _trainer(card, optimizer="sgd_momentum",
+                        model_kwargs=model_kwargs, **trainer_kwargs)
+
+    eager = make()
+    _eager(eager, stack, masks)
+    graphed = make()
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    executed = _device_launches(lambda: graphed.multi_step(stack, masks))
+    per_step = {name: n * layers
+                for name, n in zip(KERNEL_NAMES, per_layer)}
+    (graph,) = graphed._graphs.values()
+    assert graph.launches == per_step
+    assert fa.launch_counts() == executed == {
+        name: n * k for name, n in per_step.items()}
+    _close(_params(graphed), _params(eager), 1e-6, option)

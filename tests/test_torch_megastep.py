@@ -345,7 +345,9 @@ def test_knob_refused_in_a_multi_process_world():
     assert feed.apply_knob("train_steps_per_call", 4) is False
     tr = _trainer()
     assert tr.apply_knob("train_steps_per_call", 4) is True
-    assert tr.apply_knob("train_rollback", "t1") is False
+    # the rollback command is the trainer's own (fit_feed halts on it)
+    assert tr.apply_knob("train_rollback", "t1") is True
+    assert tr.apply_knob("serving_batch_size", 4) is False
 
 
 # -- fit_feed with K > 1 -----------------------------------------------------

@@ -194,6 +194,13 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
 missing = sorted(set(pkg.__name__ + "." + m for m in (
     "summary", "tfrecord", "example_proto")) - set(names))
+from tensorflowonspark_torch import checkpoint, train
+missing += [n for n in ("fit_supervised", "MAX_ROLLBACKS")
+            if not hasattr(train, n)]
+missing += [n for n in ("evaluate", "apply_knob")
+            if not hasattr(train.Trainer, n)]
+missing += [n for n in ("restore_latest_valid", "_quarantine")
+            if not hasattr(checkpoint.CheckpointManager, n)]
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 25 else 0)
 """

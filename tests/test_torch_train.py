@@ -302,6 +302,15 @@ def test_trainer_without_cpu_raises_when_no_cuda(flax_params, monkeypatch):
 ])
 def test_unported_trainer_arguments_raise(flax_params, kwargs, tmp_path):
     name = next(iter(kwargs))
+    if name == "accum_steps":
+        # ported: two micro-batches of 4 rows give the full-batch step
+        # (tests/test_torch_evaluate_accum.py holds it against the JAX
+        # Trainer)
+        tr, full = _trainer(flax_params, **kwargs), _trainer(flax_params)
+        got, _ = tr.step({"tokens": _tokens(5)})
+        want, _ = full.step({"tokens": _tokens(5)})
+        np.testing.assert_allclose(got.item(), want.item(), rtol=LOSS_RTOL)
+        return
     if name == "summary_writer":
         # ported: a real writer is accepted and gets the window's scalars
         from tensorflowonspark_torch import summary
@@ -317,10 +326,12 @@ def test_unported_trainer_arguments_raise(flax_params, kwargs, tmp_path):
     _trainer(flax_params, **{name: train._UNPORTED[name][0]})
 
 
-def test_unported_trainer_methods_raise(flax_params):
+def test_unported_trainer_methods_raise(flax_params, tmp_path):
     """multi_step and repeat_step are ported (K steps equal K single
     steps; tests/test_torch_megastep.py holds them against the JAX
-    Trainer); restore_latest(validate=True) is not."""
+    Trainer); so is restore_latest(validate=True)
+    (tests/test_torch_supervised.py), which finds nothing in an empty
+    directory."""
     single, multi, rep = (_trainer(flax_params) for _ in range(3))
     batches = [{"tokens": _tokens(60 + i)} for i in range(2)]
     for b in batches:
@@ -334,8 +345,9 @@ def test_unported_trainer_methods_raise(flax_params):
     for name, t in single.state.params.items():
         np.testing.assert_allclose(multi.state.params[name].detach().numpy(),
                                    t.detach().numpy(), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        single.restore_latest(None, validate=True)
+    assert single.restore_latest(checkpoint.CheckpointManager(
+        str(tmp_path)), validate=True) is None
+    assert single.state.step == 2
 
 
 def test_corrupt_batch_maps_over_the_whole_tree(monkeypatch):
