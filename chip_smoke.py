@@ -67,7 +67,31 @@ weights from a seed) along both paths:
   trained params over 20 held-out rows (two full batches and a padded
   one), flash against full attention.  The launch counters of (a), (d),
   (e) and (f) are held to the flash kernels the profiler saw the card
-  execute.
+  execute;
+- gateway: the serving tier in this process.  A ``ModelServer(batch_size=8)``
+  behind a ``gateway.GatewayServer(max_wait_ms=5)`` (rungs 1, 2, 4 and 8
+  warmed) answers 4 concurrent ``GatewayChannel`` clients, each sending
+  requests of 1, 2, 3 and 4 rows; once half of them have replies, the
+  ``serving_load_version`` knob swaps the weights in place to a second
+  export (another seed), then a swap to an export of another depth is
+  refused.  Every reply matches a lone ``predict_feed`` of its rows on
+  exactly one version, and on the second when it was sent after the swap;
+  a lone request sent twice gives equal bytes; no compile after warmup, no
+  shed, fewer batches than requests; the forward kernel's launches equal
+  layers x batches and the kernels the profiler saw run.  The request
+  time by stage (queue, coalesce, dispatch, serialize) is recorded;
+- serve_cli: ``python -m tensorflowonspark_torch.inference_cli --serve``
+  as a subprocess on the LM export: its ready line, a 2-row request
+  against ``predict_feed``, exit 0 on SIGTERM, its launches; then the
+  CLI's batch mode on 256 TFRecord rows through the MNIST CNN, each JSON
+  line against ``ModelServer`` on the same rows;
+- pipeline: ``pipeline.TFEstimator.fit`` trains the LM in SPARK mode on a
+  one-executor ``LocalBackend`` (40 rows, 5 steps; the three kernels'
+  launches counted and profiled in the node's child) and the chief
+  exports; ``TFModel.transform`` then serves 4 rows on that executor's
+  card, in row order and equal to this process's ``ModelServer`` on the
+  export; a ``fit`` after it on the same executor, which has initialized
+  CUDA, is refused with the reason.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -272,11 +296,12 @@ FLASH_KERNELS = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
                  "flash_bwd_dkv": "flash_bwd_dkv_"}
 
 
-def counted_on_device(torch, fn):
+def counted_on_device(torch, fn, with_busy=False):
     """Run ``fn()`` under ``torch.profiler`` (CUDA activity only) and count
     the flash kernels the card executed, by name, whether a wrapper
     launched them or a CUDA graph replay ran them again.  Returns ``(fn's
-    result, {name: executions})``."""
+    result, {name: executions})``, and with ``with_busy`` the milliseconds
+    the card spent in kernels besides."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -293,10 +318,14 @@ def counted_on_device(torch, fn):
         torch.cuda.synchronize()
         time.sleep(TRACE_TAIL_SECS)
     counts = dict.fromkeys(FLASH_KERNELS, 0)
-    for e in device_kernels(prof):
+    kernels = device_kernels(prof)
+    for e in kernels:
         for name, fragment in FLASH_KERNELS.items():
             if fragment in e.key:
                 counts[name] += e.count
+    if with_busy:
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        return result, counts, busy_ms
     return result, counts
 
 
@@ -2024,6 +2053,629 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None,
     return row
 
 
+# ---------------------------------------------------------------------------
+# the serving tier: the gateway, the inference CLI, the Spark ML pipeline
+# ---------------------------------------------------------------------------
+
+# the gateway: a ModelServer(batch_size=8) warmed over rungs 1, 2, 4, 8;
+# 4 concurrent clients, each sending requests of 1, 2, 3 and 4 rows in
+# turn (40 rows in all); the serving_load_version push once half of the
+# 16 requests have their replies
+GATEWAY_BATCH = 8
+GATEWAY_WAIT_MS = 5.0
+GATEWAY_CLIENTS = 4
+GATEWAY_REQUESTS = (1, 2, 3, 4)
+SWAP_AFTER = GATEWAY_CLIENTS * len(GATEWAY_REQUESTS) // 2
+GATEWAY_TIMEOUT_SECS = 600
+# the --serve replica: ladder 1, 2, 4; seconds to its ready line (torch,
+# kernel load, the LM's load and warmup) and from SIGTERM to exit 0
+CLI_BATCH = 4
+CLI_READY_SECS = 300
+CLI_EXIT_SECS = 60
+# batch mode on the MNIST CNN: JSON lines against ModelServer on the same
+# rows; the same fp32 model and batches on both sides, and JSON keeps
+# every float32 digit, so 1e-5 is loose
+MNIST_ROWS = 256
+MNIST_BATCH = 64
+MNIST_TOL = 1e-5
+# the pipeline: TFEstimator.fit on 40 rows of 1024 tokens, batch 8 (5
+# steps), then TFModel.transform of 4 rows on the executor's card
+PIPELINE_ROWS = 40
+PIPELINE_STEPS = PIPELINE_ROWS // TRAIN_BATCH
+TRANSFORM_ROWS = 4
+PIPELINE_REPORT_SECS = 300
+
+# runs ``python -m tensorflowonspark_torch.inference_cli`` (the same
+# runpy entry), then prints the forward kernel's launches in that process
+CLI_WRAPPER = """
+import importlib, json, runpy, sys
+sys.argv = ["tensorflowonspark_torch.inference_cli"] + sys.argv[1:]
+runpy.run_module("tensorflowonspark_torch.inference_cli", run_name="__main__",
+                 alter_sys=True)
+fa = importlib.import_module("tensorflowonspark_torch.ops.flash_attention")
+print(json.dumps({"fwd_launches": fa.fwd_launches}), flush=True)
+"""
+
+
+def export_lm(torch, path, seed, config=LM_CONFIG):
+    """Export the LM at ``config`` with random weights from ``seed``."""
+    from tensorflowonspark_torch import checkpoint
+    from tensorflowonspark_torch.models import get_model
+
+    model = get_model("transformer_lm", **config)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    checkpoint.export_model(
+        path, model, "transformer_lm", model_config=config,
+        input_signature={"tokens": {"shape": [None, config["max_seq_len"]],
+                                    "dtype": "int32"}})
+    return path
+
+
+def logit_diff(np, got, want):
+    """``(max |got - want|, max |want|)``."""
+    return float(np.abs(got - want).max()), float(np.abs(want).max())
+
+
+def on_card(torch, fn, device):
+    """``(fn(), the flash kernels the card executed, the card's busy
+    milliseconds)`` with ``device`` None (the card); on the CPU, where no
+    kernel launches, zeros and None."""
+    if device is None:
+        return counted_on_device(torch, fn, with_busy=True)
+    return fn(), dict.fromkeys(FLASH_KERNELS, 0), None
+
+
+def card_memory(torch, device, reset=False):
+    """The card's peak allocation (reset first with ``reset``); None on
+    the CPU."""
+    if device is not None:
+        return None
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_gateway(torch, np, fa, config=LM_CONFIG, device=None):
+    """Serve the LM through the continuous-batching gateway to concurrent
+    clients, swap its weights to a second export halfway through (the
+    ``serving_load_version`` knob), then refuse a swap to an export of
+    another depth.  ``device="cpu"`` rehearses it on the CPU (no kernel
+    launches there)."""
+    import threading
+    import traceback
+
+    from tensorflowonspark_torch import gateway, serving
+
+    layers, vocab = config["num_layers"], config["vocab_size"]
+    seq = config["max_seq_len"]
+    rng = np.random.default_rng(3)
+    requests = [[rng.integers(0, vocab, (n, seq), dtype=np.int32)
+                 for n in GATEWAY_REQUESTS] for _ in range(GATEWAY_CLIENTS)]
+    lone = rng.integers(0, vocab, (2, seq), dtype=np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        v1 = export_lm(torch, os.path.join(tmp, "v1"), 0, config)
+        v2 = export_lm(torch, os.path.join(tmp, "v2"), 1, config)
+        shallow = export_lm(torch, os.path.join(tmp, "shallow"), 2,
+                            dict(config, num_layers=1))
+        card_memory(torch, device, reset=True)
+        server = serving.ModelServer(v1, batch_size=GATEWAY_BATCH,
+                                     device=device)
+        gw = gateway.GatewayServer(server, max_wait_ms=GATEWAY_WAIT_MS,
+                                   model_version="1",
+                                   replica_id="chip-gateway")
+        t0 = time.perf_counter()
+        gw.start()                     # warms rungs 8, 4, 2 and 1
+        warm_s = time.perf_counter() - t0
+        compiles = server.compile_count
+        replies, errors = {}, []
+        lock = threading.Lock()
+        halfway = threading.Event()
+
+        def client(c):
+            try:
+                ch = gateway.GatewayChannel(
+                    (gw.host, gw.port), timeout=GATEWAY_TIMEOUT_SECS,
+                    client_id="client-{}".format(c))
+                try:
+                    for i, tokens in enumerate(requests[c]):
+                        sent = time.monotonic()
+                        out = ch.predict({"tokens": tokens}, len(tokens))
+                        with lock:
+                            replies[(c, i)] = (sent, out["output"])
+                            if len(replies) >= SWAP_AFTER:
+                                halfway.set()
+                finally:
+                    ch.close()
+            except Exception:
+                errors.append(traceback.format_exc())
+                halfway.set()
+
+        def main_path():
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(GATEWAY_CLIENTS)]
+            t_start = time.perf_counter()
+            for t in threads:
+                t.start()
+            halfway.wait(GATEWAY_TIMEOUT_SECS)
+            gw._on_beat_reply({"knobs": {"serving_load_version": {
+                "model": "transformer_lm", "version": "2",
+                "export_dir": v2, "token": "v2"}}})
+            deadline = time.monotonic() + GATEWAY_TIMEOUT_SECS
+            while (gw.model_version != "2" and not gw.swap_failed_total
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            swapped_at = time.monotonic()
+            for t in threads:
+                t.join(GATEWAY_TIMEOUT_SECS)
+            return swapped_at, time.perf_counter() - t_start
+
+        fa.fwd_launches = 0                          # the main path starts
+        (swapped_at, traffic_s), executed, busy_ms = on_card(torch, main_path,
+                                                             device)
+        launches = fa.fwd_launches                   # the main path ends
+        peak_bytes = card_memory(torch, device)
+        beat = gw.heartbeat_metrics()
+        exemplars = gw.slow_requests()
+        swapped_compiles = server.compile_count
+        if errors:
+            gw.stop()
+            raise AssertionError("gateway clients failed:\n" + errors[0])
+
+        # a swap to an export of another depth: refused, v2 still served
+        gw._on_beat_reply({"knobs": {"serving_load_version": {
+            "model": "transformer_lm", "version": "3",
+            "export_dir": shallow, "token": "v3"}}})
+        deadline = time.monotonic() + GATEWAY_TIMEOUT_SECS
+        while not gw.swap_failed_total and time.monotonic() < deadline:
+            time.sleep(0.005)
+        # the same lone request twice: equal bytes
+        ch = gateway.GatewayChannel((gw.host, gw.port),
+                                    timeout=GATEWAY_TIMEOUT_SECS)
+        try:
+            lone_a = ch.predict({"tokens": lone}, len(lone))["output"]
+            lone_b = ch.predict({"tokens": lone}, len(lone))["output"]
+        finally:
+            ch.close()
+        final = gw.heartbeat_metrics()
+        gw.stop()
+
+        # lone predict_feed of each request's rows on either version
+        refs = {2: server}
+        refs[1] = serving.ModelServer(v1, batch_size=GATEWAY_BATCH,
+                                      device=device)
+        checks = []
+        for (c, i), (sent, got) in sorted(replies.items()):
+            tokens = requests[c][i]
+            match = {}
+            for version, ref_server in sorted(refs.items()):
+                want = ref_server.predict_feed({"tokens": tokens},
+                                               len(tokens))["output"]
+                diff, scale = logit_diff(np, got, want)
+                match[version] = (diff, scale, diff <= LOGIT_TOL * scale)
+                del want
+            checks.append({"client": c, "request": i, "rows": len(tokens),
+                           "after_swap": sent > swapped_at,
+                           "version": [v for v in match if match[v][2]],
+                           "max_abs_diff": {str(v): m[0]
+                                            for v, m in match.items()},
+                           "max_abs_logit": {str(v): m[1]
+                                             for v, m in match.items()},
+                           "finite": bool(np.isfinite(got).all()),
+                           "shape_ok": got.shape == (len(tokens), seq,
+                                                     vocab)})
+        want_lone = refs[2].predict_feed({"tokens": lone}, len(lone))["output"]
+        lone_diff, lone_scale = logit_diff(np, lone_a, want_lone)
+        del refs, server
+
+    def median_of(key):
+        return median([r[key] for r in exemplars])
+
+    n_requests = GATEWAY_CLIENTS * len(GATEWAY_REQUESTS)
+    batches = beat["serving_batches"]
+    expected = layers * batches if device is None else 0
+    served = [c["version"] for c in checks]
+    row = {"phase": "gateway", "config": config,
+           "max_batch": GATEWAY_BATCH, "max_wait_ms": GATEWAY_WAIT_MS,
+           "clients": GATEWAY_CLIENTS, "requests": n_requests,
+           "rows": sum(GATEWAY_REQUESTS) * GATEWAY_CLIENTS,
+           "warmup": server_report(gw, warm_s, compiles),
+           "serving_requests": beat["serving_requests"],
+           "serving_rows": beat["serving_rows"],
+           "serving_batches": batches,
+           "batch_rows": sorted(r["batch_rows"] for r in exemplars),
+           "serving_shed": final["serving_shed"],
+           "serving_compiles": {"after_warmup": compiles,
+                                "after_traffic": swapped_compiles,
+                                "at_end": final["serving_compiles"]},
+           "request_us": {"p50": beat["serving_p50_us_max"],
+                          "p99": beat["serving_p99_us_max"]},
+           "stage_us_median": {s: median_of(s + "_us") for s in (
+               "queue", "coalesce", "dispatch", "serialize", "latency")},
+           "traffic_s": traffic_s,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": (None if busy_ms is None
+                                 else 1 - busy_ms / (1e3 * traffic_s)),
+           "rows_per_s": sum(GATEWAY_REQUESTS) * GATEWAY_CLIENTS / traffic_s,
+           "max_memory_allocated": peak_bytes,
+           "fwd_launches": launches, "device_launches": executed,
+           "expected_launches": expected,
+           "swap": {"swaps_total": final["serving_swaps"],
+                    "swap_failed_total": final["serving_swap_failed"],
+                    "version": final["serving_model_version"],
+                    "replies_v1": served.count([1]),
+                    "replies_v2": served.count([2]),
+                    "sent_after_swap": sum(c["after_swap"] for c in checks)},
+           "lone_bytes_equal": lone_a.tobytes() == lone_b.tobytes(),
+           "lone_vs_predict_feed": lone_diff,
+           "lone_tol": LOGIT_TOL * lone_scale,
+           "logit_tol": LOGIT_TOL, "checks": checks}
+    emit(row)
+    if len(checks) != n_requests or beat["serving_requests"] != n_requests:
+        raise AssertionError("{} of {} gateway requests answered".format(
+            len(checks), n_requests))
+    if not all(c["finite"] and c["shape_ok"] for c in checks):
+        raise AssertionError("gateway replies not finite or misshapen")
+    if any(len(c["version"]) != 1 for c in checks):
+        raise AssertionError("a gateway reply matches no version, or both, "
+                             "within LOGIT_TOL of a lone predict_feed")
+    if any(c["after_swap"] and c["version"] != [2] for c in checks):
+        raise AssertionError("a request sent after the swap got v1's answer")
+    if not (row["swap"]["replies_v1"] >= SWAP_AFTER
+            and row["swap"]["replies_v2"] >= 1):
+        raise AssertionError("the swap did not land halfway: {}".format(
+            row["swap"]))
+    if (final["serving_swaps"], final["serving_swap_failed"],
+            final["serving_model_version"]) != (1, 1, "2"):
+        raise AssertionError("swaps {} (one applied, one refused, v2 "
+                             "served expected)".format(row["swap"]))
+    if not (compiles == swapped_compiles == final["serving_compiles"]
+            == len(serving.bucket_ladder(GATEWAY_BATCH))):
+        raise AssertionError("serving_compiles moved after warmup: "
+                             "{}".format(row["serving_compiles"]))
+    if final["serving_shed"]:
+        raise AssertionError("the gateway shed {} requests".format(
+            final["serving_shed"]))
+    if not batches < n_requests:
+        raise AssertionError("the batcher coalesced nothing: {} batches for "
+                             "{} requests".format(batches, n_requests))
+    if not (launches == expected == executed["flash_fwd"]):
+        raise AssertionError(
+            "flash_fwd launched {} times and executed {} on the card, "
+            "expected {} (layers x batches)".format(
+                launches, executed["flash_fwd"], expected))
+    if not (row["lone_bytes_equal"] and lone_diff <= LOGIT_TOL * lone_scale):
+        raise AssertionError("the same lone request gave different bytes, "
+                             "or differs from predict_feed")
+    return row
+
+
+def server_report(gw, warm_s, compiles):
+    report = gw.server.warmup_report or {}
+    return {"seconds": warm_s, "compile_count": compiles,
+            "rungs": [(b["bucket"], b["verdict"], b["micros"])
+                      for b in report.get("buckets", [])]}
+
+
+def read_line(stream, seconds):
+    """One line of ``stream`` within ``seconds``, or None."""
+    import select
+
+    ready, _, _ = select.select([stream], [], [], seconds)
+    return stream.readline() if ready else None
+
+
+def phase_serve_cli(torch, np, config=LM_CONFIG, device=None):
+    """``inference_cli --serve`` as a subprocess on the LM export: its ready
+    line, one 2-row request, SIGTERM and exit 0; then the CLI's batch
+    TFRecord mode on the MNIST CNN in this process."""
+    import signal
+
+    from tensorflowonspark_torch import (checkpoint, dfutil, gateway,
+                                         inference_cli, serving)
+    from tensorflowonspark_torch.models import get_model
+
+    layers, vocab = config["num_layers"], config["vocab_size"]
+    on = [] if device is None else ["--device", device]
+    request = np.random.default_rng(5).integers(
+        0, vocab, (2, config["max_seq_len"]), dtype=np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm = export_lm(torch, os.path.join(tmp, "lm"), 0, config)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        log_path = os.path.join(tmp, "serve.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", CLI_WRAPPER, "--serve",
+                 "--export_dir", lm, "--max-batch", str(CLI_BATCH),
+                 "--port", "0"] + on,
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=log,
+                text=True)
+        try:
+            ready = read_line(proc.stdout, CLI_READY_SECS)
+            ready_s = time.perf_counter() - t0
+            if not ready or "ready on" not in ready:
+                raise AssertionError("no ready line from --serve: {!r}\n"
+                                     "{}".format(ready, open(log_path).read()[
+                                         -4000:]))
+            addr = ready.split("ready on ")[1].split()[0]
+            ch = gateway.GatewayChannel(addr, timeout=CLI_READY_SECS)
+            try:
+                t1 = time.perf_counter()
+                got = ch.predict({"tokens": request}, len(request))["output"]
+                request_ms = 1e3 * (time.perf_counter() - t1)
+            finally:
+                ch.close()
+            t2 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(CLI_EXIT_SECS)
+            exit_s = time.perf_counter() - t2
+            tail = proc.stdout.read()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        counted = json.loads(tail.strip().splitlines()[-1])
+        server = serving.ModelServer(lm, batch_size=CLI_BATCH, device=device)
+        want = server.predict_feed({"tokens": request}, len(request))["output"]
+        diff, scale = logit_diff(np, got, want)
+        del server, want
+
+        # batch mode on the card: TFRecords -> JSON lines
+        torch.manual_seed(0)
+        cnn_dir = os.path.join(tmp, "mnist")
+        checkpoint.export_model(cnn_dir, get_model("mnist_cnn"), "mnist_cnn",
+                                model_config={},
+                                input_signature={"image": [None, 28, 28, 1]})
+        images = np.random.default_rng(6).random((MNIST_ROWS, 784),
+                                                 np.float32)
+        data_dir, out_path = os.path.join(tmp, "tfr"), \
+            os.path.join(tmp, "preds.jsonl")
+        dfutil.save_as_tfrecords([{"image": images[i].tolist()}
+                                  for i in range(MNIST_ROWS)], data_dir,
+                                 schema={"image": "array<float32>"})
+        t3 = time.perf_counter()
+        inference_cli.main(["--export_dir", cnn_dir, "--input", data_dir,
+                            "--schema_hint", "struct<image:array<float>>",
+                            "--input_mapping", json.dumps({"image": "image"}),
+                            "--batch_size", str(MNIST_BATCH),
+                            "--output", out_path] + on)
+        batch_s = time.perf_counter() - t3
+        with open(out_path) as f:
+            preds = [json.loads(line) for line in f]
+        server = serving.ModelServer(cnn_dir, batch_size=MNIST_BATCH,
+                                     device=device)
+        feed = images.reshape(-1, 28, 28, 1)
+        want = np.concatenate([
+            server.predict_feed({"image": feed[i:i + MNIST_BATCH]},
+                                len(feed[i:i + MNIST_BATCH]))["output"]
+            for i in range(0, MNIST_ROWS, MNIST_BATCH)])
+        got_cnn = np.asarray([p["prediction"] for p in preds], np.float32)
+        cnn_err = (float(np.abs(got_cnn - want).max())
+                   if got_cnn.shape == want.shape else None)
+    expected = (layers * (len(serving.bucket_ladder(CLI_BATCH)) + 1)
+                if device is None else 0)
+    row = {"phase": "serve_cli", "config": config, "max_batch": CLI_BATCH,
+           "ready_s": ready_s, "ready_line": ready.strip(),
+           "request_rows": len(request), "request_ms": request_ms,
+           "vs_predict_feed_max_abs_diff": diff, "max_abs_logit": scale,
+           "tol": LOGIT_TOL * scale, "exit_code": code, "exit_s": exit_s,
+           "exit_tol_s": CLI_EXIT_SECS,
+           "fwd_launches": counted["fwd_launches"],
+           "expected_launches": expected,
+           "batch_mode": {"model": "mnist_cnn", "rows": MNIST_ROWS,
+                          "lines": len(preds), "seconds": batch_s,
+                          "max_abs_err": cnn_err, "tol": MNIST_TOL}}
+    emit(row)
+    if code != 0:
+        raise AssertionError("--serve exited {} after SIGTERM".format(code))
+    if not diff <= LOGIT_TOL * scale:
+        raise AssertionError("--serve answered {} away from predict_feed "
+                             "(max |logit| {})".format(diff, scale))
+    if counted["fwd_launches"] != expected:
+        raise AssertionError("--serve launched flash_fwd {} times, expected "
+                             "{} (layers x (warm rungs + 1))".format(
+                                 counted["fwd_launches"], expected))
+    if len(preds) != MNIST_ROWS or cnn_err is None or cnn_err > MNIST_TOL:
+        raise AssertionError("batch mode wrote {} lines, max error {}".format(
+            len(preds), cnn_err))
+    return row
+
+
+def pipeline_main(args, ctx):
+    """The pipeline phase's ``train_fn``, run by the node in the child it
+    forked: trains the LM from the node's feed under ``torch.profiler``,
+    exports it as the chief, and reports to ``args.report``."""
+    import functools
+    import traceback
+
+    report = {"child_started": time.time()}
+    try:
+        import torch
+
+        from tensorflowonspark_torch import checkpoint, train
+        from tensorflowonspark_torch.models import get_model, transformer
+        from tensorflowonspark_torch.ops import _build
+        from tensorflowonspark_torch.parallel import infeed
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device = ctx.initialize_distributed(device=args.device)
+        report["device"] = str(device)
+        report["distributed_ready"] = time.time()
+        if device.type == "cuda":
+            for name in _build.build():      # built by the driver: loads
+                _build.load(name)
+        cfg = args.config
+        model = get_model("transformer_lm", **cfg)
+        model.init_weights(torch.Generator().manual_seed(0))
+        losses = []
+        lm_loss = transformer.loss_fn(model)
+
+        def loss_fn(params, batch, mask):
+            loss, aux = lm_loss(params, batch, mask)
+            losses.append(loss.detach())
+            return loss, aux
+
+        trainer = train.Trainer(
+            loss_fn, dict(model.state_dict()),
+            functools.partial(torch.optim.Adam, lr=args.lr),
+            compute_dtype=getattr(torch, cfg["dtype"]),
+            batch_size=args.batch_size, log_steps=args.log_steps,
+            device=device)
+        feed = infeed.ShardedFeed(ctx.get_data_feed(), args.batch_size,
+                                  transform=lambda t: {"tokens": t},
+                                  device=device)
+        report["model_ready"] = time.time()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        _, report["device_launches"], _ = on_card(
+            torch, lambda: trainer.fit_feed(feed),
+            None if device.type == "cuda" else "cpu")
+        report["launches"] = {"flash_fwd": fa.fwd_launches,
+                              "flash_bwd_dq": fa.bwd_dq_launches,
+                              "flash_bwd_dkv": fa.bwd_dkv_launches}
+        report["fit_feed_end"] = time.time()
+        report["steps"] = trainer.state.step
+        report["losses"] = [x.item() for x in losses]
+        if checkpoint.should_export(ctx):
+            checkpoint.export_model(
+                args.export_dir, trainer.state.params, "transformer_lm",
+                model_config=cfg, input_signature={"tokens": {
+                    "shape": [None, cfg["max_seq_len"]], "dtype": "int32"}})
+        report["exported"] = time.time()
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args.report + ".tmp", "w") as f:
+            json.dump(report, f)
+        os.replace(args.report + ".tmp", args.report)
+
+
+def _executor_launches(zero):
+    """A task for the executor: its process's forward-kernel launches
+    (zeroed first when ``zero``)."""
+    def task(iterator):
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        if zero:
+            fa.fwd_launches = 0
+        return [fa.fwd_launches for _ in iterator]
+    return task
+
+
+def phase_pipeline(torch, np, config=LM_CONFIG, device=None):
+    """``TFEstimator.fit`` trains the LM in SPARK mode on a one-executor
+    LocalBackend, then ``TFModel.transform`` serves 4 rows on that
+    executor's card; a ``fit`` after it on the same executor is refused
+    (on the card: on the CPU nothing initializes CUDA)."""
+    from tensorflowonspark_torch import backend, pipeline, serving
+
+    layers, vocab = config["num_layers"], config["vocab_size"]
+    seq = config["max_seq_len"]
+    rows = list(lm_rows(np, 4, PIPELINE_ROWS, seq, vocab))
+    card_memory(torch, device, reset=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = {"config": config, "lr": LR, "log_steps": PIPELINE_STEPS,
+                "device": device, "report": os.path.join(tmp, "report.json")}
+        export_dir = os.path.join(tmp, "export")
+        t0 = time.time()
+        b = backend.LocalBackend(1)
+        try:
+            est = pipeline.TFEstimator(
+                pipeline_main, args, b, device=device, cluster_size=1,
+                batch_size=TRAIN_BATCH, epochs=1, export_dir=export_dir,
+                grace_secs=1)
+            model = est.fit(rows)
+            t_fit = time.time()
+            report = wait_for_report(args["report"], PIPELINE_REPORT_SECS)
+            t_report = time.time()
+            b.map_partitions([[0]], _executor_launches(True))
+            t1 = time.perf_counter()
+            outs = model.transform(rows[:TRANSFORM_ROWS])
+            transform_s = time.perf_counter() - t1
+            (transform_launches,), = b.map_partitions(
+                [[0]], _executor_launches(False))
+            # the reverse order on the same executor: refused, loudly
+            t2 = time.perf_counter()
+            refused = None
+            if device is None:
+                try:
+                    pipeline.TFEstimator(
+                        pipeline_main,
+                        dict(args, report=args["report"] + "2"), b,
+                        cluster_size=1, batch_size=TRAIN_BATCH, epochs=1,
+                        export_dir=export_dir + "2", grace_secs=1).fit(
+                            rows[:TRAIN_BATCH])
+                except Exception as e:
+                    refused = str(e)
+            refuse_s = time.perf_counter() - t2
+        finally:
+            b.stop()
+        got = np.asarray(outs, np.float32)
+        del outs
+        server = serving.ModelServer(export_dir, batch_size=TRAIN_BATCH,
+                                     device=device)
+        want = server.predict_feed({"tokens": np.stack(rows[:TRANSFORM_ROWS])},
+                                   TRANSFORM_ROWS)["output"]
+        del server
+    shape_ok = got.shape == want.shape == (TRANSFORM_ROWS, seq, vocab)
+    diff, scale = logit_diff(np, got, want) if shape_ok else (None, None)
+    per_row = ([logit_diff(np, got[i], want[i])[0]
+                for i in range(TRANSFORM_ROWS)] if shape_ok else None)
+    on_cpu = device is not None
+    expected = 0 if on_cpu else layers * PIPELINE_STEPS
+    losses = report["losses"]
+    row = {"phase": "pipeline", "config": config,
+           "backend": "LocalBackend(1)", "rows": PIPELINE_ROWS,
+           "batch": TRAIN_BATCH, "device": report["device"],
+           "steps": report["steps"], "expected_steps": PIPELINE_STEPS,
+           "losses": losses, "launches": report["launches"],
+           "device_launches": report["device_launches"],
+           "expected_launches": expected,
+           "bring_up_s": {"to_child_start": report["child_started"] - t0,
+                          "to_distributed_ready":
+                          report["distributed_ready"] - t0,
+                          "to_model_ready": report["model_ready"] - t0},
+           "fit_s": t_fit - t0, "fit_to_export_s": report["exported"] - t0,
+           "report_wait_s": t_report - t_fit,
+           "transform_rows": TRANSFORM_ROWS, "transform_s": transform_s,
+           "transform_launches": transform_launches,
+           "expected_transform_launches": 0 if on_cpu else layers,
+           "transform_vs_server_max_abs_diff": diff,
+           "transform_vs_server_per_row": per_row,
+           "max_abs_logit": scale,
+           "tol": None if scale is None else LOGIT_TOL * scale,
+           "fit_after_transform_refused": refused is not None
+           and "initialized CUDA" in refused,
+           "refusal_s": refuse_s,
+           "refusal": None if refused is None else refused[-400:]}
+    emit(row)
+    if report["steps"] != PIPELINE_STEPS or not (
+            len(losses) == PIPELINE_STEPS and np.isfinite(losses).all()):
+        raise AssertionError("the pipeline node trained {} steps, losses "
+                             "{}".format(report["steps"], losses))
+    if any(n != expected for n in list(report["launches"].values())
+           + list(report["device_launches"].values())):
+        raise AssertionError("pipeline fit launches {} counted, {} executed, "
+                             "expected {} each (layers x steps)".format(
+                                 report["launches"],
+                                 report["device_launches"], expected))
+    if not shape_ok or not diff <= LOGIT_TOL * scale:
+        raise AssertionError("TFModel.transform differs from the driver's "
+                             "ModelServer: {} (max |logit| {})".format(
+                                 diff, scale))
+    if transform_launches != row["expected_transform_launches"]:
+        raise AssertionError("transform launched flash_fwd {} times on the "
+                             "executor, expected {}".format(
+                                 transform_launches, layers))
+    if not (on_cpu or row["fit_after_transform_refused"]):
+        raise AssertionError("fit after a CUDA transform was not refused by "
+                             "name: {!r}".format(refused))
+    return row
+
+
 def main():
     import torch
 
@@ -2065,6 +2717,9 @@ def main():
     clustered = phase_cluster(torch, np, trained)
     mega_cluster = phase_cluster(torch, np, trained, steps_per_call=MEGA_K,
                                  k1_cluster=clustered)
+    gatewayed = phase_gateway(torch, np, fa)
+    served_cli = phase_serve_cli(torch, np)
+    piped = phase_pipeline(torch, np)
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -2094,14 +2749,16 @@ def main():
             "device_launches_by_path": dict(
                 {"train_k5": mega["device_launches"][name],
                  "cluster": clustered["device_launches"][name],
-                 "cluster_k5": mega_cluster["device_launches"][name]},
+                 "cluster_k5": mega_cluster["device_launches"][name],
+                 "pipeline_fit": piped["device_launches"][name]},
                 **{path: run["device_launches"][name]
                    for path, run in supervised_paths.items()}),
             "launches_by_path": dict(
                 {"train": trained["launches"][name],
                  "train_k5": mega["launches"][name],
                  "cluster": clustered["launches"][name],
-                 "cluster_k5": mega_cluster["launches"][name]},
+                 "cluster_k5": mega_cluster["launches"][name],
+                 "pipeline_fit": piped["launches"][name]},
                 **{path: run["launches"][name]
                    for path, run in supervised_paths.items()}),
             # device time per step inside the replayed graph (K = 5) and
@@ -2120,7 +2777,13 @@ def main():
             "checked_shapes": (len(fwd_rows) if name == "flash_fwd"
                                else len(bwd_rows))}
         if name == "flash_fwd":
-            entry["launches_by_path"]["serve"] = serve["fwd_launches"]
+            entry["launches_by_path"].update({
+                "serve": serve["fwd_launches"],
+                "gateway": gatewayed["fwd_launches"],
+                "serve_cli": served_cli["fwd_launches"],
+                "pipeline_transform": piped["transform_launches"]})
+            entry["device_launches_by_path"]["gateway"] = \
+                gatewayed["device_launches"][name]
             entry["serve_shape"] = {
                 k: serve_row[k] for k in ("shape", "max_abs_err_o",
                                           "kernel_ms", "kernel_device_ms",

@@ -30,8 +30,10 @@ The backend contract (used by :mod:`~tensorflowonspark_torch.cluster`):
 
 import logging
 import os
+import pickle
 import queue as _queue
 import shutil
+import struct
 import tempfile
 import threading
 import time
@@ -166,6 +168,41 @@ class JobHandle(object):
 # LocalBackend: executor worker process main loop
 # ---------------------------------------------------------------------------
 
+def _read_exact(fd, n):
+    data = b""
+    while len(data) < n:
+        chunk = os.read(fd, n - len(data))
+        if not chunk:
+            raise EOFError("executor pipe closed")
+        data += chunk
+    return data
+
+
+def _recv_result(conn):
+    """``conn.recv()`` for one message sent with ``Connection.send``, read
+    into one buffer allocated once.
+
+    ``Connection.recv`` reads a large message in pipe-sized chunks with
+    ``os.read(fd, remaining)``, and every call allocates a buffer for all
+    that is still to come: a transform of four rows of an LM's logits as
+    Python floats (about 1.2 GB pickled) spent most of 487 s in that loop
+    on the 8-core host of an H100 machine.  Same framing: a ``!i``
+    length, or -1 and a ``!Q`` length."""
+    fd = conn.fileno()
+    size, = struct.unpack("!i", _read_exact(fd, 4))
+    if size == -1:
+        size, = struct.unpack("!Q", _read_exact(fd, 8))
+    buf = bytearray(size)
+    view = memoryview(buf)
+    got = 0
+    while got < size:
+        n = os.readv(fd, [view[got:]])
+        if n == 0:
+            raise EOFError("executor pipe closed mid-message")
+        got += n
+    return pickle.loads(buf)
+
+
 def _executor_main(executor_index, workdir, conn, env_overrides):
     """Long-lived executor process: apply env, chdir, serve tasks over a pipe.
 
@@ -283,7 +320,7 @@ class LocalBackend(object):
                     if conn.poll(0.5):
                         break  # final response raced with process exit
                     raise EOFError("executor process died")
-            rid, ok, payload = conn.recv()
+            rid, ok, payload = _recv_result(conn)
             assert rid == task_id
             handle._task_done(task_id, ok, payload)
         except (EOFError, OSError):

@@ -139,3 +139,49 @@ def mnist_params_to_flax(state_dict):
         tree[flax_name] = {"kernel": np.ascontiguousarray(
             arr(name + ".weight").T), "bias": arr(name + ".bias")}
     return tree
+
+
+def _dense_from_flax(dense):
+    return {"weight": _t(np.asarray(dense["kernel"]).T),
+            "bias": _t(dense["bias"])}
+
+
+def _dense_to_flax(state_dict, name):
+    weight = state_dict[name + ".weight"].detach().cpu().float().numpy()
+    return {"kernel": np.ascontiguousarray(weight.T),
+            "bias": state_dict[name + ".bias"].detach().cpu().float()
+            .numpy().copy()}
+
+
+def _dense_tree_from_flax(tree, names):
+    sd = {}
+    for name in names:
+        for key, value in _dense_from_flax(tree[name]).items():
+            sd[name + "." + key] = value
+    return sd
+
+
+_LINEAR = ("dense",)
+_TWO_TOWER = ("user_tower", "item_tower")
+
+
+def linear_params_from_flax(tree):
+    """A flax ``Linear`` param tree -> the port's ``state_dict``."""
+    return _dense_tree_from_flax(tree, _LINEAR)
+
+
+def linear_params_to_flax(state_dict):
+    """The port's ``Linear`` ``state_dict`` -> a flax param tree of numpy
+    arrays."""
+    return {name: _dense_to_flax(state_dict, name) for name in _LINEAR}
+
+
+def two_tower_params_from_flax(tree):
+    """A flax ``TwoTower`` param tree -> the port's ``state_dict``."""
+    return _dense_tree_from_flax(tree, _TWO_TOWER)
+
+
+def two_tower_params_to_flax(state_dict):
+    """The port's ``TwoTower`` ``state_dict`` -> a flax param tree of numpy
+    arrays."""
+    return {name: _dense_to_flax(state_dict, name) for name in _TWO_TOWER}

@@ -1,16 +1,63 @@
-"""Batch inference over an export (the counterpart of
-:func:`tensorflowonspark_tpu.inference_cli.run_inference`).
+"""Standalone batch-inference CLI (reference ``Inference.scala`` +
+``TFModel.scala``), the port's counterpart of
+:mod:`tensorflowonspark_tpu.inference_cli`.
 
-The TFRecord command line and the ``--serve`` gateway come with later
-slices; this module holds the row-in, row-out entry point they drive.
+Loads TFRecords (with an optional ``--schema_hint``), feeds them through a
+cached :class:`~tensorflowonspark_torch.serving.ModelServer` with JSON
+input/output mappings, and writes predictions as JSON lines (reference
+``Inference.scala:27-79``, ``TFModel.scala:245-292``).  It runs on the CUDA
+card unless ``--device cpu``.
+
+Usage:
+    python -m tensorflowonspark_torch.inference_cli \
+        --export_dir /path/to/export --input /path/to/tfrecords \
+        --schema_hint 'struct<image:array<float>,label:bigint>' \
+        --input_mapping '{"image": "image"}' \
+        --output /path/to/preds.jsonl
+
+``--serve`` switches to ONLINE mode: the process becomes one
+continuous-batching gateway replica
+(:class:`~tensorflowonspark_torch.gateway.GatewayServer`), prints a ready
+line and runs until SIGTERM/SIGINT.  Pass ``--roster host:port`` to join a
+replica fleet behind the reservation server:
+
+    python -m tensorflowonspark_torch.inference_cli \
+        --export_dir /path/to/export --serve --port 8500 \
+        --max-batch 64 --max-wait-ms 5 --roster driver:41111
+
+A response is one frame with a 4-byte length: its outputs must stay under
+4 GiB (33 rows of the flagship LM's fp32 logits do not fit).
+
+Not ported yet, and refused with ``NotImplementedError``: ``--registry`` /
+``--model`` (the fleet half of ROADMAP item G), ``--warm-cache-dir`` (item
+H, the compile plane) and ``--pjrt_plugin`` (item L, the C++ runner).
 """
 
-from tensorflowonspark_torch import serving
+import argparse
+import json
+import logging
+import sys
+
+import numpy as np
+
+from tensorflowonspark_torch import dfutil, schema as schema_mod, serving
+
+logger = logging.getLogger(__name__)
+
+
+def _json_default(o):
+    """Numpy scalars/arrays (vectorized TFRecord decode) serialize as plain
+    JSON numbers/lists; anything else still fails loudly."""
+    if isinstance(o, (np.ndarray, np.generic)):
+        return o.tolist()
+    raise TypeError(
+        "Object of type {} is not JSON serializable".format(type(o).__name__))
 
 
 def run_inference(export_dir, rows, input_mapping=None, output_name=None,
                   output_mapping=None, batch_size=128, device=None):
-    """Yield one output row dict per input row (1:1 contract).
+    """Yield one output row dict per input row (1:1 contract, reference
+    ``TFModel.scala:265-281`` / ``pipeline.py:509-512``).
 
     N input tensors via ``input_mapping`` ``{column: tensor}`` and M output
     columns via ``output_mapping`` ``{tensor: column}``; ``output_name``
@@ -23,3 +70,159 @@ def run_inference(export_dir, rows, input_mapping=None, output_name=None,
         if output_name and output_name != "prediction" and "prediction" in row:
             row[output_name] = row.pop("prediction")
         yield row
+
+
+def _refuse_unported(args):
+    """Options of the JAX CLI that wait for another item of the port."""
+    if getattr(args, "registry", None) or getattr(args, "model", None):
+        raise NotImplementedError(
+            "--registry/--model wait for the fleet half of ROADMAP item G")
+    if getattr(args, "warm_cache_dir", None):
+        raise NotImplementedError(
+            "--warm-cache-dir waits for the compile plane (ROADMAP item H)")
+    if getattr(args, "pjrt_plugin", None):
+        raise NotImplementedError(
+            "--pjrt_plugin waits for the C++ runner (ROADMAP item L)")
+
+
+def serve_forever(args):
+    """``--serve``: run one gateway replica until SIGTERM/SIGINT (the
+    ``dataservice_worker.py`` lifecycle — print a ready line, wait on a
+    signal-set event, drain on the way out)."""
+    import signal
+    import threading
+
+    from tensorflowonspark_torch import gateway, telemetry
+
+    _refuse_unported(args)
+    if not args.export_dir:
+        raise SystemExit("--serve needs --export_dir")
+    telemetry.configure_from_meta({})
+    telemetry.install_sigusr1()
+    server = serving.ModelServer(args.export_dir, args.max_batch,
+                                 device=args.device)
+    gw = gateway.GatewayServer(
+        server, host=args.host, port=args.port,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        max_queue=args.max_queue, roster_addr=args.roster,
+        replica_id=args.replica_id, task_index=args.task_index,
+        heartbeat_interval=args.heartbeat,
+        slo_latency_us=args.slo_latency_us,
+        model_version=args.model_version)
+    host, port = gw.start()
+    print("serving replica {} ready on {}:{} (buckets {})".format(
+        gw.replica_id, host, port, list(server.buckets)), flush=True)
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    done.wait()
+    gw.stop()
+    # flush request-flow trace events before exit so a clean SIGTERM drain
+    # leaves trace-<host>-<pid>.json behind for the merged timeline
+    telemetry.get_tracer().flush()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Batch inference over TFRecords with an export of the "
+                    "port (reference Inference.scala); --serve runs an "
+                    "online continuous-batching gateway replica instead")
+    parser.add_argument("--export_dir", default=None,
+                        help="export directory (required)")
+    parser.add_argument("--input", default=None,
+                        help="TFRecord directory (required unless --serve)")
+    parser.add_argument("--schema_hint", default=None,
+                        help="struct<name:type,...> (reference --schema_hint)")
+    parser.add_argument("--input_mapping", default=None,
+                        help='JSON {"column": "tensor"} (reference -i)')
+    parser.add_argument("--output_mapping", default=None,
+                        help='JSON {"tensor": "column"}, one entry per '
+                             "output tensor (reference -o)")
+    parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--pjrt_plugin", default=None,
+                        help="the JAX CLI's native runner; not ported yet "
+                             "(ROADMAP item L): refused")
+    parser.add_argument("--output", default=None,
+                        help="output JSON-lines path (stdout when omitted)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to serve on (default: the CUDA "
+                             "card; 'cpu' only when asked)")
+    serve = parser.add_argument_group("online serving (--serve)")
+    serve.add_argument("--serve", action="store_true",
+                       help="run as a gateway replica instead of batch mode")
+    serve.add_argument("--host", default="127.0.0.1")
+    serve.add_argument("--port", type=int, default=0,
+                       help="listen port (0 = ephemeral, printed on ready)")
+    serve.add_argument("--max-batch", type=int, default=None, dest="max_batch",
+                       help="batch coalescing cap (default: --batch_size)")
+    serve.add_argument("--max-wait-ms", type=float, default=5.0,
+                       dest="max_wait_ms",
+                       help="batching latency budget per request")
+    serve.add_argument("--max-queue", type=int, default=None, dest="max_queue",
+                       help="admission-control queue bound "
+                            "(default 4 * max_batch)")
+    serve.add_argument("--roster", default=None,
+                       help="reservation server host:port to register with")
+    serve.add_argument("--replica-id", default=None, dest="replica_id")
+    serve.add_argument("--task-index", type=int, default=0, dest="task_index")
+    serve.add_argument("--heartbeat", type=float, default=1.0,
+                       help="roster heartbeat interval seconds")
+    serve.add_argument("--slo-latency-us", type=float, default=0.0,
+                       dest="slo_latency_us",
+                       help="availability+latency SLO threshold in "
+                            "microseconds: completed requests at or under "
+                            "it count as serving_slo_good (0 = latency "
+                            "leg disarmed; sheds always burn budget)")
+    serve.add_argument("--registry", default=None,
+                       help="model-fleet registry root; not ported yet "
+                            "(the fleet half of ROADMAP item G): refused")
+    serve.add_argument("--model", default=None,
+                       help="with --registry: model NAME or NAME@VERSION; "
+                            "not ported yet: refused")
+    serve.add_argument("--model-version", default=None, dest="model_version",
+                       help="version label for serving metrics / roster "
+                            "meta")
+    serve.add_argument("--warm-cache-dir", default=None,
+                       dest="warm_cache_dir",
+                       help="warm-start root; not ported yet (the compile "
+                            "plane, ROADMAP item H): refused")
+    args = parser.parse_args(argv)
+
+    if args.serve:
+        if args.max_batch is None:
+            args.max_batch = args.batch_size
+        serve_forever(args)
+        return
+    if not args.export_dir:
+        parser.error("--export_dir is required in batch mode")
+    if not args.input:
+        parser.error("--input is required (or pass --serve for online mode)")
+    _refuse_unported(args)
+
+    hint = schema_mod.parse(args.schema_hint) if args.schema_hint else None
+    input_mapping = json.loads(args.input_mapping) if args.input_mapping else None
+    output_mapping = (json.loads(args.output_mapping)
+                      if args.output_mapping else None)
+
+    rows = dfutil.load_tfrecords(args.input, schema=hint)
+    logger.info("loaded %d rows from %s (schema %s)",
+                len(rows), args.input, rows.schema)
+
+    results = run_inference(args.export_dir, rows,
+                            input_mapping=input_mapping,
+                            output_mapping=output_mapping,
+                            batch_size=args.batch_size, device=args.device)
+    out_f = open(args.output, "w") if args.output else sys.stdout
+    try:
+        n = 0
+        for out in results:
+            out_f.write(json.dumps(out, default=_json_default) + "\n")
+            n += 1
+        logger.info("wrote %d predictions", n)
+    finally:
+        if args.output:
+            out_f.close()
+
+
+if __name__ == "__main__":
+    main()

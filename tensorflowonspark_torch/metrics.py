@@ -42,6 +42,13 @@ PEAKS = {
 # names).
 STEP_MS_BUCKETS = (1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000)
 
+# Serving latency histogram bucket upper bounds, in microseconds (the JAX
+# package's): the gateway's ``serving_*_us_le_<bound>`` heartbeat counters
+# for the queue/coalesce/dispatch/serialize stages and the end-to-end
+# ``serving_latency_us`` family.
+SERVING_US_BUCKETS = (50, 100, 250, 500, 1000, 2500, 5000, 10000, 25000,
+                      50000, 100000, 250000, 500000, 1000000)
+
 
 def device_memory_counters():
     """Card memory high-water marks as heartbeat counters, under the JAX

@@ -26,7 +26,9 @@ CUDA and fork: the executor shell forks the manager server and, in SPARK
 mode, the user-fn child.  Nothing here initializes CUDA (no
 ``torch.cuda.is_available()``, no device count, no tensor on a card): a
 process that has initialized CUDA cannot hand it to a forked child.  The
-first CUDA call belongs in the user's ``main_fun``, in the child.
+first CUDA call belongs in the user's ``main_fun``, in the child.  An
+executor that initialized CUDA itself (a ``TFModel.transform`` on the card
+ran there) refuses to host a node: :func:`refuse_if_cuda_initialized`.
 """
 
 import json
@@ -496,6 +498,21 @@ def _sort_key(node):
     return (job_rank.get(node["job_name"], 4), node["task_index"])
 
 
+def refuse_if_cuda_initialized():
+    """Raise when this process has initialized CUDA: a node forks its
+    manager and (SPARK mode) its user-fn child, and a forked child of a
+    CUDA process cannot use the card (it fails there, or hangs).  Reads
+    only whether torch is imported and CUDA up; initializes nothing."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        raise RuntimeError(
+            "executor process {} has initialized CUDA (a TFModel.transform "
+            "on the card ran here), so it cannot host a cluster node: the "
+            "node forks its manager and user-fn child, and a forked child "
+            "cannot use CUDA.  Run TFEstimator.fit before TFModel.transform, "
+            "or fit on a fresh backend.".format(os.getpid()))
+
+
 def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         queues=("input", "output", "error"), background=False,
         release_port=True, driver_local=False):
@@ -533,6 +550,8 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         for item in iterator:
             executor_id = item
         assert executor_id is not None, "start task received an empty partition"
+        if not driver_local:
+            refuse_if_cuda_initialized()
         assignment = None
         if isinstance(executor_id, dict):
             assignment = executor_id

@@ -13,14 +13,21 @@ package's:
   models by tensor-name keyword;
 - outputs: a single tensor, a tuple, or a dict of named outputs, zipped
   into output columns by ``output_mapping`` ``{tensor: column}``.
+
+A live weight swap (:meth:`ModelServer.swap_export`) copies a compatible
+export's params in place into the served module: nothing is rebuilt or
+warmed again.  The exported StableHLO artifact and the warm executable
+cache of the JAX server have no counterpart yet: the port serves from the
+registry.
 """
 
 import logging
+import time
 
 import numpy as np
 import torch
 
-from tensorflowonspark_torch import checkpoint
+from tensorflowonspark_torch import checkpoint, telemetry
 from tensorflowonspark_torch.device import resolve_device
 from tensorflowonspark_torch.models import get_model
 from tensorflowonspark_torch.pipeline import yield_batch
@@ -75,7 +82,12 @@ class ModelServer(object):
     """Loads an export once and serves batched inference on ``device``
     (default: the CUDA card; ``device="cpu"`` only when asked)."""
 
-    def __init__(self, export_dir, batch_size=128, device=None):
+    def __init__(self, export_dir, batch_size=128, device=None,
+                 warm_cache_dir=None):
+        if warm_cache_dir:
+            raise NotImplementedError(
+                "ModelServer(warm_cache_dir=) waits for the compile plane "
+                "(ROADMAP item H)")
         self.device = resolve_device(device)
         state, desc = checkpoint.load_model(export_dir)
         self.batch_size = batch_size
@@ -86,6 +98,12 @@ class ModelServer(object):
         #: first on the request path still pays its allocations).
         self.compile_count = 0
         self._seen_buckets = set()
+        #: Per-rung verdicts of the last :meth:`warmup` (``{"buckets":
+        #: [{bucket, verdict, micros}], "loaded": n, "compiled": m}``); the
+        #: gateway publishes it on its roster registration.
+        self.warmup_report = None
+        #: Completed live weight swaps (:meth:`swap_export`).
+        self.swap_count = 0
         self.descriptor = desc
         self.signature = _normalize_signature(desc.get("input_signature"))
         self.model = self._registry_model(state)
@@ -95,16 +113,77 @@ class ModelServer(object):
 
     @property
     def model_name(self):
+        """Descriptor model name (the ``model`` label on serving metrics)."""
         return str(self.descriptor.get("model_name") or "default")
 
+    @property
+    def model_version(self):
+        """Descriptor model version (the ``version`` label on serving
+        metrics)."""
+        return str(self.descriptor.get("model_version") or "0")
+
+    def swap_export(self, export_dir, expected_version=None):
+        """Live weight swap: copy ``export_dir``'s params in place into the
+        served module.  Nothing is rebuilt or warmed again, and
+        ``compile_count`` does not move.
+
+        Refused with :class:`~tensorflowonspark_torch.fleet.SwapRefused`
+        when the new export would need another model: a different model
+        name, ``model_config`` or input signature, or different param
+        names, shapes or dtypes; a ``ValueError`` when the new params hold
+        NaN or Inf (``load_model(validate=True)``).  A refusal leaves the
+        served model untouched.
+
+        Single-dispatcher contract: the gateway applies swaps on its
+        batcher thread between dispatches, on the stream its dispatches
+        use, so no kernel reads a half-copied weight.  Returns the new
+        version string.
+        """
+        from tensorflowonspark_torch import fleet
+
+        state, desc = checkpoint.load_model(export_dir, validate=True)
+        if str(desc.get("model_name")) != str(
+                self.descriptor.get("model_name")):
+            raise fleet.SwapRefused(
+                "swap refused: model {} != {}".format(
+                    desc.get("model_name"),
+                    self.descriptor.get("model_name")))
+        if (desc.get("model_config") or {}) != (
+                self.descriptor.get("model_config") or {}):
+            raise fleet.SwapRefused("swap refused: model_config differs "
+                                    "(would rebuild the model)")
+        if _normalize_signature(desc.get("input_signature")) != \
+                self.signature:
+            raise fleet.SwapRefused("swap refused: input signature differs "
+                                    "(would rebuild the model)")
+
+        def avals(sd):
+            return {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
+
+        if avals(state) != avals(self.model.state_dict()):
+            raise fleet.SwapRefused(
+                "swap refused: params names/shapes/dtypes differ (would "
+                "rebuild the model)")
+        # in-place copies on the device's current stream, the one the
+        # next dispatch's kernels queue behind
+        self.model.load_state_dict(state)
+        self.descriptor = dict(desc)
+        if expected_version is not None:
+            self.descriptor["model_version"] = str(expected_version)
+        self.swap_count += 1
+        logger.info("swapped model %s to version %s from %s (in place, %d "
+                    "warm rungs kept)", self.model_name, self.model_version,
+                    export_dir, len(self._seen_buckets))
+        return self.model_version
+
     def _registry_model(self, state):
-        """Rebuild the model from the registry by descriptor name and load
-        the params onto the device."""
+        """Rebuild the model from the registry by descriptor name, sized to
+        the params' shapes, and load the params onto the device."""
         config = dict(self.descriptor.get("model_config") or {})
         arch = config.pop("architecture", None) \
             or self.descriptor["model_name"]
         with torch.device("meta"):
-            model = get_model(arch, **config)
+            model = get_model(arch, state_dict=state, **config)
         model.load_state_dict(state, assign=True)
         return model.to(self.device).eval()
 
@@ -212,15 +291,21 @@ class ModelServer(object):
     def warmup(self):
         """Dispatch every ladder rung once, largest first, before traffic
         arrives.  Returns the number of rungs warmed (0 when the signature
-        cannot shape a dummy feed)."""
-        warmed = 0
+        cannot shape a dummy feed).  Per-rung times land in
+        :attr:`warmup_report`; every verdict is ``"compiled"`` (eager
+        PyTorch loads no serialized executable)."""
+        report = []
         for b in reversed(self.buckets):
             feed = self.zero_feed(b)
             if feed is None:
                 break
+            t0 = time.perf_counter()
             self.predict_feed(feed, b)
-            warmed += 1
-        return warmed
+            report.append({"bucket": b, "verdict": "compiled",
+                           "micros": int((time.perf_counter() - t0) * 1e6)})
+        self.warmup_report = {"buckets": report, "loaded": 0,
+                              "compiled": len(report)}
+        return len(report)
 
     def predict_feed(self, feed, count):
         """Run one batch padded to its ladder rung on the device; returns
@@ -236,6 +321,10 @@ class ModelServer(object):
         if bucket not in self._seen_buckets:
             self._seen_buckets.add(bucket)
             self.compile_count += 1
+            # a cold rung on the request path is a classic p99 culprit:
+            # mark it on the trace timeline next to the request flows
+            telemetry.get_tracer().instant(
+                "serving/compile", bucket=int(bucket), model=self.model_name)
         inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                   for k, v in feed.items()}
         with torch.inference_mode():

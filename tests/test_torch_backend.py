@@ -74,3 +74,43 @@ def test_more_partitions_than_executors(local_backend):
     parts = backend.partition(range(12), 6)
     results = local_backend.map_partitions(parts, lambda it: [sum(it)])
     assert [r[0] for r in results] == [1, 5, 9, 13, 17, 21]
+
+
+def test_large_result_arrives_whole(local_backend):
+    """A result of tens of MB (the shape of a transform's Python-float
+    rows) comes back equal through the driver's one-buffer read."""
+    def big(it):
+        import numpy as np
+
+        return [np.arange(n * 1_000_000, dtype=np.float32).tolist()
+                for n in it]
+
+    (got,) = local_backend.map_partitions([[3]], big)
+    assert len(got) == 1 and len(got[0]) == 3_000_000
+    assert got[0][:3] == [0.0, 1.0, 2.0] and got[0][-1] == 2_999_999.0
+
+
+@pytest.mark.parametrize("long_header", [False, True])
+def test_recv_result_reads_both_length_headers(long_header):
+    """``Connection.send``'s framing: a ``!i`` length, or -1 and a ``!Q``
+    length (messages of 2 GiB and more)."""
+    import multiprocessing
+    import pickle
+    import struct
+
+    a, b = multiprocessing.Pipe()
+    payload = (7, True, list(range(2000)))
+    try:
+        if long_header:
+            data = pickle.dumps(payload)
+            os.write(b.fileno(), struct.pack("!i", -1)
+                     + struct.pack("!Q", len(data)))
+            view = memoryview(data)
+            while view:
+                view = view[os.write(b.fileno(), view):]
+        else:
+            b.send(payload)
+        assert backend._recv_result(a) == payload
+    finally:
+        a.close()
+        b.close()

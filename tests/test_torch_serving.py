@@ -178,8 +178,9 @@ def test_roofline_at_the_serving_shape():
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
               "tensorflowonspark_tpu")
 
-# the port's example, imported as a module like the port's own
-_EXAMPLE = os.path.join("examples", "mnist", "mnist_spark_torch.py")
+# the port's examples, imported as modules like the port's own
+_EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
+             os.path.join("examples", "mnist", "mnist_pipeline_torch.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -189,11 +190,21 @@ names = [info.name for info in
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-spec = importlib.util.spec_from_file_location("mnist_spark_torch", {example!r})
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in {examples!r}:
+    name = path.rsplit("/", 1)[-1][:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
 missing = sorted(set(pkg.__name__ + "." + m for m in (
-    "summary", "tfrecord", "example_proto")) - set(names))
+    "summary", "tfrecord", "example_proto", "schema", "dfutil", "transport",
+    "gateway", "fleet", "pipeline", "models.linear", "models.twotower"))
+    - set(names))
+from tensorflowonspark_torch import fleet, gateway, pipeline
+missing += [n for n in ("TFEstimator", "TFModel", "_run_model_fn")
+            if not hasattr(pipeline, n)]
+missing += [n for n in ("GatewayServer", "GatewayChannel", "ServingClient")
+            if not hasattr(gateway, n)]
+missing += [n for n in ("SwapRefused",) if not hasattr(fleet, n)]
 from tensorflowonspark_torch import checkpoint, train
 missing += [n for n in ("fit_supervised", "MAX_ROLLBACKS")
             if not hasattr(train, n)]
@@ -208,21 +219,23 @@ sys.exit(1 if bad or missing or len(names) < 25 else 0)
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every port module (the copied
-    cluster layer among them), chip_smoke.py and the port's MNIST example
-    has no jax, flax, optax, orbax or JAX-package module."""
+    cluster layer and the serving tier among them), chip_smoke.py and the
+    port's MNIST examples has no jax, flax, optax, orbax or JAX-package
+    module."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
-                                                  example=_EXAMPLE)],
+                                                  examples=_EXAMPLES)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port, of chip_smoke.py or of the port's MNIST example
+    """No line of the port, of chip_smoke.py or of the port's MNIST examples
     imports a forbidden package, not even inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
-    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, _EXAMPLE)]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, e) for e in _EXAMPLES]
     for root, _, files in os.walk(os.path.join(REPO,
                                                "tensorflowonspark_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
