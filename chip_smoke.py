@@ -91,7 +91,31 @@ weights from a seed) along both paths:
   exports; ``TFModel.transform`` then serves 4 rows on that executor's
   card, in row order and equal to this process's ``ModelServer`` on the
   export; a ``fit`` after it on the same executor, which has initialized
-  CUDA, is refused with the reason.
+  CUDA, is refused with the reason;
+- resnet_train: ResNet-50 v1.5 at full width (stages [3, 4, 6, 3], 1000
+  classes, the s2d stem, bf16 over fp32 params, random weights from a seed)
+  trained on one device-resident batch of 256 x 224 x 224 learnable
+  synthetic rows, the shape of bench.py's resnet leg, with the BatchNorm
+  running averages as the Trainer's extra state: 30 steps at K = 1, then
+  from the same init 30 at K = 5 (graph replays); the loss falls, K = 5's
+  losses within 1e-3 nats of K = 1's, every running average moved and is
+  finite; the steady step at each K, images/s, the counted FLOPs and MFU,
+  device time by kernel group, the idle share and peak memory;
+- resnet_card_vs_cpu: a one-bottleneck-a-stage fp32 ResNet from one seed
+  on the card and on the CPU, TF32 off, both stems: train-mode logits, the
+  updated running averages and one SGD step;
+- resnet_files: the ResNet twin (``examples/resnet/resnet_imagenet_torch.py``)
+  through ``cluster.run`` in FILES mode on a one-executor ``LocalBackend``:
+  the node runs it inline in its executor process, where CUDA comes up; 4
+  predecoded train shards of 256 rows at 256 px written here,
+  ``data.FileFeed`` -> ``ShardedFeed`` -> ``fit_feed`` at K = 4 with the
+  crop and flip on the card, 16 steps, saves every 8, the exact eval of 256
+  validation rows and the chief's export; a fresh Trainer's validated
+  restore equals the run's last params and running averages, and the
+  card's crop equals the host crop byte for byte.  These paths run no
+  hand-written kernel (the convs and BatchNorm are cuDNN's and ATen's, as
+  they are XLA's in the JAX package); each row carries the flash kernels'
+  counts, zeroed before it and 0 after.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -764,10 +788,11 @@ def profile_steps(torch, trainer, batches):
     return profile_run(torch, run, n)
 
 
-def profile_run(torch, run, n):
-    """Device time of ``run()``, which takes ``n`` steps, by kernel group,
-    from ``torch.profiler`` (CUDA activity): per-step ms by group, the
-    device-busy sum against the profiled wall time, and the top kernels."""
+def profile_run(torch, run, n, groups=KERNEL_GROUPS):
+    """Device time of ``run()``, which takes ``n`` steps, by kernel group
+    (``groups``: the LM's by default), from ``torch.profiler`` (CUDA
+    activity): per-step ms by group, the device-busy sum against the
+    profiled wall time, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -777,21 +802,21 @@ def profile_run(torch, run, n):
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    groups, top = {}, []
+    by_group, top = {}, []
     for e in device_kernels(prof):
         ms = e.self_device_time_total / 1e3 / n
         name = e.key.lower()
-        group = next((g for g, keys in KERNEL_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in name for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+        by_group[group] = by_group.get(group, 0.0) + ms
         top.append((ms, e.key[:90], e.count // n))
-    busy = sum(groups.values())
+    busy = sum(by_group.values())
     return {"steps": n, "wall_ms_per_step": wall_ms / n,
             "device_busy_ms_per_step": busy,
             # None when the trace holds no device time (not measured)
             "device_idle_share": (1.0 - busy / (wall_ms / n)) if busy
             else None,
-            "ms_per_step_by_group": dict(sorted(groups.items(),
+            "ms_per_step_by_group": dict(sorted(by_group.items(),
                                                 key=lambda kv: -kv[1])),
             "top_kernels": [{"ms_per_step": ms, "name": name,
                              "launches_per_step": c}
@@ -2676,6 +2701,523 @@ def phase_pipeline(torch, np, config=LM_CONFIG, device=None):
     return row
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50 v1.5 with BatchNorm state, and the FILES-mode data plane
+# ---------------------------------------------------------------------------
+
+# the bench.py resnet leg's shape (bench.py:271-309): ResNet-50 v1.5 at full
+# width, s2d stem, bf16 over fp32 params, batch 256 of 224 x 224 x 3 on the
+# card; SGD lr 0.1, momentum 0.9, weight decay 1e-4, label smoothing 0.1
+RESNET_BATCH = 256
+RESNET_PX = 224
+RESNET_CLASSES = 1000
+RESNET_STEPS = 30
+RESNET_LOG_STEPS = 10
+RESNET_K = 5
+RESNET_LR = 0.1
+RESNET_TIMED_RUNS = 5     # timed runs after the checked steps, at each K
+RESNET_TIMED_STEPS = 5    # steps a timed run (one group at K = 5)
+RESNET_PROFILE_STEPS = 5
+# K = 5 replays the K = 1 step's kernels on the same batch from the same
+# init; the losses are held to K = 1's at 1e-3 nats, while a replay that
+# read a stale batch or stale statistics moves them by O(0.1)
+RESNET_LOSS_TOL = 1e-3
+# device time by kernel group (lowercased name fragments, first match)
+RESNET_KERNEL_GROUPS = (
+    ("BatchNorm", ("batch_norm", "bn_fw", "bn_bw")),
+    ("SGD", ("sgd", "multi_tensor_apply")),
+    ("conv (cuDNN)", ("conv", "xmma", "cudnn", "implicit", "fprop", "dgrad",
+                      "wgrad", "cutlass", "nhwc", "gemm", "sm90", "nvjet")),
+    ("elementwise", ("elementwise", "copy_kernel", "vectorized", "unrolled",
+                     "fill")),
+)
+# the card against the CPU: blocks_per_stage=1, 64 px, batch 16, fp32, TF32
+# off.  cuDNN may pick Winograd or FFT algorithms for fp32, which round
+# differently from the CPU's direct convolution (the CPU arithmetic is the
+# one tests/test_torch_resnet.py holds to flax at 1e-4): logits and running
+# averages within 1e-3 of their largest value; one SGD step's update within
+# 1e-2 of its norm over all params (a pre-activation within rounding of a
+# ReLU's kink may take the other side on the other device and move one
+# kernel's gradient by percents)
+RVC_BATCH, RVC_PX = 16, 64
+RVC_TOL = 1e-3
+RVC_STEP_RTOL = 1e-2
+# FILES mode: 4 train shards of 256 rows at store_px 256 (201326592 B of
+# pixels), 2 validation shards of 128 rows, batch 256 at 224 px, crop on the
+# card, 4 epochs = 16 steps at K = 4, windows of 4 steps, saves every 8
+FILES_SHARDS, FILES_ROWS, FILES_STORE_PX = 4, 256, 256
+FILES_VAL_SHARDS, FILES_VAL_ROWS = 2, 128
+FILES_EPOCHS, FILES_K, FILES_SAVE_STEPS = 4, 4, 8
+FILES_STEPS = FILES_SHARDS * FILES_ROWS * FILES_EPOCHS // RESNET_BATCH
+FILES_CLASSES = 32        # learnable: class templates plus noise
+FILES_REPORT_SECS = 600
+BF16_PEAK = 989e12        # H100 SXM dense bf16, for the MFU
+
+
+def resnet_example():
+    """The ResNet twin and its input module (examples/resnet/), imported
+    from this checkout."""
+    path = os.path.join(HERE, "examples", "resnet")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import imagenet_input_torch
+    import resnet_imagenet_torch
+
+    return resnet_imagenet_torch, imagenet_input_torch
+
+
+def resnet_trainer(torch, model, device, compute_dtype="bfloat16",
+                   **kwargs):
+    """A Trainer of ``model`` (ResNet, from its own init) on the bench
+    leg's loss and optimizer, the running averages its extra state."""
+    import functools
+
+    from tensorflowonspark_torch import train
+    from tensorflowonspark_torch.models import resnet
+
+    params, extra = resnet.split_state(model)
+    return train.Trainer(
+        resnet.loss_fn(model, weight_decay=1e-4, label_smoothing=0.1),
+        params, functools.partial(torch.optim.SGD, lr=RESNET_LR,
+                                  momentum=0.9),
+        extra_state=extra,
+        compute_dtype=compute_dtype and getattr(torch, compute_dtype),
+        batch_size=RESNET_BATCH, device=device, **kwargs)
+
+
+def stats_moved(torch, extra, init):
+    """Whether every running average moved from ``init`` and is finite."""
+    return all(not torch.equal(t.cpu(), init[k]) and bool(
+        torch.isfinite(t).all()) for k, t in extra.items())
+
+
+def phase_resnet_train(torch, np, fa):
+    """ResNet-50 v1.5 (s2d, bf16) trained on one device-resident batch of
+    256 x 224 x 224 learnable synthetic rows: 30 steps at K = 1, then from
+    the same init 30 steps at K = 5 (two eager warm-ups, one capture,
+    replays); the losses, the running averages, the steady step at each K,
+    the counted FLOPs and bytes, the device time by kernel group and the
+    peak memory."""
+    from tensorflowonspark_torch.models import resnet
+
+    twin, _ = resnet_example()
+    images, labels = twin.synthetic_imagenet(RESNET_BATCH, RESNET_PX)
+    batch = {"image": torch.from_numpy(images).cuda(),
+             "label": torch.from_numpy(labels).cuda()}
+    mask = torch.ones(RESNET_BATCH, device="cuda")
+    model = resnet.build_resnet50(num_classes=RESNET_CLASSES,
+                                  dtype="bfloat16", stem="s2d")
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in resnet.split_state(model)[1].items()}
+    torch.cuda.empty_cache()
+    rows = {}
+    for k in (1, RESNET_K):
+        torch.cuda.reset_peak_memory_stats()
+        curve = LossCurve()
+        tr = resnet_trainer(torch, model, "cuda", log_steps=RESNET_LOG_STEPS,
+                            summary_writer=curve)
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        t0 = time.perf_counter()
+        if k == 1:
+            losses = torch.stack([tr.step(batch, mask)[0]
+                                  for _ in range(RESNET_STEPS)]).tolist()
+        else:
+            for _ in range(RESNET_STEPS // k):
+                tr.repeat_step(batch, mask, k)
+            torch.cuda.synchronize()
+            losses = [curve.losses.get(s) for s in range(1, RESNET_STEPS + 1)]
+        torch.cuda.synchronize()
+        checked_s = time.perf_counter() - t0
+        launches = launches_of(fa)
+        peak = torch.cuda.max_memory_allocated()
+        moved = stats_moved(torch, tr.state.extra, init)
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in tr.state.params.values())
+
+        def timed_run(tr=tr, k=k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if k == 1:
+                for _ in range(RESNET_TIMED_STEPS):
+                    tr.step(batch, mask)
+            else:
+                tr.repeat_step(batch, mask, RESNET_TIMED_STEPS)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t) / RESNET_TIMED_STEPS
+
+        timed = [timed_run() for _ in range(RESNET_TIMED_RUNS)]
+
+        def run_profiled(tr=tr, k=k):
+            if k == 1:
+                for _ in range(RESNET_PROFILE_STEPS):
+                    tr.step(batch, mask)
+            else:
+                tr.repeat_step(batch, mask, RESNET_PROFILE_STEPS)
+
+        profile = profile_run(torch, run_profiled, RESNET_PROFILE_STEPS,
+                              groups=RESNET_KERNEL_GROUPS)
+        steady = median(timed)
+        flops = tr.history.step_flops
+        rows[k] = {
+            "steps_per_call": k, "steps": RESNET_STEPS, "losses": losses,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "checked_s": checked_s, "graphs": len(tr._graphs),
+            "train_compile_us_max": tr.counters_snapshot().get(
+                "train_compile_us_max"),
+            "steady_ms_per_step_runs": timed,
+            "steady_ms_per_step": steady,
+            "steady_spread_ms": max(timed) - min(timed),
+            "images_per_s": RESNET_BATCH / steady * 1e3,
+            "step_flops": flops, "step_bytes": tr._step_bytes,
+            "mfu_vs_989_tflops": (flops / (steady / 1e3) / BF16_PEAK
+                                  if flops else None),
+            "bound_ms": (1e3 * tr._roofline["ideal_step_seconds"]
+                         if tr._roofline else None),
+            "bound_by": {"memory": "bytes", "compute": "operations"}.get(
+                (tr._roofline or {}).get("bound")),
+            "profile": profile, "max_memory_allocated": peak,
+            "running_averages_moved_and_finite": moved,
+            "params_finite": finite, "flash_launches": launches,
+            "extra": {n: t.float().cpu() for n, t in tr.state.extra.items()}}
+        del tr
+        torch.cuda.empty_cache()
+    k1, k5 = rows[1], rows[RESNET_K]
+    diffs = [abs(a - b) for a, b in zip(k1["losses"], k5["losses"])
+             if a is not None and b is not None]
+    stats_diff = max(float((k5["extra"][n] - t).abs().max())
+                     for n, t in k1["extra"].items())
+    row = {"phase": "resnet_train", "model": "resnet50 v1.5, s2d, bf16",
+           "batch": [RESNET_BATCH, RESNET_PX, RESNET_PX, 3],
+           "optimizer": "SGD lr {} momentum 0.9, weight decay 1e-4, label "
+                        "smoothing 0.1".format(RESNET_LR),
+           "k1": {k: v for k, v in k1.items() if k != "extra"},
+           "k5": {k: v for k, v in k5.items() if k != "extra"},
+           "k5_vs_k1_max_loss_diff": max(diffs) if diffs else None,
+           "k5_vs_k1_max_running_average_diff": stats_diff,
+           "loss_tol": RESNET_LOSS_TOL}
+    emit(row)
+    for k, r in rows.items():
+        losses = r["losses"]
+        if not (None not in losses and np.isfinite(losses).all()
+                and losses[-1] < losses[0] and r["params_finite"]):
+            raise AssertionError("ResNet-50 at K = {}: loss not finite and "
+                                 "falling: {}".format(k, losses))
+        if not r["running_averages_moved_and_finite"]:
+            raise AssertionError("ResNet-50 at K = {}: a running average "
+                                 "did not move or is not finite".format(k))
+        if any(r["flash_launches"].values()):
+            raise AssertionError("the ResNet path launched flash kernels: "
+                                 "{}".format(r["flash_launches"]))
+    if k5["graphs"] != 1:
+        raise AssertionError("K = 5 captured {} graphs, expected 1".format(
+            k5["graphs"]))
+    if len(diffs) != RESNET_STEPS or max(diffs) > RESNET_LOSS_TOL:
+        raise AssertionError("K = 5 losses differ from K = 1's by {} (tol "
+                             "{})".format(max(diffs) if diffs else None,
+                                          RESNET_LOSS_TOL))
+    return row
+
+
+def phase_resnet_card_vs_cpu(torch, np):
+    """The same fp32 ResNet (one bottleneck a stage, both stems) from one
+    seed on the card and on the CPU, TF32 off: train-mode logits, the
+    updated running averages, and one SGD step's params."""
+    from tensorflowonspark_torch.models import resnet
+
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((RVC_BATCH, RVC_PX, RVC_PX, 3)).astype(np.float32)
+    labels = rng.integers(0, RESNET_CLASSES, RVC_BATCH).astype(np.int32)
+    assert not torch.backends.cudnn.allow_tf32
+    cases = {}
+    for stem in ("conv7", "s2d"):
+        out = {}
+        for device in ("cpu", "cuda"):
+            model = resnet.build_resnet50(num_classes=RESNET_CLASSES,
+                                          blocks_per_stage=1, stem=stem,
+                                          dtype="float32")
+            model.init_weights(torch.Generator().manual_seed(0))
+            model.to(device)
+            params, extra = resnet.split_state(model)
+            xb = torch.from_numpy(x).to(device)
+            with torch.no_grad():
+                logits, stats = torch.func.functional_call(
+                    model, {**params, **extra}, (xb,), {"train": True})
+            tr = resnet_trainer(torch, model, device, compute_dtype=None)
+            tr.step({"image": x, "label": labels})
+            out[device] = (logits.cpu(), {k: v.cpu() for k, v in stats.items()},
+                           {k: v.detach().cpu() for k, v in params.items()},
+                           {k: v.detach().cpu()
+                            for k, v in tr.state.params.items()},
+                           {k: v.cpu() for k, v in tr.state.extra.items()})
+        (lc, sc, p0, pc, ec), (lg, sg, _, pg, eg) = out["cpu"], out["cuda"]
+        logit_err = float((lg - lc).abs().max() / lc.abs().max())
+        stats_err = max(float((sg[k] - v).abs().max() / v.abs().max())
+                        for k, v in sc.items())
+        step_stats_err = max(float((eg[k] - v).abs().max() / v.abs().max())
+                             for k, v in ec.items())
+        upd_c = torch.cat([(pc[k] - p0[k]).flatten() for k in p0])
+        upd_g = torch.cat([(pg[k] - p0[k]).flatten() for k in p0])
+        step_err = float((upd_g - upd_c).norm() / upd_c.norm())
+        worst = max(((float(((pg[k] - p0[k]) - (pc[k] - p0[k])).norm()
+                            / max(float((pc[k] - p0[k]).norm()), 1e-30)), k)
+                     for k in p0))
+        cases[stem] = {"logits_rel_err": logit_err,
+                       "running_average_rel_err": stats_err,
+                       "step_running_average_rel_err": step_stats_err,
+                       "step_update_rel_err": step_err,
+                       "worst_tensor_update_rel_err": worst[0],
+                       "worst_tensor": worst[1]}
+    row = {"phase": "resnet_card_vs_cpu",
+           "model": "resnet50 v1.5, 1 block a stage, fp32, TF32 off",
+           "batch": [RVC_BATCH, RVC_PX, RVC_PX, 3], "cases": cases,
+           "tol": RVC_TOL, "step_update_rtol": RVC_STEP_RTOL}
+    emit(row)
+    for stem, c in cases.items():
+        if not (c["logits_rel_err"] <= RVC_TOL
+                and c["running_average_rel_err"] <= RVC_TOL
+                and c["step_running_average_rel_err"] <= RVC_TOL
+                and c["step_update_rel_err"] <= RVC_STEP_RTOL):
+            raise AssertionError("the card's ResNet ({}) differs from the "
+                                 "CPU's: {}".format(stem, c))
+    return row
+
+
+def write_predecoded(np, out_dir, split, shards, rows, seed):
+    """``shards`` ``<split>-*.raw`` files of ``rows`` predecoded rows each
+    (the ``image_raw``/``label`` records of ``predecode_shards``) at
+    ``FILES_STORE_PX``, written with the port's ``example_proto`` and
+    ``tfrecord``: class templates plus noise, so the rows are learnable.
+    Returns the paths."""
+    from tensorflowonspark_torch import example_proto, tfrecord
+
+    os.makedirs(out_dir, exist_ok=True)
+    px = FILES_STORE_PX
+    templates = np.random.default_rng(99).integers(
+        0, 256, (FILES_CLASSES, px, px, 3), np.int16)
+    paths = []
+    for s in range(shards):
+        rng = np.random.default_rng((seed, s))
+        labels = rng.integers(0, FILES_CLASSES, rows)
+        path = os.path.join(out_dir, "{}-{:05d}-of-{:05d}.raw".format(
+            split, s, shards))
+        with tfrecord.TFRecordWriter(path) as w:
+            for i in range(rows):
+                img = templates[labels[i]] + rng.integers(
+                    -24, 25, (px, px, 3), np.int16)
+                w.write(example_proto.encode_example({
+                    "image_raw": ("bytes", [np.clip(img, 0, 255).astype(
+                        np.uint8).tobytes()]),
+                    "label": ("int64", [int(labels[i])])}))
+        paths.append(path)
+    return paths
+
+
+def resnet_files_main(args, ctx):
+    """The resnet_files phase's node fn, run by the node inline in its
+    executor process (FILES mode): the twin's ``train_resnet`` (CUDA comes
+    up in it), then the trainer's window times, counters and final running
+    averages into ``args["report"]`` (the traceback too when it fails)."""
+    import traceback
+
+    report = {"node_started": time.time()}
+    try:
+        import torch
+
+        sys.path.insert(0, args["example_dir"])
+        import resnet_imagenet_torch as twin
+
+        report["cuda_initialized_at_start"] = torch.cuda.is_initialized()
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        trainer, stats = twin.train_resnet(args["twin"], ctx)
+        report["flash_launches"] = launches_of(fa)
+        torch.cuda.synchronize()
+        report["done"] = time.time()
+        log = trainer.history.timestamp_log
+        torch.save({k: v.cpu() for k, v in trainer.state.extra.items()},
+                   args["extra_path"])
+        report.update({
+            "device": str(trainer.device), "steps": trainer.state.step,
+            "timestamp_log": log, "stats": stats,
+            "graphs": len(trainer._graphs),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args["report"] + ".tmp", "w") as f:
+            json.dump(report, f, default=float)
+        os.replace(args["report"] + ".tmp", args["report"])
+
+
+def phase_resnet_files(torch, np, fa, train_row):
+    """The twin's FILES-mode path through ``cluster.run`` on a one-executor
+    LocalBackend: predecoded shards written here, the crop on the card, K =
+    4, checkpoints every 8 steps, the exact eval and the chief's export;
+    then a fresh Trainer's validated restore against the run's last state,
+    and the card's crop against the host crop, byte for byte."""
+    from tensorflowonspark_torch import backend, checkpoint, cluster, train
+    from tensorflowonspark_torch.models import resnet
+
+    twin, imagenet_input = resnet_example()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "raw")
+        train_files = write_predecoded(np, data, "train", FILES_SHARDS,
+                                       FILES_ROWS, 1)
+        write_predecoded(np, data, "validation", FILES_VAL_SHARDS,
+                         FILES_VAL_ROWS, 2)
+        write_s = time.perf_counter() - t0
+        args = twin.parse_args([
+            "--cluster_size", "1", "--batch_size", str(RESNET_BATCH),
+            "--image_size", str(RESNET_PX), "--stem", "s2d",
+            "--train_steps", str(FILES_STEPS),
+            "--train_epochs", str(FILES_EPOCHS), "--predecoded",
+            "--store_px", str(FILES_STORE_PX), "--data_dir", data,
+            "--eval_data_dir", data, "--steps_per_call", str(FILES_K),
+            "--log_steps", str(FILES_K), "--shuffle_buffer", "512",
+            "--model_dir", os.path.join(tmp, "model"),
+            "--save_interval", str(FILES_SAVE_STEPS),
+            "--export_dir", os.path.join(tmp, "export")])
+        node_args = {"twin": args, "example_dir": os.path.dirname(
+                         twin.__file__),
+                     "report": os.path.join(tmp, "report.json"),
+                     "extra_path": os.path.join(tmp, "extra.pt")}
+        b = backend.LocalBackend(1)
+        try:
+            t_run = time.time()
+            c = cluster.run(b, resnet_files_main, node_args, num_executors=1,
+                            input_mode=cluster.InputMode.FILES)
+            t_ready = time.time()
+            c.shutdown(grace_secs=1)
+            t_done = time.time()
+            report = wait_for_report(node_args["report"], FILES_REPORT_SECS)
+        finally:
+            b.stop()
+        # a fresh Trainer on the card, restored from the run's checkpoints
+        model = resnet.build_resnet50(num_classes=twin.NUM_CLASSES,
+                                      dtype="bfloat16", stem="s2d")
+        params, extra = resnet.split_state(model)
+        base_lr, warmup, bounds, _ = twin.lr_schedule(args)
+        fresh = train.Trainer(resnet.loss_fn(model), params,
+                              twin.scheduled_sgd(base_lr, warmup, bounds),
+                              extra_state=extra, device="cuda")
+        ckpt = checkpoint.CheckpointManager(args.model_dir)
+        saved_steps = ckpt.latest_step(), sorted(os.listdir(args.model_dir))
+        restored = fresh.restore_latest(ckpt, validate=True)
+        exported, descriptor = checkpoint.load_model(args.export_dir,
+                                                     validate=True)
+        last_extra = torch.load(node_args["extra_path"], weights_only=True)
+        params_equal = all(torch.equal(fresh.state.params[k].detach().cpu(), v)
+                           for k, v in exported.items())
+        extra_equal = all(torch.equal(fresh.state.extra[k].cpu(), v)
+                          for k, v in last_extra.items())
+        # the card's crop against the host crop of the same rows and seed
+        def rows(device_crop):
+            reader = imagenet_input.predecoded_reader(
+                train=True, image_size=RESNET_PX, store_px=FILES_STORE_PX,
+                seed=0, device_crop=device_crop)
+            return list(reader(train_files[0]))
+
+        host, dev = rows(False), rows(True)
+        crop = twin_crop(torch, np, dev)
+        crop_equal = bool(np.array_equal(
+            crop, np.stack([r["image"] for r in host])))
+        flips = int(sum(r["flip"] for r in dev))
+    log = report["timestamp_log"]
+    window_ms = [1e3 * (t1 - t0_) / (s1 - s0)
+                 for (s0, t0_), (s1, t1) in zip(log, log[1:])]
+    later = sorted(window_ms[1:])
+    steady = later[len(later) // 2] if later else None
+    fed_s = log[-1][1] - log[0][1]
+    stats = report["stats"]
+    overlap = stats.get("overlap", {})
+    k5_steady = train_row["k5"]["steady_ms_per_step"]
+    row = {"phase": "resnet_files", "input_mode": "FILES",
+           "backend": "LocalBackend(1)",
+           "model": "resnet50 v1.5, s2d, bf16 (the twin's 1001 classes)",
+           "train_rows": FILES_SHARDS * FILES_ROWS,
+           "pixel_bytes": FILES_SHARDS * FILES_ROWS * FILES_STORE_PX ** 2 * 3,
+           "feed_bytes_per_step": RESNET_BATCH * FILES_STORE_PX ** 2 * 3,
+           "write_shards_s": write_s,
+           "steps": report["steps"], "expected_steps": FILES_STEPS,
+           "steps_per_call": FILES_K, "graphs": report["graphs"],
+           "cuda_initialized_at_node_start":
+               report["cuda_initialized_at_start"],
+           "bring_up_s": {
+               "cluster_run": t_ready - t_run,
+               "to_node_start": report["node_started"] - t_run,
+               "to_first_step": log[0][1] - t_run},
+           "run_to_shutdown_done_s": t_done - t_run,
+           "rows_per_s_fed": (FILES_STEPS * RESNET_BATCH / fed_s
+                              if fed_s > 0 else None),
+           "window_ms_per_step": window_ms,
+           "steady_ms_per_step": steady,
+           "resnet_train_k5_steady_ms_per_step": k5_steady,
+           "steady_vs_resnet_train_k5": (steady / k5_steady
+                                         if steady and k5_steady else None),
+           "goodput_infeed_starved_us": overlap.get(
+               "goodput_infeed_starved_us"),
+           "goodput_dispatch_us": overlap.get("goodput_dispatch_us"),
+           "infeed": {k: v for k, v in overlap.items()
+                      if k.startswith("infeed_")},
+           "final_loss": stats.get("loss"),
+           "eval_rows": stats.get("eval_rows"),
+           "expected_eval_rows": FILES_VAL_SHARDS * FILES_VAL_ROWS,
+           "eval_accuracy_top_1": stats.get("eval_accuracy_top_1"),
+           "checkpoint_steps": saved_steps[1],
+           "restored_step": restored,
+           "restored_params_equal_export": params_equal,
+           "restored_extra_equal_last": extra_equal,
+           "export_descriptor": descriptor,
+           "crop_rows": len(dev), "crop_flips": flips,
+           "crop_equal_host_crop": crop_equal,
+           "flash_launches": report["flash_launches"],
+           "max_memory_allocated": report["max_memory_allocated"]}
+    emit(row)
+    if report["cuda_initialized_at_start"]:
+        raise AssertionError("CUDA was up in the executor before the node "
+                             "fn ran")
+    if report["steps"] != FILES_STEPS or not np.isfinite(
+            stats.get("loss", float("nan"))):
+        raise AssertionError("the FILES node trained {} steps (expected {}), "
+                             "final loss {}".format(report["steps"],
+                                                    FILES_STEPS,
+                                                    stats.get("loss")))
+    if row["eval_rows"] != row["expected_eval_rows"]:
+        raise AssertionError("the exact eval saw {} rows of {}".format(
+            row["eval_rows"], row["expected_eval_rows"]))
+    if restored != FILES_STEPS or not (params_equal and extra_equal):
+        raise AssertionError("the validated restore gave step {} (expected "
+                             "{}), params equal {}, extra equal {}".format(
+                                 restored, FILES_STEPS, params_equal,
+                                 extra_equal))
+    if not crop_equal or not 0 < flips < len(dev):
+        raise AssertionError("crop_and_flip on the card differs from the "
+                             "host crop ({} flips of {})".format(
+                                 flips, len(dev)))
+    if any(report["flash_launches"].values()):
+        raise AssertionError("the ResNet FILES path launched flash kernels: "
+                             "{}".format(report["flash_launches"]))
+    if report["graphs"] != 1:
+        raise AssertionError("the FILES node captured {} graphs, expected "
+                             "1".format(report["graphs"]))
+    return row
+
+
+def twin_crop(torch, np, rows):
+    """``ops.augment.crop_and_flip`` on the card over device-crop rows, back
+    on the host."""
+    from tensorflowonspark_torch.ops import augment
+
+    images = torch.from_numpy(np.stack([r["image"] for r in rows])).cuda()
+    offsets = [torch.tensor([r[k] for r in rows], device="cuda")
+               for k in ("cropx", "cropy", "flip")]
+    return augment.crop_and_flip(images, *offsets, RESNET_PX).cpu().numpy()
+
+
 def main():
     import torch
 
@@ -2720,6 +3262,9 @@ def main():
     gatewayed = phase_gateway(torch, np, fa)
     served_cli = phase_serve_cli(torch, np)
     piped = phase_pipeline(torch, np)
+    resnet_trained = phase_resnet_train(torch, np, fa)
+    phase_resnet_card_vs_cpu(torch, np)
+    phase_resnet_files(torch, np, fa, resnet_trained)
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]

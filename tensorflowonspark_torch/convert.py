@@ -2,7 +2,8 @@
 port's ``state_dict``s.
 
 Trees are plain nested dicts of numpy arrays (what ``jax.device_get`` of a
-flax ``params`` collection gives); state dicts map names to fp32 tensors.
+flax ``params`` collection gives); state dicts map names to fp32 tensors
+(fp64 for fp64 leaves).
 Layouts:
 
 - ``Dense`` kernel ``(in, out)`` <-> ``Linear``-style ``weight`` ``(out, in)``;
@@ -12,7 +13,12 @@ Layouts:
 - ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
 - ``Embed`` ``embedding`` <-> ``weight``;
 - ``Conv`` kernel ``(H, W, in, out)`` (HWIO) <-> ``Conv2d`` ``weight``
-  ``(out, in, H, W)`` (OIHW).
+  ``(out, in, H, W)`` (OIHW);
+- ``BatchNorm`` ``scale``/``bias`` <-> ``weight``/``bias``, and its
+  ``batch_stats`` ``mean``/``var`` <-> the buffers ``running_mean``/
+  ``running_var`` (the Trainer's extra state, a dict of its own).
+
+Every model the port registers round-trips.
 """
 
 import numpy as np
@@ -27,7 +33,10 @@ _BLOCK_NORM = {"LayerNorm_0": "ln1", "LayerNorm_1": "ln2"}
 
 
 def _t(x):
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """fp32, or fp64 when given fp64 (the float64 parity tests)."""
+    x = np.asarray(x)
+    return torch.from_numpy(np.array(
+        x, dtype=np.float64 if x.dtype == np.float64 else np.float32))
 
 
 def _get(tree, path):
@@ -185,3 +194,85 @@ def two_tower_params_to_flax(state_dict):
     """The port's ``TwoTower`` ``state_dict`` -> a flax param tree of numpy
     arrays."""
     return {name: _dense_to_flax(state_dict, name) for name in _TWO_TOWER}
+
+
+# a flax ResNet's top-level modules -> the port's
+_RESNET_TOP = {"Conv_0": "stem_conv", "BatchNorm_0": "stem_norm"}
+_RESNET_BLOCKS = ("BottleneckBlock", "BasicBlock")
+
+
+def _resnet_modules(tree):
+    """``(flax path, torch prefix)`` of every Conv and BatchNorm of a flax
+    ResNet tree: the stem's, then each ``<Block>_<n>``'s ``Conv_k`` /
+    ``BatchNorm_k`` as ``blocks.<n>.convs.k`` / ``blocks.<n>.norms.k``."""
+    out = [((key,), name) for key, name in _RESNET_TOP.items()]
+    for key in tree:
+        kind, _, index = key.rpartition("_")
+        if kind not in _RESNET_BLOCKS:
+            continue
+        for sub in tree[key]:
+            layer, _, k = sub.rpartition("_")
+            name = {"Conv": "convs", "BatchNorm": "norms"}[layer]
+            out.append(((key, sub), "blocks.{}.{}.{}".format(index, name, k)))
+    return out
+
+
+def resnet_params_from_flax(params, batch_stats):
+    """A flax ``ResNet``'s ``params`` and ``batch_stats`` trees -> the port's
+    ``(params, extra)`` name -> tensor dicts (the Trainer's
+    ``init_params`` and ``extra_state``; together the model's
+    ``state_dict``)."""
+    sd, extra = {}, {}
+    for path, name in _resnet_modules(params):
+        node = _get(params, path)
+        if path[-1].startswith("Conv"):
+            sd[name + ".weight"] = conv_kernel_to_torch(node["kernel"])
+            continue
+        sd[name + ".weight"] = _t(node["scale"])
+        sd[name + ".bias"] = _t(node["bias"])
+        stats = _get(batch_stats, path)
+        extra[name + ".running_mean"] = _t(stats["mean"])
+        extra[name + ".running_var"] = _t(stats["var"])
+    for key, value in _dense_from_flax(params["Dense_0"]).items():
+        sd["head." + key] = value
+    return sd, extra
+
+
+def resnet_params_to_flax(state_dict, extra):
+    """The port's ResNet ``(params, extra)`` dicts -> flax ``(params,
+    batch_stats)`` trees of numpy arrays.  The block kind is read from the
+    first block's first kernel: 1x1 for a bottleneck, 3x3 for a basic
+    block."""
+    def arr(tree, name):
+        return tree[name].detach().cpu().float().numpy().copy()
+
+    first = state_dict.get("blocks.0.convs.0.weight")
+    block = ("BottleneckBlock" if first is None or first.shape[-1] == 1
+             else "BasicBlock")
+    params, stats = {}, {}
+    for name in state_dict:
+        parts = name.split(".")
+        if parts[0] == "head":
+            continue
+        if parts[0] == "blocks":
+            layer = {"convs": "Conv", "norms": "BatchNorm"}[parts[2]]
+            path = ("{}_{}".format(block, parts[1]),
+                    "{}_{}".format(layer, parts[3]))
+        else:
+            path = ({v: k for k, v in _RESNET_TOP.items()}[parts[0]],)
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        prefix = name.rsplit(".", 1)[0]
+        if path[-1].startswith("Conv"):
+            node["kernel"] = conv_weight_to_flax(state_dict[name])
+        elif name.endswith(".weight"):
+            node["scale"] = arr(state_dict, name)
+            node["bias"] = arr(state_dict, prefix + ".bias")
+            snode = stats
+            for key in path:
+                snode = snode.setdefault(key, {})
+            snode["mean"] = arr(extra, prefix + ".running_mean")
+            snode["var"] = arr(extra, prefix + ".running_var")
+    params["Dense_0"] = _dense_to_flax(state_dict, "head")
+    return params, stats

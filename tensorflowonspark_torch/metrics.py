@@ -423,7 +423,7 @@ class TimeHistory(object):
             return self.batch_size * self.global_steps / self.elapsed
         return 0.0
 
-    def build_stats(self, loss=None):
+    def build_stats(self, loss=None, eval_loss=None, accuracy=None):
         eps = self.avg_examples_per_second()
         stats = {
             "global_steps": self.global_steps,
@@ -441,13 +441,18 @@ class TimeHistory(object):
                 stats["mfu"] = mfu
         if loss is not None:
             stats["loss"] = float(loss)
+        if eval_loss is not None:
+            stats["eval_loss"] = float(eval_loss)
+        if accuracy is not None:
+            stats["accuracy_top_1"] = float(accuracy)
         return stats
 
-    def log_stats(self, loss=None):
-        stats = self.build_stats(loss)
+    def log_stats(self, **kwargs):
+        stats = self.build_stats(**kwargs)
         logger.info("train stats: %s", json.dumps(stats, default=float))
         if self.summary_writer is not None:
-            keys = ["loss", "avg_exp_per_second", "avg_step_seconds", "mfu"]
+            keys = ["loss", "avg_exp_per_second", "avg_step_seconds",
+                    "mfu", "eval_loss", "accuracy_top_1"]
             if self._loss_curve_end >= self.global_steps:
                 keys.remove("loss")  # the per-step curve has this point
             final = {k: float(stats[k]) for k in keys if k in stats}

@@ -5,8 +5,11 @@ The registry maps exported model names back to constructors, so a server
 can rebuild a model from an export's name and config alone.  It holds the
 transformer LM (:mod:`~tensorflowonspark_torch.models.transformer`), the
 MNIST CNN (:mod:`~tensorflowonspark_torch.models.mnist`), the linear model
-(:mod:`~tensorflowonspark_torch.models.linear`) and the two-tower model
-(:mod:`~tensorflowonspark_torch.models.twotower`).
+(:mod:`~tensorflowonspark_torch.models.linear`), the two-tower model
+(:mod:`~tensorflowonspark_torch.models.twotower`) and the ResNets
+(:mod:`~tensorflowonspark_torch.models.resnet`: ``resnet50``, ResNet-50
+v1.5 with the conv7 or s2d stem, and ``resnet56_cifar``), whose BatchNorm
+running averages are the Trainer's extra state, not params.
 
 flax infers a Dense layer's input width from the first call; a torch layer
 needs it at construction.  A model registered with ``widths=`` reads those
@@ -43,4 +46,4 @@ def get_model(name, state_dict=None, **config):
 
 # Import for registration side effects.
 from tensorflowonspark_torch.models import (  # noqa: E402,F401
-    linear, mnist, transformer, twotower)
+    linear, mnist, resnet, transformer, twotower)

@@ -36,8 +36,18 @@ parallelism, each process a local batch of the global one, as
 the step all-reduces the gradients so that the update is the JAX
 Trainer's over the global batch, a padded final batch included: with
 ``loss_fn`` a masked mean over rows (every loss of the model zoo), each
-rank's gradient is weighted by its valid rows over the global valid-row
-count before the sum.  Every rank then applies identical gradients.
+rank's loss is scaled by its valid rows over the global valid-row count
+before its backward, and the ranks' gradients are summed.  Scaling the loss
+(not the gradient) keeps the update exact when the ranks' losses are
+coupled, as by BatchNorm statistics synchronised across ranks, whose
+all-reduce hands every rank the other ranks' gradients too.  Every rank then
+applies identical gradients.
+
+``extra_state`` is the JAX Trainer's non-trainable state (BatchNorm running
+averages): a name->tensor dict that the loss reads and hands back updated in
+``aux["extra_state"]``; after each (micro-)batch the new values are copied
+into the same storage, so a captured CUDA graph updates them on every
+replay.
 """
 
 import dataclasses
@@ -86,34 +96,56 @@ _UNPORTED = {
 
 @dataclasses.dataclass
 class TrainState:
-    """The step counter, the params (a name->tensor dict, updated in place)
-    and the optimizer that holds their state."""
+    """The step counter, the params (a name->tensor dict, updated in place),
+    the optimizer that holds their state, and the non-trainable ``extra``
+    state (a name->tensor dict, e.g. BatchNorm running averages; None
+    without one), updated in place too."""
 
     step: int
     params: dict
     optimizer: Any
+    extra: Any = None
 
     def state_dict(self):
-        """``{"step", "params", "opt_state"}``: what a checkpoint holds."""
-        return {"step": self.step, "params": self.params,
-                "opt_state": self.optimizer.state_dict()}
+        """``{"step", "params", "opt_state"}`` and ``"extra"`` when there is
+        extra state: what a checkpoint holds."""
+        state = {"step": self.step, "params": self.params,
+                 "opt_state": self.optimizer.state_dict()}
+        if self.extra is not None:
+            state["extra"] = self.extra
+        return state
 
     def load_state_dict(self, state):
         """Copy a :meth:`state_dict` into this state, in place: the params,
-        and the values of every optimizer state tensor this optimizer
-        already holds, which keep their storage (a captured CUDA graph
-        reads them at their addresses).  ``capturable`` flags stay as they
-        are; the other hyperparameters come from ``state``."""
+        the extra state, and the values of every optimizer state tensor and
+        tensor hyperparameter this optimizer already holds, which keep their
+        storage (a captured CUDA graph reads them at their addresses).
+        ``capturable`` flags stay as they are; the other hyperparameters
+        come from ``state``."""
         opt = self.optimizer
         with torch.no_grad():
             for name, t in self.params.items():
                 t.copy_(state["params"][name])
+            for name, t in (self.extra or {}).items():
+                t.copy_(state["extra"][name])
         held = {p: dict(s) for p, s in opt.state.items()}
         flags = [g.get("capturable") for g in opt.param_groups]
+        # tensor hyperparameters (a tensor lr a schedule writes on the
+        # device) keep their storage too
+        held_hyper = [{k: v for k, v in g.items()
+                       if isinstance(v, torch.Tensor)}
+                      for g in opt.param_groups]
         opt.load_state_dict(state["opt_state"])
-        for group, flag in zip(opt.param_groups, flags):
+        for group, flag, hyper in zip(opt.param_groups, flags, held_hyper):
             if flag is not None:
                 group["capturable"] = flag
+            for key, prev in hyper.items():
+                value = group.get(key)
+                if (isinstance(value, torch.Tensor)
+                        and value.shape == prev.shape):
+                    with torch.no_grad():
+                        prev.copy_(value)
+                    group[key] = prev
         _place_steps(opt)
         with torch.no_grad():
             for p, loaded in opt.state.items():
@@ -165,6 +197,10 @@ def _place_steps(optimizer):
             step = state.get("step")
             if isinstance(step, torch.Tensor) and step.device != p.device:
                 state["step"] = step.to(p.device)
+
+
+def _world_size():
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _map(tree, fn):
@@ -223,9 +259,16 @@ class Trainer(object):
     Args:
       loss_fn: ``fn(params, batch, mask) -> (loss, aux)``, ``params`` a
         name->tensor dict; ``mask`` is the per-row validity mask (1.0 = real
-        row), which the loss must apply.
+        row), which the loss must apply.  With ``extra_state``,
+        ``fn(params, extra, batch, mask)``, which returns the updated extra
+        state in ``aux["extra_state"]`` (split off ``aux`` by the step).
       init_params: name->tensor dict (e.g. a converted flax tree); the
         trainer copies it onto its device.
+      extra_state: initial non-trainable state, a name->tensor dict (e.g.
+        BatchNorm running averages); copied onto the device, never
+        optimized.  After every (micro-)batch its new values are copied
+        into the same tensors, so micro-batches of ``accum_steps`` see the
+        previous one's, as in the JAX scan.
       optimizer: a factory ``params -> torch.optim.Optimizer``, e.g.
         ``functools.partial(torch.optim.Adam, lr=1e-3)`` for ``optax.adam``.
         On a card its param groups get ``capturable=True`` where they have
@@ -264,10 +307,10 @@ class Trainer(object):
     are not ported yet.
     """
 
-    def __init__(self, loss_fn, init_params, optimizer, compute_dtype=None,
-                 batch_size=None, log_steps=20, extra_step_flops=0,
-                 step_flops_override=None, summary_writer=None, device=None,
-                 accum_steps=1, **unported):
+    def __init__(self, loss_fn, init_params, optimizer, extra_state=None,
+                 compute_dtype=None, batch_size=None, log_steps=20,
+                 extra_step_flops=0, step_flops_override=None,
+                 summary_writer=None, device=None, accum_steps=1, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError("Trainer() got an unexpected keyword "
@@ -291,8 +334,14 @@ class Trainer(object):
         self.summary_writer = summary_writer
         params = {name: torch.as_tensor(t).detach().to(self.device, copy=True)
                   .requires_grad_(True) for name, t in init_params.items()}
+        extra = None
+        if extra_state is not None:
+            extra = {name: torch.as_tensor(t).detach().to(self.device,
+                                                          copy=True)
+                     for name, t in extra_state.items()}
         self.state = TrainState(step=0, params=params,
-                                optimizer=optimizer(list(params.values())))
+                                optimizer=optimizer(list(params.values())),
+                                extra=extra)
         if self.device.type == "cuda" and not _asks_not_capturable(
                 optimizer):
             # eager steps and graph replays share one optimizer arithmetic
@@ -365,38 +414,65 @@ class Trainer(object):
             mask = torch.as_tensor(mask).to(self.device, torch.float32)
         return batch, mask
 
+    def _loss(self, batch, mask):
+        """``(loss, aux, new_extra)`` of the loss function on one
+        (micro-)batch; ``new_extra`` is None without extra state."""
+        if self.state.extra is None:
+            loss, aux = self.loss_fn(self.state.params, batch, mask)
+            return loss, aux, None
+        loss, aux = self.loss_fn(self.state.params, self.state.extra, batch,
+                                 mask)
+        aux = dict(aux)
+        return loss, aux, aux.pop("extra_state", None)
+
+    def _commit_extra(self, new_extra):
+        """Copy updated extra state into the state's own tensors."""
+        if new_extra is None:
+            return
+        with torch.no_grad():
+            for name, t in self.state.extra.items():
+                t.copy_(new_extra[name])
+
     def _grads(self, batch, mask):
         """Loss, aux and the params' ``.grad`` of one batch (of its
-        ``accum_steps`` micro-batches, see :meth:`_accum_grads`)."""
+        ``accum_steps`` micro-batches, see :meth:`_accum_grads`; in a world
+        of more than one process, :meth:`_global_grads`)."""
         self.state.optimizer.zero_grad(set_to_none=True)
+        if _world_size() > 1:
+            return self._global_grads(batch, mask)
         if self.accum_steps > 1:
             return self._accum_grads(batch, mask)
-        loss, aux = self.loss_fn(self.state.params, batch, mask)
+        loss, aux, new_extra = self._loss(batch, mask)
         loss.backward()
+        self._commit_extra(new_extra)
         return loss.detach(), aux
 
-    def _accum_grads(self, batch, mask):
-        """The JAX Trainer's micro-batch accumulation: per micro-batch the
-        loss and gradients against the same params, added up times
-        ``w = mask.sum()``, then divided by ``max(sum of w, 1)``.  Every
-        sum stays a device tensor (a CUDA graph captures it)."""
+    def _micro_batches(self, batch, mask):
+        """``accum_steps`` ``(batch, mask)`` slices along dim 0, in order."""
         a = self.accum_steps
-        rows = int(mask.shape[0])
         for t in _leaves(batch) + [mask]:
             if t.shape[0] % a:
                 raise ValueError(
                     "batch dim {} not divisible by accum_steps {}".format(
                         t.shape[0], a))
-        size = rows // a
+        size = int(mask.shape[0]) // a
+        for i in range(a):
+            part = slice(i * size, (i + 1) * size)
+            yield _map(batch, lambda t: t[part]), mask[part]
+
+    def _accum_grads(self, batch, mask):
+        """The JAX Trainer's micro-batch accumulation: per micro-batch the
+        loss and gradients against the same params, added up times
+        ``w = mask.sum()``, then divided by ``max(sum of w, 1)``; the extra
+        state threads through the micro-batches in order.  Every sum stays
+        a device tensor (a CUDA graph captures it)."""
         params = list(self.state.params.values())
         g_sum = [None] * len(params)    # a param no micro-batch uses: None
         l_sum = w_sum = mask.new_zeros(())
-        for i in range(a):
-            part = slice(i * size, (i + 1) * size)
-            m = mask[part]
-            loss, aux = self.loss_fn(self.state.params,
-                                     _map(batch, lambda t: t[part]), m)
+        for b, m in self._micro_batches(batch, mask):
+            loss, aux, new_extra = self._loss(b, m)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
+            self._commit_extra(new_extra)
             w = m.sum()
             for j, g in enumerate(grads):
                 if g is not None:
@@ -408,24 +484,39 @@ class Trainer(object):
             p.grad = None if g is None else g / w_safe
         return l_sum / w_safe, aux
 
-    def _allreduce(self, loss, grads, mask):
-        """Sum the ranks' gradients in place, each weighted by its valid
-        rows over the global valid-row count, so they become the gradient
-        of the masked mean over the global batch; returns that mean's loss.
-        One all-reduce of the two counts, one of the flattened gradients,
-        both on the default group (NCCL on the card)."""
-        rows = mask.sum()
-        totals = torch.stack([rows, loss * rows])
-        dist.all_reduce(totals)
-        global_rows = totals[0].clamp_min(1.0)
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        flat.mul_(rows / global_rows)
+    def _global_grads(self, batch, mask):
+        """A step's gradients in a world of more than one process: each
+        (micro-)batch's loss times its valid rows over the global batch's
+        (one all-reduce of the row count first) is backpropagated, so the
+        ranks' summed gradients (:meth:`_allreduce`) are the gradient of
+        the masked mean over the global batch, the micro-batches weighted
+        as :meth:`_accum_grads` weights them.  A loss coupled across ranks
+        (synchronised BatchNorm statistics) gets each rank's share of the
+        cross terms right too.  Returns this rank's share of the loss."""
+        total = mask.sum().reshape(1)
+        dist.all_reduce(total)
+        total = total.clamp_min(1.0)
+        l_sum = mask.new_zeros(())
+        for b, m in self._micro_batches(batch, mask):
+            loss, aux, new_extra = self._loss(b, m)
+            share = m.sum() / total
+            (loss * share).backward()
+            self._commit_extra(new_extra)
+            l_sum = l_sum + loss.detach() * share
+        return l_sum.reshape(()), aux
+
+    @staticmethod
+    def _allreduce(loss, grads):
+        """Sum the ranks' loss shares and gradients in place (one all-reduce
+        on the default group, NCCL on the card): the global batch's loss
+        and gradient (see :meth:`_global_grads`)."""
+        flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
-        offset = 0
+        offset = 1
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
-        return totals[1] / global_rows
+        return flat[0]
 
     def _step_math(self, batch, mask):
         """The work of one optimizer step, the step counter left alone
@@ -435,8 +526,8 @@ class Trainer(object):
         loss, aux = self._grads(batch, mask)
         grads = [p.grad for p in self.state.params.values()
                  if p.grad is not None]
-        if dist.is_initialized() and dist.get_world_size() > 1:
-            loss = self._allreduce(loss, grads, mask)
+        if _world_size() > 1:
+            loss = self._allreduce(loss, grads)
         grad_norm = torch.nn.utils.get_total_norm(grads)
         with warnings.catch_warnings():
             # a capturable optimizer stepped eagerly: meant (see __init__)
@@ -501,9 +592,12 @@ class Trainer(object):
             self._new_history(self._step_flops(None))
             if self.step_flops_override is None:
                 batch, mask = self._prepare(example_batch, example_mask)
+                kept = (None if self.state.extra is None else
+                        {k: t.clone() for k, t in self.state.extra.items()})
                 cost, _ = metrics_mod.estimate_step_cost(self._grads, batch,
                                                          mask)
                 self.state.optimizer.zero_grad(set_to_none=True)
+                self._commit_extra(kept)   # the extra state is unchanged
                 self._set_cost(cost)
         return self.history.step_flops
 
@@ -823,9 +917,9 @@ class Trainer(object):
 
     def restore_latest(self, ckpt_manager, validate=False):
         """Restore the newest checkpoint of ``ckpt_manager`` into this
-        trainer's state (params, optimizer state, step), in place, so a
-        captured CUDA graph stays valid; returns the restored step, or None
-        when there is no checkpoint yet.
+        trainer's state (params, optimizer state, extra state, step), in
+        place, so a captured CUDA graph stays valid; returns the restored
+        step, or None when there is no checkpoint yet.
 
         ``validate=True`` uses
         :meth:`~tensorflowonspark_torch.checkpoint.CheckpointManager.restore_latest_valid`:
@@ -847,9 +941,10 @@ class Trainer(object):
         process's rows count: an exhausted process steps zero-mask dummies
         while others still have rows).
 
-        ``metric_fn(params, batch, mask) -> (sums, weight)`` runs under
-        ``torch.no_grad()`` per batch: ``sums`` a dict of mask-weighted
-        sums over the batch, ``weight`` its real-row count (``mask.sum()``
+        ``metric_fn(params[, extra], batch, mask) -> (sums, weight)`` (the
+        extra state passed when the trainer has one, e.g. a ResNet's
+        running averages) runs under ``torch.no_grad()`` per batch:
+        ``sums`` a dict of mask-weighted sums over the batch, ``weight`` its real-row count (``mask.sum()``
         for per-row metrics).  Sums and weights add up on the device; one
         readback at the end.  Returns ``{name: sum / max(weight, 1)}``,
         e.g. top-1 accuracy from ``{"accuracy": ((pred == label) *
@@ -866,7 +961,11 @@ class Trainer(object):
                 batch = _map(batch, lambda t: torch.as_tensor(t).to(
                     self.device))
                 mask = torch.as_tensor(mask).to(self.device, torch.float32)
-                sums, weight = metric_fn(self.state.params, batch, mask)
+                if self.state.extra is None:
+                    sums, weight = metric_fn(self.state.params, batch, mask)
+                else:
+                    sums, weight = metric_fn(self.state.params,
+                                             self.state.extra, batch, mask)
                 sums = {k: torch.as_tensor(v, device=self.device)
                         for k, v in sums.items()}
                 weight = torch.as_tensor(weight, device=self.device)

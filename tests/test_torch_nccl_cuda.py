@@ -1,5 +1,6 @@
 """The port's data-parallel path on several cards: the Trainer's NCCL
-gradient all-reduce and the cluster's NCCL world.
+gradient all-reduce, the ResNet's BatchNorm statistics of the global batch,
+and the cluster's NCCL world.
 
 Marked ``cuda``; each test skips with a reason where fewer than two CUDA
 cards are present.  No jax here (the machine with the cards has none), so
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from tensorflowonspark_torch import checkpoint, train
-from tensorflowonspark_torch.models import mnist
+from tensorflowonspark_torch.models import mnist, resnet
 
 from torch_world import run_world
 
@@ -137,3 +138,58 @@ def test_two_card_multi_step_equals_one_card_steps(two_cards):
         for name, want in want_params.items():
             np.testing.assert_allclose(params[name], want, rtol=0, atol=TOL,
                                        err_msg=name)
+
+
+def _resnet_group(device, rows, k=3):
+    """K = 3 steps of a small float64 ResNet-50 v1.5 (s2d, one bottleneck
+    a stage, 32 px) as one ``multi_step`` on ``rows`` of each global batch,
+    the last padded: two eager warm-ups, then a captured graph whose
+    replay holds the BatchNorm all-reduces, the loss-share backward and
+    the gradient all-reduce.  Returns the final loss, params and running
+    averages."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = resnet.build_resnet50(num_classes=5, blocks_per_stage=1,
+                                  stem="s2d", dtype="float64")
+    model.init_weights(torch.Generator().manual_seed(0))
+    params, extra = resnet.split_state(model)
+    tr = train.Trainer(
+        resnet.loss_fn(model, weight_decay=1e-4, label_smoothing=0.1),
+        {n: v.double() for n, v in params.items()},
+        functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9),
+        extra_state={n: v.double() for n, v in extra.items()},
+        batch_size=8, device=device)
+    rng = np.random.default_rng(1)
+    images = rng.standard_normal((k, 8, 32, 32, 3))
+    labels = rng.integers(0, 5, (k, 8)).astype(np.int64)
+    masks = np.stack([np.ones(8, np.float32)] * (k - 1) + [MASK])
+    loss = tr.multi_step({"image": images[:, rows], "label": labels[:, rows]},
+                         masks[:, rows])
+    return (loss.item(),
+            {n: v.detach().cpu().numpy() for n, v in tr.state.params.items()},
+            {n: v.cpu().numpy() for n, v in tr.state.extra.items()})
+
+
+def _rank_resnet_group(rank):
+    return _resnet_group(torch.device("cuda", rank),
+                         slice(4 * rank, 4 * rank + 4))
+
+
+def test_two_card_resnet_global_batch_statistics(two_cards):
+    """Two NCCL ranks of the ResNet, K = 3 graph replays with the
+    BatchNorm statistics all-reduced inside the graph, end where one
+    card's 3 steps on the whole batch end, the padded step's unequal valid
+    rows (4 and 2) included.  float64 but for the fp32 logits: 1e-5 of
+    each tensor's largest value (as tests/test_torch_resnet_dist.py holds
+    two gloo ranks to JAX)."""
+    ranks = run_world(_rank_resnet_group, 2, backend="nccl")
+    want_loss, want_params, want_extra = _resnet_group(
+        torch.device("cuda", 0), slice(0, 8))
+    for loss, params, extra in ranks:
+        assert abs(loss - want_loss) <= 1e-6 * abs(want_loss)
+        for got, want in ((params, want_params), (extra, want_extra)):
+            for name, value in want.items():
+                np.testing.assert_allclose(
+                    got[name], value, rtol=0,
+                    atol=1e-5 * max(np.abs(value).max(), 1e-3),
+                    err_msg=name)

@@ -180,7 +180,10 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 # the port's examples, imported as modules like the port's own
 _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
-             os.path.join("examples", "mnist", "mnist_pipeline_torch.py"))
+             os.path.join("examples", "mnist", "mnist_pipeline_torch.py"),
+             os.path.join("examples", "mnist", "mnist_files_torch.py"),
+             os.path.join("examples", "resnet", "imagenet_input_torch.py"),
+             os.path.join("examples", "resnet", "resnet_imagenet_torch.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -197,7 +200,8 @@ for path in {examples!r}:
 bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
 missing = sorted(set(pkg.__name__ + "." + m for m in (
     "summary", "tfrecord", "example_proto", "schema", "dfutil", "transport",
-    "gateway", "fleet", "pipeline", "models.linear", "models.twotower"))
+    "gateway", "fleet", "pipeline", "models.linear", "models.twotower",
+    "models.resnet", "ops.augment", "data"))
     - set(names))
 from tensorflowonspark_torch import fleet, gateway, pipeline
 missing += [n for n in ("TFEstimator", "TFModel", "_run_model_fn")
@@ -205,7 +209,12 @@ missing += [n for n in ("TFEstimator", "TFModel", "_run_model_fn")
 missing += [n for n in ("GatewayServer", "GatewayChannel", "ServingClient")
             if not hasattr(gateway, n)]
 missing += [n for n in ("SwapRefused",) if not hasattr(fleet, n)]
-from tensorflowonspark_torch import checkpoint, train
+from tensorflowonspark_torch import checkpoint, data, train
+from tensorflowonspark_torch.models import resnet
+missing += [n for n in ("FileFeed", "ProcessPoolFeed", "shard_for_process")
+            if not hasattr(data, n)]
+missing += [n for n in ("build_resnet50", "build_resnet56", "loss_fn")
+            if not hasattr(resnet, n)]
 missing += [n for n in ("fit_supervised", "MAX_ROLLBACKS")
             if not hasattr(train, n)]
 missing += [n for n in ("evaluate", "apply_knob")
@@ -219,9 +228,9 @@ sys.exit(1 if bad or missing or len(names) < 25 else 0)
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every port module (the copied
-    cluster layer and the serving tier among them), chip_smoke.py and the
-    port's MNIST examples has no jax, flax, optax, orbax or JAX-package
-    module."""
+    cluster layer, the serving tier, the ResNets, ``ops.augment`` and
+    ``data`` among them), chip_smoke.py and the port's MNIST and ResNet
+    examples has no jax, flax, optax, orbax or JAX-package module."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -230,8 +239,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port, of chip_smoke.py or of the port's MNIST examples
-    imports a forbidden package, not even inside a function."""
+    """No line of the port, of chip_smoke.py or of the port's MNIST and
+    ResNet examples imports a forbidden package, not even inside a
+    function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
