@@ -115,7 +115,32 @@ weights from a seed) along both paths:
   card's crop equals the host crop byte for byte.  These paths run no
   hand-written kernel (the convs and BatchNorm are cuDNN's and ATen's, as
   they are XLA's in the JAX package); each row carries the flash kernels'
-  counts, zeroed before it and 0 after.
+  counts, zeroed before it and 0 after;
+- moe_train: the flagship LM's MoE variant (``mlp="moe"``, 8 experts,
+  capacity factor 1.25; bench.py's LM leg) trained on the train phase's
+  stream: 30 Adam steps at K = 1, then from the same init 30 at K = 5
+  (graph replays); the loss falls, K = 5's losses within 1e-3 nats of K =
+  1's, the load-balance term finite, the flash kernels' launches equal to
+  layers x steps and to the kernels the profiler saw run; the steady step
+  at each K, tokens/s, counted and analytic FLOPs (dispatch, combine,
+  expert FFN), MFU, device time by kernel group with the MoE products
+  split out, the idle share, peak memory and the share of tokens past
+  capacity;
+- moe_card_vs_cpu: a 2-layer fp32 MoE LM from one seed on the card and
+  on the CPU, TF32 off: identical routing, logits, the load-balance term
+  and one SGD step;
+- moe_serve: the trained MoE LM exported, loaded by ``ModelServer`` and
+  served in requests of 4, 3 and 1 rows: the logits equal the in-memory
+  model's, a row alone equals the same row in the batch (routing is per
+  row), the forward kernel's launches counted;
+- lm_example: the LM twin (``examples/transformer/transformer_lm_torch.py``)
+  through ``cluster.run`` in FILES mode on a one-executor ``LocalBackend``
+  at the flagship's widths and depth with ``--mlp moe --attention flash
+  --dtype bfloat16``, 20 steps on the synthetic stream and 20 on byte
+  files written here (``--data_dir``); the flash kernels' launches, the
+  bring-up and steady step, and each export served by this process as
+  the MoE LM.  A last line before the kernels line gives the script's
+  wall time.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -328,19 +353,24 @@ def counted_on_device(torch, fn, with_busy=False):
     the card spent in kernels besides."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        result = fn()
-        torch.cuda.synchronize()
-        # the trace can miss the records of the last kernels before the
-        # profiler stops (seen on the card: the last layers' backward
-        # kernels of a 30-step run): trailing kernels of another name and
-        # a pause give them time to land
-        tail = torch.zeros(1, device="cuda")
+    def pad():
+        other = torch.zeros(1, device="cuda")
         for _ in range(TRACE_TAIL_KERNELS):
-            tail.add_(1.0)
+            other.add_(1.0)
         torch.cuda.synchronize()
         time.sleep(TRACE_TAIL_SECS)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace can miss the records of the first kernels after the
+        # profiler starts (seen on the card: the first flash forward of
+        # each profiled window of MoE steps) and of the last ones before
+        # it stops (the last layers' backward kernels of a 30-step run):
+        # kernels of another name and a pause before and after fn()
+        pad()
+        result = fn()
+        torch.cuda.synchronize()
+        pad()
     counts = dict.fromkeys(FLASH_KERNELS, 0)
     kernels = device_kernels(prof)
     for e in kernels:
@@ -788,16 +818,17 @@ def profile_steps(torch, trainer, batches):
     return profile_run(torch, run, n)
 
 
-def profile_run(torch, run, n, groups=KERNEL_GROUPS):
+def profile_run(torch, run, n, groups=KERNEL_GROUPS, ops=None):
     """Device time of ``run()``, which takes ``n`` steps, by kernel group
     (``groups``: the LM's by default), from ``torch.profiler`` (CUDA
     activity): per-step ms by group, the device-busy sum against the
-    profiled wall time, and the top kernels."""
+    profiled wall time, and the top kernels.  ``ops(prof, n)``, when given,
+    reads the trace (recorded with input shapes) for more keys."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=ops is not None) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -811,16 +842,19 @@ def profile_run(torch, run, n, groups=KERNEL_GROUPS):
         by_group[group] = by_group.get(group, 0.0) + ms
         top.append((ms, e.key[:90], e.count // n))
     busy = sum(by_group.values())
-    return {"steps": n, "wall_ms_per_step": wall_ms / n,
-            "device_busy_ms_per_step": busy,
-            # None when the trace holds no device time (not measured)
-            "device_idle_share": (1.0 - busy / (wall_ms / n)) if busy
-            else None,
-            "ms_per_step_by_group": dict(sorted(by_group.items(),
-                                                key=lambda kv: -kv[1])),
-            "top_kernels": [{"ms_per_step": ms, "name": name,
-                             "launches_per_step": c}
-                            for ms, name, c in sorted(top)[::-1][:12]]}
+    result = {"steps": n, "wall_ms_per_step": wall_ms / n,
+              "device_busy_ms_per_step": busy,
+              # None when the trace holds no device time (not measured)
+              "device_idle_share": (1.0 - busy / (wall_ms / n)) if busy
+              else None,
+              "ms_per_step_by_group": dict(sorted(by_group.items(),
+                                                  key=lambda kv: -kv[1])),
+              "top_kernels": [{"ms_per_step": ms, "name": name,
+                               "launches_per_step": c}
+                              for ms, name, c in sorted(top)[::-1][:12]]}
+    if ops is not None:
+        result.update(ops(prof, n))
+    return result
 
 
 class NgramFeed(object):
@@ -3218,6 +3252,584 @@ def twin_crop(torch, np, rows):
     return augment.crop_and_flip(images, *offsets, RESNET_PX).cpu().numpy()
 
 
+# ---------------------------------------------------------------------------
+# The Switch MoE LM and the LM twin
+# ---------------------------------------------------------------------------
+
+# the flagship LM's MoE variant (bench.py:84-85): the dense LM's widths,
+# depth and flash attention, 8 experts at capacity factor 1.25 (160 slots
+# an expert in a row of 1024 tokens)
+MOE_CONFIG = dict(LM_CONFIG, mlp="moe", num_experts=8, capacity_factor=1.25)
+MOE_STEPS = 30
+# the checked steps run under the profiler in windows of 10 steps, each
+# window's flash kernels reported apart
+MOE_PROFILED_STEPS = 10
+MOE_TIMED_RUNS = 5     # timed runs after the checked steps, at each K
+MOE_TIMED_STEPS = 5    # steps a timed and a profiled run (a group at K = 5)
+# K = 5 against K = 1: the same kernels, cuBLAS calls and capturable Adam
+# on the same card, held at MEGA_LOSS_TOL like the dense LM.  Served
+# against the in-memory model and a row alone against the same row in a
+# batch of 4: the same bf16 kernels on the same params, but cuBLAS may
+# pick another algorithm for another row count; HANDOFF_TOL of max|logit|
+# as the dense handoff
+# the card against the CPU: a 2-layer fp32 MoE LM, TF32 off.  The logits
+# sum in another order on each device (1e-4 of max|logit|, the fp32
+# logit tolerance of tests/test_torch_transformer.py); the routing must
+# be identical; the load-balance term and the loss to 1e-5 relative; one
+# SGD step's update within 1e-3 of its norm
+MVC_CONFIG = {"vocab_size": 256, "num_layers": 2, "num_heads": 2,
+              "head_dim": 64, "max_seq_len": 128, "attention": "flash",
+              "dtype": "float32", "mlp": "moe", "num_experts": 4,
+              "capacity_factor": 1.25}
+MVC_BATCH, MVC_SEQ = 4, 128
+MVC_TOL = 1e-4
+MVC_SCALAR_RTOL = 1e-5
+MVC_STEP_RTOL = 1e-3
+MOE_SERVE_REQUESTS = (4, 3, 1)
+# lm_example: the LM twin at the flagship's widths and depth with --mlp moe
+# --attention flash --dtype bfloat16, 20 steps in windows of 5, on the
+# synthetic stream and on 4 byte files of 64 KiB written here (256 rows of
+# 1024 tokens)
+EXAMPLE_STEPS = 20
+EXAMPLE_LOG_STEPS = 5
+EXAMPLE_FILES, EXAMPLE_FILE_BYTES = 4, 1 << 16
+EXAMPLE_REPORT_SECS = 600
+
+
+def moe_step_flops(config, batch, seq):
+    """Analytic FLOPs of one training step's MoE products, by part.  A
+    product of ``[G, S, E, C]`` one-hots with ``[G, S, D]`` is 2 G S E C D
+    FLOPs: dispatch runs it forward and for the input's gradient (the
+    one-hots take none), combine forward and for both operands' gradients;
+    the expert FFN's two products of 2 G E C D H each run three times."""
+    layers, e = config["num_layers"], config["num_experts"]
+    d = config["num_heads"] * config["head_dim"]
+    capacity = max(int(config["capacity_factor"] * seq / e), 1)
+    one_hot = 2 * batch * seq * e * capacity * d
+    ffn = 2 * (2 * batch * e * capacity * d * 4 * d)
+    return {"capacity": capacity, "dispatch": 2 * one_hot * layers,
+            "combine": 3 * one_hot * layers, "expert_ffn": 3 * ffn * layers}
+
+
+def moe_ops(hidden):
+    """A :func:`profile_run` reader: device ms a step of the MoE layers'
+    batched products (``aten::bmm``, forward and backward: nothing else
+    in the MoE LM calls it), split by shape into the expert FFN (an
+    operand holds the hidden width) and dispatch / combine."""
+    def read(prof, n):
+        split = {"dispatch_combine": 0.0, "expert_ffn": 0.0}
+        calls = 0
+        for e in prof.key_averages(group_by_input_shape=True):
+            if e.key != "aten::bmm":
+                continue
+            part = ("expert_ffn" if any(hidden in shape for shape in
+                                        e.input_shapes) else
+                    "dispatch_combine")
+            split[part] += e.device_time_total / 1e3 / n
+            calls += e.count
+        measured = calls and sum(split.values())
+        return {"moe_ms_per_step": split if measured else None,
+                "moe_bmm_calls_per_step": calls / n}
+    return read
+
+
+def moe_dropped_share(torch, model, params, tokens):
+    """Per MoE layer, the share of ``tokens``' positions routed past their
+    expert's capacity under ``params`` (device tensors, read once after
+    the forward)."""
+    shares = []
+
+    def hook(layer, args):
+        x = args[0]
+        pos = layer.route(x)[3]
+        shares.append((pos >= layer.capacity(x.shape[1])).float().mean())
+
+    hooks = [b.moe.register_forward_pre_hook(hook) for b in model.blocks]
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(model, params, (tokens,))
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.stack(shares).tolist()
+
+
+def phase_moe_train(torch, np, fa, metrics, dense_k5):
+    """The MoE LM (``MOE_CONFIG``) trained on the dense LM's stream: 30
+    Adam steps at K = 1, then from the same init 30 at K = 5 (two eager
+    warm-ups, one capture, replays), each under the profiler for the flash
+    kernels the card executed; the losses and load-balance terms, the
+    steady step at each K on device-resident batches, the counted and
+    analytic FLOPs, device time by kernel group with the MoE products
+    split out, the share of tokens dropped at capacity, peak memory.
+    Returns the row, the model and the K = 5 run's params."""
+    import functools
+
+    from tensorflowonspark_torch import train
+    from tensorflowonspark_torch.models import get_model, transformer
+
+    vocab, layers = MOE_CONFIG["vocab_size"], MOE_CONFIG["num_layers"]
+    heads, head_dim = MOE_CONFIG["num_heads"], MOE_CONFIG["head_dim"]
+    model = get_model("transformer_lm", **MOE_CONFIG)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = dict(model.state_dict())
+    n_params = sum(t.numel() for t in init.values())
+    loss_fn = transformer.loss_fn(model)
+    flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
+    analytic = moe_step_flops(MOE_CONFIG, TRAIN_BATCH, SEQ)
+    fixed = torch.from_numpy(NgramFeed(np, 1, TRAIN_BATCH, SEQ, vocab)
+                             .next_batch()[0]["tokens"]).cuda()
+    dropped_init = moe_dropped_share(
+        torch, model, {k: v.cuda() for k, v in init.items()}, fixed)
+    torch.cuda.empty_cache()
+    runs = {}
+    for k in (1, MEGA_K):
+        torch.cuda.reset_peak_memory_stats()
+        curve = LossCurve()
+        tr = train.Trainer(loss_fn, init,
+                           functools.partial(torch.optim.Adam, lr=LR),
+                           compute_dtype=torch.bfloat16,
+                           batch_size=TRAIN_BATCH, log_steps=LOG_STEPS,
+                           extra_step_flops=flash_flops,
+                           summary_writer=curve)
+        feed = NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab)
+
+        def window(tr=tr, feed=feed, k=k):
+            if k == 1:
+                return [tr.step(*feed.next_batch())
+                        for _ in range(MOE_PROFILED_STEPS)]
+            for _ in range(MOE_PROFILED_STEPS // k):
+                tr.multi_step(*feed.next_group(k))
+            return []
+
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        t0 = time.perf_counter()                      # the main path starts
+        out, windows = [], []
+        for _ in range(MOE_STEPS // MOE_PROFILED_STEPS):
+            steps, counts = counted_on_device(torch, window)
+            out += steps
+            windows.append(counts)
+        executed = {name: sum(w[name] for w in windows)
+                    for name in FLASH_KERNELS}
+        checked_s = time.perf_counter() - t0
+        launches = launches_of(fa)                    # ... and ends
+        checked_steps = tr.state.step
+        peak = torch.cuda.max_memory_allocated()
+        if k == 1:
+            losses = torch.stack([loss for loss, _ in out]).tolist()
+            aux = torch.stack([a["moe_aux_loss"] for _, a in out]).tolist()
+        else:
+            losses = [curve.losses.get(s) for s in range(1, MOE_STEPS + 1)]
+            aux = None
+        params = {n: v.detach() for n, v in tr.state.params.items()}
+        dropped = moe_dropped_share(torch, model, params, fixed)
+
+        more = NgramFeed(np, 3, TRAIN_BATCH, SEQ, vocab)
+        if k == 1:
+            batches = device_batches(torch, more, MOE_TIMED_STEPS, "cuda")
+
+            def timed_steps(tr=tr, batches=batches):
+                for batch, mask in batches:
+                    tr.step(batch, mask)
+        else:
+            stack, masks = more.next_group(k)
+            group = ({"tokens": torch.from_numpy(stack["tokens"]).cuda()},
+                     torch.from_numpy(masks).cuda())
+
+            def timed_steps(tr=tr, group=group):
+                tr.multi_step(*group)
+
+        def timed_run():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            timed_steps()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t) / MOE_TIMED_STEPS
+
+        timed = [timed_run() for _ in range(MOE_TIMED_RUNS)]
+        steady = median(timed)
+        profile = profile_run(torch, timed_steps, MOE_TIMED_STEPS,
+                              ops=moe_ops(4 * heads * head_dim)
+                              if k == 1 else None)
+        busy = profile["device_busy_ms_per_step"]
+        profile["device_idle_share_of_steady_step"] = (
+            1.0 - busy / steady if busy else None)
+        flops = tr.history.step_flops
+        runs[k] = {
+            "steps_per_call": k, "steps": checked_steps, "losses": losses,
+            "moe_aux_losses": aux, "checked_s": checked_s,
+            "graphs": len(tr._graphs),
+            "train_compile_us_max": tr.counters_snapshot().get(
+                "train_compile_us_max"),
+            "launches": launches, "device_launches": executed,
+            "device_launches_by_window": windows,
+            "steady_ms_per_step_runs": timed, "steady_ms_per_step": steady,
+            "steady_spread_ms": max(timed) - min(timed),
+            "tokens_per_s": TRAIN_BATCH * SEQ / (steady / 1e3),
+            "step_flops": flops, "step_bytes": tr._step_bytes,
+            "mfu_vs_989_tflops": (flops / (steady / 1e3) / BF16_PEAK
+                                  if flops else None),
+            "profile": profile, "max_memory_allocated": peak,
+            "dropped_share_by_layer": dropped}
+        if k == MEGA_K:
+            final = params
+        del tr, params
+        torch.cuda.empty_cache()
+    k1, k5 = runs[1], runs[MEGA_K]
+    diffs = [abs(a - b) for a, b in zip(k1["losses"], k5["losses"])
+             if a is not None and b is not None]
+    expected = layers * MOE_STEPS
+    dense_steady = dense_k5["steady_ms_per_step"]
+    row = {"phase": "moe_train", "config": MOE_CONFIG, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": SEQ,
+           "optimizer": "torch.optim.Adam(lr={}), capturable".format(LR),
+           "k1": k1, "k5": k5,
+           "k5_vs_k1_max_loss_diff": max(diffs) if diffs else None,
+           "loss_tol_vs_k1": MEGA_LOSS_TOL, "loss_drop": LOSS_DROP,
+           "expected_launches": expected,
+           "analytic_moe_flops": analytic,
+           "flash_flops": flash_flops,
+           "dropped_share_by_layer_at_init": dropped_init,
+           "dense_k5_steady_ms_per_step": dense_steady,
+           "k5_steady_vs_dense_k5": k5["steady_ms_per_step"] / dense_steady}
+    emit(row)
+    for k, r in runs.items():
+        losses = r["losses"]
+        if r["steps"] != MOE_STEPS:
+            raise AssertionError("the MoE LM at K = {} took {} steps, "
+                                 "expected {}".format(k, r["steps"],
+                                                      MOE_STEPS))
+        if not (None not in losses and np.isfinite(losses).all()
+                and losses[-1] <= losses[0] - LOSS_DROP):
+            raise AssertionError("the MoE LM at K = {}: loss not finite and "
+                                 "falling: {}".format(k, losses))
+        if any(n != expected for n in list(r["launches"].values())
+               + list(r["device_launches"].values())):
+            raise AssertionError(
+                "the MoE LM at K = {}: kernel launches {} counted and {} "
+                "executed on the card, expected {} each (layers x steps)"
+                .format(k, r["launches"], r["device_launches"], expected))
+    if not np.isfinite(k1["moe_aux_losses"]).all():
+        raise AssertionError("the MoE load-balance term is not finite: "
+                             "{}".format(k1["moe_aux_losses"]))
+    if k5["graphs"] != 1:
+        raise AssertionError("the MoE LM at K = 5 captured {} graphs, "
+                             "expected 1".format(k5["graphs"]))
+    if len(diffs) != MOE_STEPS or max(diffs) > MEGA_LOSS_TOL:
+        raise AssertionError("the MoE LM's K = 5 losses differ from K = 1's "
+                             "by {} (tol {})".format(
+                                 max(diffs) if diffs else None,
+                                 MEGA_LOSS_TOL))
+    return row, model, final
+
+
+def phase_moe_card_vs_cpu(torch, np):
+    """A 2-layer fp32 MoE LM from one seed on the CPU and on the card, TF32
+    off: each layer's routing, the logits, the load-balance term, and one
+    SGD step's loss and update."""
+    import functools
+
+    from tensorflowonspark_torch import train
+    from tensorflowonspark_torch.models import get_model, transformer
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tokens = np.random.default_rng(7).integers(
+        0, MVC_CONFIG["vocab_size"], (MVC_BATCH, MVC_SEQ), dtype=np.int32)
+    model = get_model("transformer_lm", **MVC_CONFIG)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {}
+    for device in ("cpu", "cuda"):
+        routed = []
+        hooks = [b.moe.router.register_forward_hook(
+            lambda mod, args, logits: routed.append(logits.argmax(-1)))
+            for b in model.blocks]
+        try:
+            with torch.no_grad():
+                logits, balance = torch.func.functional_call(
+                    model, {k: v.to(device) for k, v in init.items()},
+                    (torch.from_numpy(tokens).to(device),),
+                    {"return_aux": True})
+        finally:
+            for h in hooks:
+                h.remove()
+        tr = train.Trainer(transformer.loss_fn(model), init,
+                           functools.partial(torch.optim.SGD, lr=0.1),
+                           device=device)
+        loss, aux = tr.step({"tokens": tokens})
+        out[device] = (logits.cpu(), balance.item(),
+                       torch.stack(routed).cpu(), loss.item(),
+                       aux["moe_aux_loss"].item(),
+                       {k: v.detach().cpu() for k, v in
+                        tr.state.params.items()})
+    (lc, bc, rc, loss_c, aux_c, pc), (lg, bg, rg, loss_g, aux_g, pg) = (
+        out["cpu"], out["cuda"])
+    upd_c = torch.cat([(pc[k] - init[k]).flatten() for k in init])
+    upd_g = torch.cat([(pg[k] - init[k]).flatten() for k in init])
+    row = {"phase": "moe_card_vs_cpu", "config": MVC_CONFIG,
+           "batch": [MVC_BATCH, MVC_SEQ],
+           "routing_equal": bool(torch.equal(rc, rg)),
+           "routing_agreement": float((rc == rg).float().mean()),
+           "logits_rel_err": float((lg - lc).abs().max() / lc.abs().max()),
+           "moe_aux_rel_err": abs(bg - bc) / abs(bc),
+           "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+           "step_moe_aux_rel_err": abs(aux_g - aux_c) / abs(aux_c),
+           "step_update_rel_err": float((upd_g - upd_c).norm()
+                                        / upd_c.norm()),
+           "tol": MVC_TOL, "scalar_rtol": MVC_SCALAR_RTOL,
+           "step_update_rtol": MVC_STEP_RTOL}
+    emit(row)
+    if not (row["routing_equal"] and row["logits_rel_err"] <= MVC_TOL
+            and max(row["moe_aux_rel_err"], row["loss_rel_err"],
+                    row["step_moe_aux_rel_err"]) <= MVC_SCALAR_RTOL
+            and row["step_update_rel_err"] <= MVC_STEP_RTOL):
+        raise AssertionError("the card's MoE LM differs from the CPU's: "
+                             "{}".format(row))
+    return row
+
+
+def phase_moe_serve(torch, np, fa, model, params):
+    """The trained MoE LM exported, loaded by ``ModelServer`` and served in
+    requests of 4, 3 and 1 rows (the 1-row request is the 4-row request's
+    second row): the logits against the in-memory model on the same params,
+    and a row alone against the same row in the batch."""
+    from tensorflowonspark_torch import checkpoint, serving
+
+    layers = MOE_CONFIG["num_layers"]
+    rng = np.random.default_rng(11)
+    four = rng.integers(0, MOE_CONFIG["vocab_size"], (4, SEQ),
+                        dtype=np.int32)
+    three = rng.integers(0, MOE_CONFIG["vocab_size"], (3, SEQ),
+                         dtype=np.int32)
+    requests = [four, three, four[1:2]]
+    with tempfile.TemporaryDirectory() as tmp:
+        export_dir = os.path.join(tmp, "export")
+        t0 = time.perf_counter()
+        checkpoint.export_model(
+            export_dir, params, "transformer_lm", model_config=MOE_CONFIG,
+            input_signature={"tokens": {"shape": [None, SEQ],
+                                        "dtype": "int32"}})
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = serving.ModelServer(export_dir, batch_size=SERVE_BATCH)
+        load_s = time.perf_counter() - t0
+        fa.fwd_launches = 0                           # the main path starts
+        latencies, outputs = [], []
+        for tokens in requests:
+            t0 = time.perf_counter()
+            outputs.append(server.predict_feed({"tokens": tokens},
+                                               len(tokens))["output"])
+            latencies.append(time.perf_counter() - t0)
+        launches = fa.fwd_launches                    # ... and ends
+        del server
+    diffs, scale = [], 0.0
+    with torch.inference_mode():
+        for tokens, got in zip(requests, outputs):
+            want = torch.func.functional_call(
+                model, params, (torch.from_numpy(tokens).cuda(),)).cpu()
+            want = want.numpy()
+            scale = max(scale, float(np.abs(want).max()))
+            diffs.append(float(np.abs(got - want).max()))
+    alone = float(np.abs(outputs[2][0] - outputs[0][1]).max())
+    finite = all(bool(np.isfinite(o).all()) for o in outputs)
+    expected = layers * len(requests)
+    row = {"phase": "moe_serve", "config": MOE_CONFIG,
+           "requests": [{"rows": len(t), "ms": 1e3 * s}
+                        for t, s in zip(requests, latencies)],
+           "export_s": export_s, "load_s": load_s,
+           "vs_in_memory_max_abs_diff": diffs, "max_abs_logit": scale,
+           "row_alone_vs_in_batch_max_abs_diff": alone,
+           "tol": HANDOFF_TOL * scale, "logits_finite": finite,
+           "fwd_launches": launches, "expected_launches": expected}
+    emit(row)
+    if not finite:
+        raise AssertionError("the served MoE logits are not finite")
+    if launches != expected:
+        raise AssertionError("flash_fwd launched {} times serving the MoE LM,"
+                             " expected {}".format(launches, expected))
+    if max(diffs + [alone]) > HANDOFF_TOL * scale:
+        raise AssertionError(
+            "the served MoE LM differs from the in-memory model ({}) or a "
+            "row alone from the same row in a batch ({}); max |logit| "
+            "{}".format(diffs, alone, scale))
+    return row
+
+
+def lm_example():
+    """The LM twin (examples/transformer/), imported from this checkout."""
+    path = os.path.join(HERE, "examples", "transformer")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import transformer_lm_torch
+
+    return transformer_lm_torch
+
+
+def lm_example_main(args, ctx):
+    """The lm_example phase's node fn, run by the node inline in its
+    executor process (FILES mode): the twin's ``train_lm`` (CUDA comes up
+    in it), then the trainer's window times and the flash kernels' launches
+    into ``args["report"]`` (the traceback too when it fails)."""
+    import traceback
+
+    report = {"node_started": time.time()}
+    try:
+        import torch
+
+        sys.path.insert(0, args["example_dir"])
+        import transformer_lm_torch as twin
+
+        report["cuda_initialized_at_start"] = torch.cuda.is_initialized()
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        trainer, stats = twin.train_lm(args["twin"], ctx)
+        report["launches"] = launches_of(fa)
+        torch.cuda.synchronize()
+        report.update({
+            "device": str(trainer.device), "steps": trainer.state.step,
+            "timestamp_log": trainer.history.timestamp_log, "stats": stats,
+            "step_flops": trainer.history.step_flops,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args["report"] + ".tmp", "w") as f:
+            json.dump(report, f, default=float)
+        os.replace(args["report"] + ".tmp", args["report"])
+
+
+def write_text_files(np, out_dir):
+    """``EXAMPLE_FILES`` files of ``EXAMPLE_FILE_BYTES`` bytes of seeded
+    text (words of a small vocabulary), for the twin's ``--data_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    words = [w.encode() for w in (
+        "the of and to in is was for on that with as by at from this be "
+        "are or an it his which has had not but were have their its one "
+        "two three first new after all also been more other when into "
+        "spark cluster node feed train serve card kernel expert token").split()]
+    for i in range(EXAMPLE_FILES):
+        rng = np.random.default_rng((13, i))
+        text = b" ".join(words[j] for j in rng.integers(
+            0, len(words), EXAMPLE_FILE_BYTES // 3))
+        with open(os.path.join(out_dir, "part-{:05d}.txt".format(i)),
+                  "wb") as f:
+            f.write(text[:EXAMPLE_FILE_BYTES])
+
+
+def phase_lm_example(torch, np, moe_row):
+    """The LM twin through ``cluster.run`` in FILES mode on a one-executor
+    LocalBackend, at the flagship's widths and depth with ``--mlp moe
+    --attention flash --dtype bfloat16``: on the synthetic stream, then on
+    byte files written here (``--data_dir``); each run's export is loaded
+    and served in this process."""
+    from tensorflowonspark_torch import backend, checkpoint, cluster, serving
+
+    twin = lm_example()
+    layers = MOE_CONFIG["num_layers"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "text")
+        write_text_files(np, data)
+        for mode in ("synthetic", "files"):
+            export_dir = os.path.join(tmp, "export_" + mode)
+            argv = ["--cluster_size", "1", "--batch_size", str(TRAIN_BATCH),
+                    "--train_steps", str(EXAMPLE_STEPS),
+                    "--vocab_size", str(MOE_CONFIG["vocab_size"]),
+                    "--num_layers", str(layers),
+                    "--num_heads", str(MOE_CONFIG["num_heads"]),
+                    "--head_dim", str(MOE_CONFIG["head_dim"]),
+                    "--seq_len", str(SEQ), "--mlp", "moe",
+                    "--num_experts", str(MOE_CONFIG["num_experts"]),
+                    "--attention", "flash", "--dtype", "bfloat16",
+                    "--log_steps", str(EXAMPLE_LOG_STEPS),
+                    "--export_dir", export_dir]
+            if mode == "files":
+                argv += ["--data_dir", data, "--shuffle_buffer", "64"]
+            node_args = {"twin": twin.parse_args(argv),
+                         "example_dir": os.path.dirname(twin.__file__),
+                         "report": os.path.join(tmp, mode + ".json")}
+            torch.cuda.empty_cache()
+            b = backend.LocalBackend(1)
+            try:
+                t_run = time.time()
+                c = cluster.run(b, lm_example_main, node_args,
+                                num_executors=1,
+                                input_mode=cluster.InputMode.FILES)
+                c.shutdown(grace_secs=1)
+                t_done = time.time()
+                report = wait_for_report(node_args["report"],
+                                         EXAMPLE_REPORT_SECS)
+            finally:
+                b.stop()
+            _, descriptor = checkpoint.load_model(export_dir, validate=True)
+            t0 = time.perf_counter()
+            server = serving.ModelServer(export_dir, batch_size=SERVE_BATCH)
+            request = np.random.default_rng(5).integers(
+                0, 256, (2, SEQ), dtype=np.int32)
+            served = server.predict_feed({"tokens": request}, 2)["output"]
+            serve_s = time.perf_counter() - t0
+            moe_served = server.model.blocks[0].moe is not None
+            del server
+            log = report["timestamp_log"]
+            window_ms = [1e3 * (t1 - t0_) / (s1 - s0)
+                         for (s0, t0_), (s1, t1) in zip(log, log[1:])]
+            later = sorted(window_ms[1:])
+            runs[mode] = {
+                "steps": report["steps"], "launches": report["launches"],
+                "final_loss": report["stats"].get("loss"),
+                "cuda_initialized_at_node_start":
+                    report["cuda_initialized_at_start"],
+                "bring_up_s": {"to_node_start": report["node_started"]
+                               - t_run,
+                               "to_first_step": log[0][1] - t_run},
+                "run_to_shutdown_done_s": t_done - t_run,
+                "window_ms_per_step": window_ms,
+                "steady_ms_per_step": later[len(later) // 2] if later
+                else None,
+                "step_flops": report["step_flops"],
+                "max_memory_allocated": report["max_memory_allocated"],
+                "export_model_config": descriptor["model_config"],
+                "served_moe": moe_served, "serve_s": serve_s,
+                "served_finite": bool(np.isfinite(served).all()),
+                "served_shape": list(served.shape)}
+    expected = layers * EXAMPLE_STEPS
+    row = {"phase": "lm_example", "input_mode": "FILES",
+           "backend": "LocalBackend(1)",
+           "flags": "--mlp moe --attention flash --dtype bfloat16, {} steps "
+                    "of {} x {}".format(EXAMPLE_STEPS, TRAIN_BATCH, SEQ),
+           "text_bytes": EXAMPLE_FILES * EXAMPLE_FILE_BYTES,
+           "expected_launches": expected,
+           "moe_train_k1_steady_ms_per_step":
+               moe_row["k1"]["steady_ms_per_step"],
+           "runs": runs}
+    emit(row)
+    for mode, r in runs.items():
+        config = r["export_model_config"]
+        if r["cuda_initialized_at_node_start"]:
+            raise AssertionError("CUDA was up in the executor before the "
+                                 "LM twin's node fn ran")
+        if r["steps"] != EXAMPLE_STEPS or not np.isfinite(
+                r["final_loss"] if r["final_loss"] is not None
+                else float("nan")):
+            raise AssertionError("the twin ({}) trained {} steps (expected "
+                                 "{}), final loss {}".format(
+                                     mode, r["steps"], EXAMPLE_STEPS,
+                                     r["final_loss"]))
+        if any(n != expected for n in r["launches"].values()):
+            raise AssertionError("the twin ({}) launched {}, expected {} "
+                                 "each".format(mode, r["launches"],
+                                               expected))
+        if not (config.get("mlp") == "moe" and config.get("num_experts")
+                == MOE_CONFIG["num_experts"] and r["served_moe"]
+                and r["served_finite"]
+                and r["served_shape"] == [2, SEQ, MOE_CONFIG["vocab_size"]]):
+            raise AssertionError("the twin's export ({}) did not serve as "
+                                 "the MoE LM: {}".format(mode, r))
+    return row
+
+
 def main():
     import torch
 
@@ -3240,6 +3852,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    started = time.perf_counter()
     device = phase_device(torch, device_mod)
     usage = phase_build(build)
     warm_clocks(torch)
@@ -3265,6 +3878,15 @@ def main():
     resnet_trained = phase_resnet_train(torch, np, fa)
     phase_resnet_card_vs_cpu(torch, np)
     phase_resnet_files(torch, np, fa, resnet_trained)
+    earlier_s = time.perf_counter() - started
+    moe, moe_model, moe_params = phase_moe_train(torch, np, fa, metrics,
+                                                 mega)
+    phase_moe_card_vs_cpu(torch, np)
+    moe_served = phase_moe_serve(torch, np, fa, moe_model, moe_params)
+    del moe_model, moe_params
+    example = phase_lm_example(torch, np, moe)
+    emit({"phase": "wall", "seconds": time.perf_counter() - started,
+          "before_moe_phases_s": earlier_s})
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -3287,19 +3909,27 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: fit_supervised at K = 5 through a
-            # crash and a resume; its counter, held equal to the kernels the
-            # profiler saw the card execute there (device_launches_by_path)
-            "launches": supervised["crash_resume"]["launches"][name],
+            # this slice's main path: the MoE LM trained at K = 5 (graph
+            # replays); its counter, held equal to the kernels the profiler
+            # saw the card execute there (device_launches_by_path)
+            "launches": moe["k5"]["launches"][name],
             "device_launches_by_path": dict(
-                {"train_k5": mega["device_launches"][name],
+                {"moe_train": moe["k1"]["device_launches"][name],
+                 "moe_train_k5": moe["k5"]["device_launches"][name],
+                 "train_k5": mega["device_launches"][name],
                  "cluster": clustered["device_launches"][name],
                  "cluster_k5": mega_cluster["device_launches"][name],
                  "pipeline_fit": piped["device_launches"][name]},
                 **{path: run["device_launches"][name]
                    for path, run in supervised_paths.items()}),
             "launches_by_path": dict(
-                {"train": trained["launches"][name],
+                {"moe_train": moe["k1"]["launches"][name],
+                 "moe_train_k5": moe["k5"]["launches"][name],
+                 "lm_example_synthetic":
+                     example["runs"]["synthetic"]["launches"][name],
+                 "lm_example_files":
+                     example["runs"]["files"]["launches"][name],
+                 "train": trained["launches"][name],
                  "train_k5": mega["launches"][name],
                  "cluster": clustered["launches"][name],
                  "cluster_k5": mega_cluster["launches"][name],
@@ -3326,7 +3956,8 @@ def main():
                 "serve": serve["fwd_launches"],
                 "gateway": gatewayed["fwd_launches"],
                 "serve_cli": served_cli["fwd_launches"],
-                "pipeline_transform": piped["transform_launches"]})
+                "pipeline_transform": piped["transform_launches"],
+                "moe_serve": moe_served["fwd_launches"]})
             entry["device_launches_by_path"]["gateway"] = \
                 gatewayed["device_launches"][name]
             entry["serve_shape"] = {

@@ -1,0 +1,226 @@
+"""Transformer LM on the PyTorch port, dense or Switch MoE (the one-card
+twin of ``examples/transformer/transformer_lm.py``).
+
+The same workload and flags: a decoder-only LM (``--mlp moe`` for the
+Switch-style top-1 mixture of experts, ``--attention flash`` for the
+hand-written CUDA flash kernels), optax ``adamw(lr)``'s update
+(``torch.optim.AdamW`` with its weight decay 1e-4 and eps 1e-8), the
+synthetic token stream with learnable n-gram structure (numpy's
+``default_rng(process index)``, the JAX example's formula, so the stream is
+its stream to the token), or with ``--data_dir`` a byte-level LM over raw
+files (``data.FileFeed`` + ``data.byte_lm_reader`` -> ``ShardedFeed``), the
+TimeHistory stats with the port's FLOP count, and the chief's export, all
+through ``cluster.run`` in FILES mode: every node runs ``main_fun`` inline
+in its executor process, where CUDA comes up.
+
+Where the twin differs: it trains on one card a node (``--cluster_size``
+nodes train data-parallel, the global batch split among them), so the mesh
+flags ``--data``, ``--fsdp``, ``--seq``, ``--expert`` and ``--tensor``
+default to 1 (the JAX defaults of 2 need 8 devices) and any of them above
+1, like ``--attention ring|ulysses`` and ``--ep_mode shard_map``, raises
+``NotImplementedError`` (ROADMAP.md, Queue 1, the parallelism slice);
+``--attention`` defaults to ``full``; ``--device`` ("cpu" to run on the
+CPU; the nodes' cards by default); the steps go through the port's
+Trainer (``fit_feed``); the export's ``model_config`` also carries
+``mlp``, ``num_experts`` and ``capacity_factor``, so an MoE export is
+served as the MoE LM (the JAX example's omits them).
+
+Run on the CPU (tiny smoke):
+    python examples/transformer/transformer_lm_torch.py --device cpu \\
+        --mlp moe --num_experts 4 --vocab_size 64 --num_layers 2 \\
+        --num_heads 2 --head_dim 8 --seq_len 32 --train_steps 4
+On a card: leave out ``--device`` (``--attention flash`` for the kernels).
+"""
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", ".."))
+
+# the JAX example's mesh axes: one card a node here
+MESH_FLAGS = ("data", "fsdp", "seq", "expert", "tensor")
+# the MoE capacity factor the JAX example builds with (the model's default)
+CAPACITY_FACTOR = 1.25
+
+
+class SyntheticTokens(object):
+    """The JAX example's synthetic token stream (``next_batch``): each row
+    counts up by one from a random offset, drawn per batch from
+    ``numpy.random.default_rng(seed)``.  Served like a DataFeed's columnar
+    path (``next_batch_arrays``) for a ``ShardedFeed``; it never ends."""
+
+    def __init__(self, seq_len, vocab_size, seed):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+        self.base = np.arange(seq_len) % vocab_size
+        self.vocab_size = vocab_size
+
+    def next_batch_arrays(self, n):
+        import numpy as np
+
+        offs = self.rng.integers(0, self.vocab_size, (n, 1))
+        toks = ((self.base[None, :] + offs) % self.vocab_size).astype(
+            np.int32)
+        return {"tokens": toks}, n
+
+    def should_stop(self):
+        return False
+
+    def interrupt(self):
+        pass
+
+    def terminate(self):
+        pass
+
+
+def train_lm(args, ctx):
+    """Build and train on this node: returns ``(trainer, stats)``
+    (:func:`main_fun` is this less the trainer)."""
+    import functools
+
+    import torch
+
+    from tensorflowonspark_torch import checkpoint
+    from tensorflowonspark_torch import train as train_mod
+    from tensorflowonspark_torch.models import transformer as tfm
+    from tensorflowonspark_torch.parallel import infeed
+
+    for flag in MESH_FLAGS:
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(
+                "--{} {}: the twin trains on one card a node; mesh axes "
+                "are not ported yet (ROADMAP.md, Queue 1, the parallelism "
+                "slice)".format(flag, getattr(args, flag)))
+    attention = args.attention or "full"
+    model = tfm.build_transformer(
+        vocab_size=args.vocab_size, num_layers=args.num_layers,
+        num_heads=args.num_heads, head_dim=args.head_dim,
+        max_seq_len=args.seq_len, attention=attention, mlp=args.mlp,
+        num_experts=args.num_experts, capacity_factor=CAPACITY_FACTOR,
+        ep_mode=args.ep_mode, dtype=args.dtype)
+    device = ctx.initialize_distributed(device=args.device)
+    rank = ctx.process_id or 0
+    # one seed on every node: the same init everywhere
+    model.init_weights(torch.Generator().manual_seed(0))
+
+    # the flash kernels' FLOPs, which FlopCounterMode cannot see: causal
+    # forward 2 and backward 5 S^2 D products per (row, head, layer)
+    flash_flops = (7 * args.seq_len ** 2 * args.head_dim * args.batch_size
+                   * args.num_heads * args.num_layers
+                   if attention == "flash" else 0)
+    trainer = train_mod.Trainer(
+        tfm.loss_fn(model), dict(model.state_dict()),
+        # optax.adamw(lr): b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
+        functools.partial(torch.optim.AdamW, lr=args.lr, eps=1e-8,
+                          weight_decay=1e-4),
+        batch_size=args.batch_size, log_steps=args.log_steps,
+        extra_step_flops=flash_flops, device=device)
+
+    if args.data_dir:
+        # real text: raw files -> byte-level token stream (vocab 256, no
+        # tokenizer) packed to seq_len, streamed via FileFeed
+        if args.vocab_size < 256:
+            raise ValueError("--data_dir byte-level LM needs --vocab_size "
+                             ">= 256")
+        from tensorflowonspark_torch import data as data_mod
+        from tensorflowonspark_torch.datafeed import strip_scheme
+
+        source = data_mod.FileFeed(
+            data_mod.list_shards(
+                strip_scheme(ctx.absolute_path(args.data_dir)), pattern="*"),
+            row_reader=data_mod.byte_lm_reader(args.seq_len),
+            shuffle_buffer=args.shuffle_buffer, num_epochs=args.epochs,
+            seed=rank)
+    else:
+        source = SyntheticTokens(args.seq_len, args.vocab_size, rank)
+    feed = infeed.ShardedFeed(source, args.batch_size, device=device)
+    stats = trainer.fit_feed(feed, max_steps=args.train_steps)
+    if trainer.state.step == 0:
+        raise RuntimeError(
+            "no training batches produced: are the --data_dir files "
+            "shorter than --seq_len bytes?")
+    print("trained {} steps, loss {:.4f}".format(trainer.state.step,
+                                                 stats["loss"]))
+
+    if args.export_dir and checkpoint.should_export(ctx):
+        # the JAX example's model_config, plus the FFN's
+        checkpoint.export_model(
+            ctx.absolute_path(args.export_dir), trainer.state.params,
+            "transformer_lm",
+            model_config={"vocab_size": args.vocab_size,
+                          "num_layers": args.num_layers,
+                          "num_heads": args.num_heads,
+                          "head_dim": args.head_dim,
+                          "max_seq_len": args.seq_len, "dtype": args.dtype,
+                          "mlp": args.mlp, "num_experts": args.num_experts,
+                          "capacity_factor": CAPACITY_FACTOR},
+            input_signature={"tokens": [None, args.seq_len]})
+    return trainer, stats
+
+
+def main_fun(args, ctx):
+    """The node function: train on this node, return the final stats."""
+    return train_lm(args, ctx)[1]
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cluster_size", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--train_steps", type=int, default=20)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--vocab_size", type=int, default=512)
+    parser.add_argument("--num_layers", type=int, default=4)
+    parser.add_argument("--num_heads", type=int, default=8)
+    parser.add_argument("--head_dim", type=int, default=32)
+    parser.add_argument("--seq_len", type=int, default=1024)
+    for flag in MESH_FLAGS:
+        parser.add_argument("--" + flag, type=int, default=1,
+                            help="mesh axis size: 1 (not ported above 1)")
+    parser.add_argument("--mlp", default="dense", choices=["dense", "moe"],
+                        help="FFN flavor; 'moe' = Switch-style mixture of "
+                             "experts")
+    parser.add_argument("--num_experts", type=int, default=8)
+    parser.add_argument("--ep_mode", default="gspmd",
+                        choices=["gspmd", "shard_map"],
+                        help="expert parallelism flavor: gspmd (dense "
+                             "one-hot dispatch); shard_map is not ported")
+    parser.add_argument("--attention", default=None,
+                        choices=[None, "full", "flash", "ring", "ulysses"],
+                        help="attention kernel (default full; 'flash' runs "
+                             "the hand-written CUDA kernels)")
+    parser.add_argument("--dtype", default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--export_dir", default=None)
+    parser.add_argument("--log_steps", type=int, default=10)
+    parser.add_argument("--data_dir", default=None,
+                        help="dir of raw text files: byte-level LM via "
+                             "data.byte_lm_reader (synthetic when omitted)")
+    parser.add_argument("--shuffle_buffer", type=int, default=2048)
+    parser.add_argument("--epochs", type=int, default=1,
+                        help="file passes in --data_dir mode")
+    parser.add_argument("--device", default=None,
+                        help="'cpu' to train on the CPU; the nodes' cards "
+                             "by default")
+    args, _ = parser.parse_known_args(argv)
+    return args
+
+
+def main(argv=None):
+    from tensorflowonspark_torch import backend, cluster
+
+    args = parse_args(argv)
+    b = backend.LocalBackend(args.cluster_size)
+    try:
+        c = cluster.run(b, main_fun, args, num_executors=args.cluster_size,
+                        input_mode=cluster.InputMode.FILES)
+        c.shutdown(grace_secs=2)
+    finally:
+        b.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,8 @@ Layouts:
   ``(3, H, Dh)`` order kept;
 - ``LayerNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
 - ``Embed`` ``embedding`` <-> ``weight``;
+- an MoE block's ``moe`` subtree: the ``router`` Dense as above, the
+  expert tensors ``w1``, ``b1``, ``w2``, ``b2`` as they are;
 - ``Conv`` kernel ``(H, W, in, out)`` (HWIO) <-> ``Conv2d`` ``weight``
   ``(out, in, H, W)`` (OIHW);
 - ``BatchNorm`` ``scale``/``bias`` <-> ``weight``/``bias``, and its
@@ -30,6 +32,8 @@ _BLOCK_DENSE = {("Attention_0", "qkv"): "attn.qkv",
                 ("Dense_0",): "mlp_in",
                 ("Dense_1",): "mlp_out"}
 _BLOCK_NORM = {"LayerNorm_0": "ln1", "LayerNorm_1": "ln2"}
+_MOE_DENSE = (("Dense_0",), ("Dense_1",))
+_MOE_EXPERTS = ("w1", "b1", "w2", "b2")
 
 
 def _t(x):
@@ -54,11 +58,17 @@ def transformer_params_from_flax(tree):
     n_layers = sum(1 for key in tree if key.startswith("block_"))
     for i in range(n_layers):
         block = tree["block_%d" % i]
-        if "moe" in block:
-            raise NotImplementedError("MoE blocks are not ported yet "
-                                      "(ROADMAP.md, Queue 1, MoE)")
         prefix = "blocks.%d." % i
+        moe = block.get("moe")
+        if moe is not None:
+            sd[prefix + "moe.router.weight"] = _t(
+                np.asarray(moe["router"]["kernel"]).T)
+            sd[prefix + "moe.router.bias"] = _t(moe["router"]["bias"])
+            for name in _MOE_EXPERTS:
+                sd[prefix + "moe." + name] = _t(moe[name])
         for path, name in _BLOCK_DENSE.items():
+            if moe is not None and path in _MOE_DENSE:
+                continue
             dense = _get(block, path)
             kernel = np.asarray(dense["kernel"])
             sd[prefix + name + ".weight"] = _t(
@@ -86,7 +96,17 @@ def transformer_params_to_flax(state_dict, num_heads):
     for i in range(n_layers):
         prefix = "blocks.%d." % i
         block = {}
+        moe = prefix + "moe.w1" in state_dict
+        if moe:
+            block["moe"] = dict(
+                router={"kernel": np.ascontiguousarray(
+                    arr(prefix + "moe.router.weight").T),
+                        "bias": arr(prefix + "moe.router.bias")},
+                **{name: arr(prefix + "moe." + name)
+                   for name in _MOE_EXPERTS})
         for path, name in _BLOCK_DENSE.items():
+            if moe and path in _MOE_DENSE:
+                continue
             weight = arr(prefix + name + ".weight").T
             bias = arr(prefix + name + ".bias")
             if name == "attn.qkv":

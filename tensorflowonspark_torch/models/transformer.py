@@ -18,6 +18,14 @@ converter maps the same tree): every block runs under
 runs the flash forward twice per layer and a server (no gradients) never
 pays for the recompute.
 
+``mlp="moe"`` replaces each block's dense MLP with :class:`MoEMlp`, the
+Switch-style top-1 mixture of experts with the JAX layer's GSPMD dispatch
+(``ep_mode="gspmd"``): routing as dense one-hot products, grouped per batch
+row, and the load-balance term of every block summed and returned beside
+the logits (``forward(tokens, return_aux=True)``), which :func:`loss_fn`
+weights in.  Each block returns its term instead of keeping it in module
+state, so the recompute of ``remat=True`` does not count it twice.
+
 ``attention`` picks the core contraction: ``"full"`` is
 :func:`~tensorflowonspark_torch.parallel.ring.reference_attention`,
 ``"flash"`` the hand-written CUDA kernel
@@ -141,27 +149,131 @@ class Attention(nn.Module):
         return self.proj(out.reshape(batch, seq, -1))
 
 
+class MoEMlp(nn.Module):
+    """Switch-style top-1 mixture-of-experts FFN with GShard dispatch and
+    combine (flax ``MoEMlp`` with ``ep_mode="gspmd"``): ``x [G, S, D] ->
+    (y [G, S, D], load-balance term)``, a group per batch row.
+
+    The router is a fp32 ``Dense(D, E)`` on ``x`` cast to fp32; each token
+    goes to its most probable expert, in that expert's buffer of
+    ``capacity = max(int(capacity_factor * S / E), 1)`` slots at its
+    position among the group's tokens routed there.  Tokens past capacity
+    get no slot: they contribute zero and ride the block's residual.  The
+    layer is three products in ``dtype`` (dispatch, the expert FFN with
+    tanh gelu, combine), the one-hot dispatch and combine tensors
+    ``[G, S, E, C]`` built by comparison, with no data-dependent shape and
+    no host readback, so a CUDA graph captures it.  Params keep flax's
+    layout: ``router`` (a :class:`Dense`), ``w1 [E, D, H]``, ``b1 [E, H]``,
+    ``w2 [E, H, D]``, ``b2 [E, D]``.
+
+    The explicit expert-parallel schedule (``ep_mode="shard_map"``) and a
+    mesh are not ported."""
+
+    def __init__(self, d_model, num_experts=8, mlp_ratio=4,
+                 capacity_factor=1.25, ep_mode="gspmd", mesh=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if ep_mode != "gspmd" or mesh is not None:
+            raise NotImplementedError(
+                "MoE with ep_mode={!r}{} is not ported yet (ROADMAP.md, "
+                "Queue 1, the parallelism slice)".format(
+                    ep_mode, "" if mesh is None else " on a mesh"))
+        hidden = d_model * mlp_ratio
+        self.num_experts = num_experts
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.router = Dense(d_model, num_experts, torch.float32)
+        self.w1 = nn.Parameter(torch.empty(num_experts, d_model, hidden))
+        self.b1 = nn.Parameter(torch.empty(num_experts, hidden))
+        self.w2 = nn.Parameter(torch.empty(num_experts, hidden, d_model))
+        self.b2 = nn.Parameter(torch.empty(num_experts, d_model))
+
+    def reset_parameters(self, generator):
+        # flax's lecun_normal counts every dim but the last into the fan-in:
+        # E * D for w1, E * H for w2 (the router is a Dense of its own)
+        for w in (self.w1, self.w2):
+            fan_in = w.shape[0] * w.shape[1]
+            w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+        self.b1.zero_()
+        self.b2.zero_()
+
+    def capacity(self, seq):
+        """Slots per expert in a group of ``seq`` tokens."""
+        return max(int(self.capacity_factor * seq / self.num_experts), 1)
+
+    def route(self, x):
+        """``(probs [G, S, E] fp32, expert_idx [G, S], expert_prob [G, S],
+        pos [G, S])``: the router's softmax, each token's expert (the
+        first most probable, as ``jnp.argmax`` picks: a tie decides an
+        expert) and its probability, and its 0-based position among the
+        group's tokens routed to that expert."""
+        probs = torch.softmax(self.router(x.float()), dim=-1)
+        expert_prob, expert_idx = probs.max(dim=-1)
+        experts = torch.arange(self.num_experts, device=x.device)
+        onehot = (expert_idx[..., None] == experts).long()
+        # an integer cumsum: a low-precision one would saturate and give
+        # two tokens one slot
+        pos = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1
+        return probs, expert_idx, expert_prob, pos
+
+    def forward(self, x):
+        seq = x.shape[1]
+        capacity = self.capacity(seq)
+        probs, expert_idx, expert_prob, pos = self.route(x)
+        experts = torch.arange(self.num_experts, device=x.device)
+        onehot = expert_idx[..., None] == experts                # [G, S, E]
+        # a position past capacity matches no slot: the token is dropped
+        # (jax.nn.one_hot's zero row; F.one_hot would raise)
+        slot = pos[..., None] == torch.arange(capacity, device=x.device)
+        dispatch = (onehot[..., None] & slot[:, :, None, :]).to(x.dtype)
+        expert_in = torch.einsum("gsec,gsd->gecd", dispatch, x)
+        h = (torch.einsum("gecd,edh->gech", expert_in, self.w1.to(self.dtype))
+             + self.b1.to(self.dtype)[:, None])
+        h = F.gelu(h, approximate="tanh")
+        out = (torch.einsum("gech,ehd->gecd", h, self.w2.to(self.dtype))
+               + self.b2.to(self.dtype)[:, None])
+        combine = dispatch * expert_prob.to(x.dtype)[..., None, None]
+        mixed = torch.einsum("gsec,gecd->gsd", combine, out)
+        # Switch load balance: E * sum_e fraction_e * mean_prob_e
+        fraction = onehot.float().mean(dim=(0, 1))
+        aux = self.num_experts * (fraction * probs.mean(dim=(0, 1))).sum()
+        return mixed, aux
+
+
 class Block(nn.Module):
+    """Pre-LayerNorm attention and MLP (dense, or :class:`MoEMlp` with
+    ``mlp="moe"``), each with a residual: ``x -> (x, aux)``, ``aux`` the
+    MoE load-balance term (None for a dense block)."""
+
     def __init__(self, num_heads, head_dim, mlp_ratio=4, attention="full",
                  mlp="dense", num_experts=8, capacity_factor=1.25,
                  ep_mode="gspmd", mesh=None, ep_batch_axes=None,
                  dtype=torch.float32):
         super().__init__()
-        if mlp != "dense":
-            raise NotImplementedError(
-                "mlp={!r} is not ported yet (ROADMAP.md, Queue 1, "
-                "MoE)".format(mlp))
+        if mlp not in ("dense", "moe"):
+            raise ValueError("mlp must be 'dense' or 'moe', got {!r}".format(
+                mlp))
         d_model = num_heads * head_dim
         self.ln1 = LayerNorm(d_model, dtype)
         self.attn = Attention(num_heads, head_dim, attention, mesh, dtype)
         self.ln2 = LayerNorm(d_model, dtype)
-        self.mlp_in = Dense(d_model, d_model * mlp_ratio, dtype)
-        self.mlp_out = Dense(d_model * mlp_ratio, d_model, dtype)
+        if mlp == "moe":
+            # ep_batch_axes is an option of the shard_map mode alone
+            self.moe = MoEMlp(d_model, num_experts, mlp_ratio,
+                              capacity_factor, ep_mode, mesh, dtype)
+        else:
+            self.moe = None
+            self.mlp_in = Dense(d_model, d_model * mlp_ratio, dtype)
+            self.mlp_out = Dense(d_model * mlp_ratio, d_model, dtype)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
-        h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
-        return x + self.mlp_out(h)
+        h = self.ln2(x)
+        if self.moe is not None:
+            h, aux = self.moe(h)
+            return x + h, aux
+        h = F.gelu(self.mlp_in(h), approximate="tanh")
+        return x + self.mlp_out(h), None
 
 
 def _remat_block(block, x):
@@ -181,7 +293,9 @@ def _remat_block(block, x):
 
 
 class TransformerLM(nn.Module):
-    """Token ids ``[batch, seq]`` -> fp32 logits ``[batch, seq, vocab]``.
+    """Token ids ``[batch, seq]`` -> fp32 logits ``[batch, seq, vocab]``;
+    with ``return_aux=True``, ``(logits, aux)``, ``aux`` the sum of the MoE
+    blocks' load-balance terms (None without MoE blocks).
 
     Parameters are allocated but not initialised: call
     :meth:`init_weights` with an explicit generator, or load a
@@ -212,18 +326,22 @@ class TransformerLM(nn.Module):
         """Initialise every parameter from ``generator`` (on the params'
         device), with flax's default scales."""
         for module in self.modules():
-            if isinstance(module, (Dense, Embed, LayerNorm)):
+            if isinstance(module, (Dense, Embed, LayerNorm, MoEMlp)):
                 module.reset_parameters(generator)
         return self
 
-    def forward(self, tokens):
+    def forward(self, tokens, return_aux=False):
         seq = tokens.shape[1]
         x = self.embed(tokens.long()) + self.pos_embed.weight[:seq].to(self.dtype)
         remat = self.remat and torch.is_grad_enabled()
+        aux_sum = None
         for block in self.blocks:
-            x = _remat_block(block, x) if remat else block(x)
+            x, aux = _remat_block(block, x) if remat else block(x)
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
         x = self.ln_f(x)
-        return (x @ self.embed.weight.to(self.dtype).t()).float()
+        logits = (x @ self.embed.weight.to(self.dtype).t()).float()
+        return (logits, aux_sum) if return_aux else logits
 
 
 @register_model("transformer_lm")
@@ -250,13 +368,15 @@ def loss_fn(model, moe_aux_weight=0.01):
     rolled by -1 and the last position, which has no target, is masked
     out.  The cross entropy is taken on the fp32 logits, averaged over
     positions per row, then over rows weighted by ``mask`` (divided by
-    ``max(mask.sum(), 1)``).  ``moe_aux_weight`` is kept for the JAX
-    signature: MoE blocks are not ported, so ``aux`` is empty."""
-    del moe_aux_weight
+    ``max(mask.sum(), 1)``).  A model with MoE blocks adds
+    ``moe_aux_weight`` (Switch Transformer's alpha) times the summed
+    load-balance term, taken over every row, and reports it as
+    ``aux["moe_aux_loss"]``; ``aux`` is empty otherwise."""
 
     def loss(params, batch, mask):
         tokens = batch["tokens"].long()
-        logits = torch.func.functional_call(model, params, (tokens,))
+        logits, balance = torch.func.functional_call(
+            model, params, (tokens,), {"return_aux": True})
         batch_size, seq = tokens.shape
         targets = torch.roll(tokens, -1, dims=1)
         ce = F.cross_entropy(logits.float().reshape(batch_size * seq, -1),
@@ -268,6 +388,10 @@ def loss_fn(model, moe_aux_weight=0.01):
         ce = (ce.reshape(batch_size, seq) * pos_mask).sum(-1) / pos_mask.sum()
         mask = mask.to(ce.dtype)
         ce = (ce * mask).sum() / mask.sum().clamp_min(1.0)
-        return ce, {}
+        aux = {}
+        if balance is not None:
+            aux["moe_aux_loss"] = balance
+            ce = ce + moe_aux_weight * balance
+        return ce, aux
 
     return loss

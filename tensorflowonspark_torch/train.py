@@ -226,14 +226,32 @@ def _signature(batch, mask):
                  tuple(mask.shape)))
 
 
+def _holds_tensor(value):
+    if isinstance(value, (tuple, list)):
+        return any(_holds_tensor(v) for v in value)
+    return isinstance(value, torch.Tensor)
+
+
+def _frozen_hyperparameters(optimizer):
+    """Per param group, the hyperparameters a captured step keeps as they
+    were at capture: every value but the params, the ``capturable`` flag
+    and tensors (a replay reads a tensor hyperparameter at its address,
+    so writing it in place reaches every replay; a float ``lr`` is a
+    launch argument of capturable Adam's kernels)."""
+    return [{key: value for key, value in group.items()
+             if key not in ("params", "capturable")
+             and not _holds_tensor(value)}
+            for group in optimizer.param_groups]
+
+
 class _StepGraph(object):
     """One optimizer step captured as a CUDA graph: the static batch and
     mask it reads, the loss and grad norm it writes (overwritten by every
-    replay), the gradients it keeps alive, and the kernel launches one
-    replay makes."""
+    replay), the gradients it keeps alive, the kernel launches one replay
+    makes, and the optimizer's non-tensor hyperparameters at capture."""
 
     def __init__(self, graph, batch, mask, loss, grad_norm, grads,
-                 launches):
+                 launches, hyperparameters):
         self.graph = graph
         self.batch = batch
         self.mask = mask
@@ -241,6 +259,31 @@ class _StepGraph(object):
         self.grad_norm = grad_norm
         self.grads = grads
         self.launches = launches
+        self.hyperparameters = hyperparameters
+
+    def check_hyperparameters(self, optimizer):
+        """Raise if a non-tensor hyperparameter of ``optimizer`` changed
+        since the capture: a replay would still step with the old value
+        (a scheduler or hook that writes ``group["lr"]`` moves eager steps
+        only)."""
+        groups = optimizer.param_groups
+        if len(groups) != len(self.hyperparameters):
+            raise RuntimeError(
+                "the optimizer has {} param groups, {} when the train step "
+                "was captured as a CUDA graph".format(
+                    len(groups), len(self.hyperparameters)))
+        for i, (held, group) in enumerate(zip(self.hyperparameters, groups)):
+            for key, value in held.items():
+                now = group.get(key)
+                if type(now) is type(value) and now == value:
+                    continue
+                raise RuntimeError(
+                    "param group {} changed {!r} from {!r} to {!r} after "
+                    "the train step was captured as a CUDA graph, whose "
+                    "replays keep the captured value: make it a tensor on "
+                    "the card (e.g. {}=torch.tensor({!r}, device=...)) and "
+                    "write it in place (.fill_(...)), which every replay "
+                    "reads".format(i, key, value, now, key, value))
 
     def load(self, batch, mask):
         """Copy one batch into the static buffers (on the current stream)."""
@@ -635,7 +678,11 @@ class Trainer(object):
         gauges: within a window nothing is read back to the host.
 
         On the card the steps are replays of the cached CUDA graph (see
-        :meth:`_graph_steps`), on the CPU K eager steps.
+        :meth:`_graph_steps`), on the CPU K eager steps.  A replay keeps
+        the optimizer's non-tensor hyperparameters (a float ``lr``) as
+        they were at capture, so a replay after one of them changed raises
+        instead; a tensor hyperparameter written in place reaches every
+        replay.
         ``donate_batches`` is the JAX signature's and is ignored: the port
         never donates.  Each replay reads a copy of its slot, so the
         stacks' memory returns to the allocator as soon as the caller drops
@@ -690,6 +737,7 @@ class Trainer(object):
                 if graph is None:
                     graph = self._capture(key, batch, mask)
                 else:
+                    graph.check_hyperparameters(self.state.optimizer)
                     graph.load(batch, mask)
                 graph.replay()
                 self.state.step += 1
@@ -750,7 +798,8 @@ class Trainer(object):
         _kernels.add_launches({name: -n for name, n in launches.items()})
         entry = _StepGraph(graph, static_batch, static_mask, loss, grad_norm,
                            [p.grad for p in self.state.params.values()],
-                           launches)
+                           launches,
+                           _frozen_hyperparameters(self.state.optimizer))
         self._graphs[key] = entry
         self._compile_secs = ((self._compile_secs or 0.0)
                               + time.perf_counter() - t0)

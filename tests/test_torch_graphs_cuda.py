@@ -3,8 +3,10 @@ a captured CUDA graph against K eager steps, the kernels' launch counters
 under replay against the kernels the profiler saw the card execute, an
 optimizer made with ``capturable=False``, restoring state into a trainer
 that captured, a capture while the infeed's prefetch thread pins memory,
-grouped batches stacked on the card, a capture that fails, and captures of
-a step with ``accum_steps=2`` and of the ``remat=True`` LM.
+grouped batches stacked on the card, a capture that fails, captures of
+a step with ``accum_steps=2`` and of the ``remat=True`` LM, a float
+learning rate changed after the capture (refused) and a tensor one
+written in place (followed), and the K-step replays of the MoE LM.
 
 Marked ``cuda``; each test skips with a reason where no CUDA card is
 present.  No jax here (the machine with the card has none), so run it with
@@ -393,3 +395,78 @@ def test_accum_and_remat_captures_equal_eager_steps(card, option):
     assert fa.launch_counts() == executed == {
         name: n * k for name, n in per_step.items()}
     _close(_params(graphed), _params(eager), 1e-6, option)
+
+
+def test_float_lr_changed_after_capture_raises(card):
+    """A replay keeps the float lr it was captured with, so a float lr
+    changed between two dispatches raises before the next replay, naming
+    the key and the tensor way out; nothing of the second group runs."""
+    tr = _trainer(card)
+    tr.multi_step(*_group(1))
+    assert len(tr._graphs) == 1 and tr.state.step == K
+    tr.state.optimizer.param_groups[0]["lr"] = 5e-4
+    with pytest.raises(RuntimeError, match="'lr'.*tensor"):
+        tr.multi_step(*_group(2))
+    assert tr.state.step == K
+
+
+def _tensor_lr_adam(params):
+    return torch.optim.Adam(params, lr=torch.tensor(1e-3,
+                                                    device=params[0].device))
+
+
+def test_tensor_lr_written_in_place_is_followed_by_replays(card):
+    """A tensor lr halved in place between two groups of K: the replays of
+    the second group step with the new value, as K eager steps do (losses
+    and params to the fp32 graph tolerance; a replay with the old lr would
+    move every param by about K x 5e-4 more)."""
+    loss_tol, param_tol = TOL["float32"]
+    groups = [_group(seed) for seed in (1, 2)]
+
+    def make(**kwargs):
+        model, init = _init()
+        return train.Trainer(transformer.loss_fn(model), init,
+                             _tensor_lr_adam, batch_size=BATCH,
+                             log_steps=1000, device=card, **kwargs)
+
+    eager = make()
+    want = []
+    for i, (stack, masks) in enumerate(groups):
+        if i:
+            eager.state.optimizer.param_groups[0]["lr"].fill_(5e-4)
+        want += _eager(eager, stack, masks)
+    curve = _LossCurve()
+    graphed = make(summary_writer=curve)
+    for i, (stack, masks) in enumerate(groups):
+        if i:
+            graphed.state.optimizer.param_groups[0]["lr"].fill_(5e-4)
+        graphed.multi_step(stack, masks)
+    graphed.history.on_train_end(None)
+    assert len(graphed._graphs) == 1
+    got = [loss for _, loss in sorted(curve.losses.items())]
+    np.testing.assert_allclose(got, want, rtol=0, atol=loss_tol)
+    _close(_params(graphed), _params(eager), param_tol, "params",
+           steps=2 * K)
+
+
+def test_moe_lm_replays_equal_eager_steps(card):
+    """The MoE LM (dispatch and combine by one-hot products, capacity
+    drops, the load-balance term in the loss) captures as one CUDA graph:
+    two groups of K replay the eager steps' losses and params."""
+    loss_tol, param_tol = TOL["float32"]
+    moe = {"mlp": "moe", "num_experts": 4, "capacity_factor": 1.25}
+    groups = [_group(seed) for seed in (1, 2)]
+    eager = _trainer(card, model_kwargs=moe)
+    want = []
+    for stack, masks in groups:
+        want += _eager(eager, stack, masks)
+    curve = _LossCurve()
+    graphed = _trainer(card, model_kwargs=moe, summary_writer=curve)
+    for stack, masks in groups:
+        graphed.multi_step(stack, masks)
+    graphed.history.on_train_end(None)
+    assert len(graphed._graphs) == 1
+    got = [loss for _, loss in sorted(curve.losses.items())]
+    np.testing.assert_allclose(got, want, rtol=0, atol=loss_tol)
+    _close(_params(graphed), _params(eager), param_tol, "params",
+           steps=2 * K)

@@ -1,0 +1,132 @@
+"""The LM twin (``examples/transformer/transformer_lm_torch.py``, the twin of
+``examples/transformer/transformer_lm.py``) on the CPU through
+``cluster.run`` in FILES mode at tiny flags: the MoE LM and the dense LM,
+on the synthetic stream and on byte files (``--data_dir``); each export is
+served by the port's ``ModelServer`` and its loss on the stream is below
+the initial model's.  Also the stream against the JAX example's formula
+and the flags that wait for the parallelism slice."""
+
+import argparse
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from tensorflowonspark_torch import checkpoint, serving
+from tensorflowonspark_torch.models import get_model
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLE = os.path.join(REPO, "examples", "transformer",
+                       "transformer_lm_torch.py")
+sys.path.insert(0, os.path.dirname(EXAMPLE))
+import transformer_lm_torch as twin  # noqa: E402
+
+TINY = ["--device", "cpu", "--cluster_size", "1", "--num_layers", "2",
+        "--num_heads", "2", "--head_dim", "8", "--seq_len", "32",
+        "--batch_size", "8", "--train_steps", "12", "--lr", "1e-2",
+        "--log_steps", "4"]
+MOE = ["--mlp", "moe", "--num_experts", "4"]
+
+
+def _run(args):
+    # one intra-op thread a run: four runs share the machine's cores
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, EXAMPLE] + TINY + args,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def _wait(proc):
+    out, err = proc.communicate(timeout=240)
+    assert proc.returncode == 0, err[-3000:]
+    return out
+
+
+def _next_token_loss(logits, tokens):
+    """Mean cross entropy of each position's logits on the next token."""
+    logits = torch.from_numpy(np.asarray(logits[:, :-1]))
+    targets = torch.from_numpy(tokens[:, 1:]).long()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1)).item()
+
+
+def _served_loss_falls(export_dir, tokens, mlp):
+    """Serve ``tokens`` from the export and from the twin's initial model
+    (the same config, the seed-0 init): the trained loss is lower."""
+    state, descriptor = checkpoint.load_model(export_dir, validate=True)
+    config = descriptor["model_config"]
+    assert config["mlp"] == mlp
+    assert config["num_experts"] == (4 if mlp == "moe" else 8)
+    assert config["capacity_factor"] == twin.CAPACITY_FACTOR
+    server = serving.ModelServer(export_dir, batch_size=4, device="cpu")
+    assert (server.model.blocks[0].moe is not None) == (mlp == "moe")
+    trained = server.predict_feed({"tokens": tokens}, len(tokens))["output"]
+    init = get_model("transformer_lm", **config)
+    init.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        first = init(torch.from_numpy(tokens)).numpy()
+    assert np.isfinite(trained).all()
+    assert _next_token_loss(trained, tokens) < (
+        _next_token_loss(first, tokens) - 0.1)
+
+
+def test_moe_and_dense_runs_export_and_serve(tmp_path):
+    """Four runs side by side (MoE and dense; synthetic and byte files,
+    the bytes of a repeated text, vocab 256): each trains 12 steps and
+    exports, and the export serves with a loss below the init's."""
+    data = tmp_path / "text"
+    data.mkdir()
+    text = b"the quick brown fox jumps over the lazy dog. " * 64
+    for i in range(3):
+        (data / "part-{}.txt".format(i)).write_bytes(text[i:])
+    runs = {}
+    for mlp in ("moe", "dense"):
+        extra = MOE if mlp == "moe" else []
+        runs[mlp, "synthetic"] = _run(extra + [
+            "--vocab_size", "64", "--attention", "flash",
+            "--export_dir", str(tmp_path / (mlp + "_synthetic"))])
+        runs[mlp, "files"] = _run(extra + [
+            "--vocab_size", "256", "--data_dir", str(data), "--epochs", "4",
+            "--shuffle_buffer", "16",
+            "--export_dir", str(tmp_path / (mlp + "_files"))])
+    outs = {key: _wait(proc) for key, proc in runs.items()}
+    for key, out in outs.items():
+        assert "trained 12 steps" in out, (key, out[-2000:])
+    synthetic = twin.SyntheticTokens(32, 64, 9).next_batch_arrays(4)[0][
+        "tokens"]
+    rows = np.frombuffer(text[:4 * 32], np.uint8).reshape(4, 32).astype(
+        np.int32)
+    for mlp in ("moe", "dense"):
+        _served_loss_falls(str(tmp_path / (mlp + "_synthetic")), synthetic,
+                           mlp)
+        _served_loss_falls(str(tmp_path / (mlp + "_files")), rows, mlp)
+
+
+def test_synthetic_stream_is_the_jax_examples():
+    """The JAX example's next_batch (transformer_lm.py): rng =
+    default_rng(process index), offsets (batch, 1) a batch, tokens
+    (base + offs) % vocab."""
+    seq_len, vocab, batch = 48, 40, 6
+    rng = np.random.default_rng(0)
+    base = np.arange(seq_len) % vocab
+    source = twin.SyntheticTokens(seq_len, vocab, 0)
+    for _ in range(3):
+        offs = rng.integers(0, vocab, (batch, 1))
+        want = ((base[None, :] + offs) % vocab).astype(np.int32)
+        got, n = source.next_batch_arrays(batch)
+        assert n == batch and got["tokens"].dtype == np.int32
+        np.testing.assert_array_equal(got["tokens"], want)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data", "2"], ["--fsdp", "2"], ["--seq", "2"], ["--expert", "2"],
+    ["--tensor", "2"], ["--attention", "ring"], ["--attention", "ulysses"],
+    MOE + ["--ep_mode", "shard_map"]])
+def test_parallel_flags_wait_for_the_parallelism_slice(flags):
+    args = twin.parse_args(TINY + ["--vocab_size", "64"] + flags)
+    with pytest.raises(NotImplementedError, match="parallelism slice"):
+        twin.train_lm(args, argparse.Namespace())

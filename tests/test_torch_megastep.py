@@ -417,3 +417,75 @@ def test_fit_feed_nan_batch_goes_through_the_group(monkeypatch):
     snap = stats["overlap"]
     assert snap["train_nonfinite_loss"] >= 1
     assert not np.isfinite(_params(tr)["w"]).all()
+
+
+class _StubGraph(object):
+    """A captured step's stand-in: counts its replays, runs nothing."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def _stub_captured(tr):
+    """Put a stub graph for the signature of ``_batch``'s batches into
+    ``tr``'s graph cache, as a capture would leave it: the optimizer's
+    hyperparameters recorded now, the group armed capturable."""
+    batch, mask = tr._prepare(_batch(0), None)
+    for group in tr.state.optimizer.param_groups:
+        group["capturable"] = True
+    entry = train._StepGraph(
+        _StubGraph(), {k: v.clone() for k, v in batch.items()},
+        mask.clone(), torch.zeros(()), torch.zeros(()), [], {},
+        train._frozen_hyperparameters(tr.state.optimizer))
+    tr._graphs[train._signature(batch, mask)] = entry
+    return entry, (lambda i: (batch, mask))
+
+
+def test_replay_refuses_a_changed_float_hyperparameter():
+    """A replay keeps the float hyperparameters it was captured with, so
+    one changed after the capture (a scheduler or hook writing
+    group["lr"]) raises, naming the group, the key, both values and the
+    tensor way out; unchanged ones, the capturable flag and tensor
+    hyperparameters replay."""
+    tr = _trainer()
+    entry, slot = _stub_captured(tr)
+    assert "lr" in entry.hyperparameters[0]
+    assert "capturable" not in entry.hyperparameters[0]
+    assert "params" not in entry.hyperparameters[0]
+    tr._graph_steps(2, slot)
+    assert entry.graph.replays == 2
+    tr.state.optimizer.param_groups[0]["lr"] = 0.05
+    with pytest.raises(RuntimeError) as err:
+        tr._graph_steps(1, slot)
+    message = str(err.value)
+    for part in ("param group 0", "'lr'", "0.1", "0.05", "tensor",
+                 "in place"):
+        assert part in message, (part, message)
+    assert entry.graph.replays == 2
+    tr.state.optimizer.param_groups[0]["lr"] = 0.1
+    tr._graph_steps(1, slot)
+    assert entry.graph.replays == 3
+    # a float hyperparameter replaced by a tensor after the capture: the
+    # graph still holds the float
+    tr.state.optimizer.param_groups[0]["momentum"] = torch.tensor(0.9)
+    with pytest.raises(RuntimeError, match="'momentum'"):
+        tr._graph_steps(1, slot)
+
+
+def test_replay_follows_tensor_hyperparameters():
+    """A tensor lr is left out of the record: writing it in place between
+    dispatches is what a replay reads."""
+    tr = train.Trainer(
+        _torch_loss, {"w": np.zeros(2, np.float32),
+                      "b": np.zeros((), np.float32)},
+        lambda params: torch.optim.SGD(params, lr=torch.tensor(0.1),
+                                       momentum=0.9),
+        batch_size=BATCH, log_steps=100, device="cpu")
+    entry, slot = _stub_captured(tr)
+    assert "lr" not in entry.hyperparameters[0]
+    tr.state.optimizer.param_groups[0]["lr"].fill_(0.01)
+    tr._graph_steps(3, slot)
+    assert entry.graph.replays == 3

@@ -183,7 +183,9 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("examples", "mnist", "mnist_pipeline_torch.py"),
              os.path.join("examples", "mnist", "mnist_files_torch.py"),
              os.path.join("examples", "resnet", "imagenet_input_torch.py"),
-             os.path.join("examples", "resnet", "resnet_imagenet_torch.py"))
+             os.path.join("examples", "resnet", "resnet_imagenet_torch.py"),
+             os.path.join("examples", "transformer",
+                          "transformer_lm_torch.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -229,8 +231,8 @@ sys.exit(1 if bad or missing or len(names) < 25 else 0)
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every port module (the copied
     cluster layer, the serving tier, the ResNets, ``ops.augment`` and
-    ``data`` among them), chip_smoke.py and the port's MNIST and ResNet
-    examples has no jax, flax, optax, orbax or JAX-package module."""
+    ``data`` among them), chip_smoke.py and the port's MNIST, ResNet and
+    LM examples has no jax, flax, optax, orbax or JAX-package module."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -239,8 +241,8 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port, of chip_smoke.py or of the port's MNIST and
-    ResNet examples imports a forbidden package, not even inside a
+    """No line of the port, of chip_smoke.py or of the port's MNIST,
+    ResNet and LM examples imports a forbidden package, not even inside a
     function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))

@@ -106,7 +106,7 @@ def test_init_weights_is_seeded():
 @pytest.mark.parametrize("kwargs,match", [
     ({"attention": "ring"}, "parallelism slice"),
     ({"attention": "ulysses"}, "parallelism slice"),
-    ({"mlp": "moe"}, "MoE"),
+    ({"mlp": "moe", "ep_mode": "shard_map"}, "parallelism slice"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
