@@ -139,8 +139,20 @@ weights from a seed) along both paths:
   --dtype bfloat16``, 20 steps on the synthetic stream and 20 on byte
   files written here (``--data_dir``); the flash kernels' launches, the
   bring-up and steady step, and each export served by this process as
-  the MoE LM.  A last line before the kernels line gives the script's
-  wall time.
+  the MoE LM;
+- parallel: ``Trainer(mesh=build_mesh(keep_trivial_axes=True),
+  param_sharding="fsdp")`` (a one-process NCCL world, every axis of size
+  1) trains the flash LM 30 steps at K = 1 and at K = 5 from the train
+  phase's init and stream: its losses at steps 10, 20 and 30 within 1e-3
+  nats of the train phase's, its flash launches equal to layers x steps
+  and to the kernels the profiler saw run; ``ring_attention`` and
+  ``ulysses_attention(impl="flash")`` forward and backward at [8, 1024,
+  16, 64] bf16 causal against ``reference_attention`` and the flash op,
+  and the ring recurrence chained over 4 sequence chunks against full
+  attention, each within 2e-2 of the largest value or gradient.  The
+  four-card cases of the slice are ``tests/test_torch_nccl_cuda.py``'s.
+
+A last line before the kernels line gives the script's wall time.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -3830,6 +3842,192 @@ def phase_lm_example(torch, np, moe_row):
     return row
 
 
+# the parallel phase: the flagship's attention per card, and its
+# tolerance against the plain contraction and the flash op (bf16: 2e-2 of
+# the largest value or gradient, the public contract's)
+PARALLEL_SHAPE = (TRAIN_BATCH, SEQ, LM_CONFIG["num_heads"],
+                  LM_CONFIG["head_dim"])
+PARALLEL_TOL = 2e-2
+PARALLEL_LOSS_TOL = 1e-3
+RING_CHUNKS = 4
+
+
+def attention_check(torch, fn, want_fn, inputs, cotangent):
+    """``fn`` and ``want_fn`` forward and backward on the same inputs: the
+    largest difference of the output and of each gradient, each over the
+    largest magnitude of the reference's."""
+    errs = {}
+    results = []
+    for f in (fn, want_fn):
+        q, k, v = (t.detach().clone().requires_grad_() for t in inputs)
+        out = f(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), cotangent)
+        results.append([out.detach()] + [g.detach() for g in grads])
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *results):
+        got, want = got.float(), want.float()
+        scale = want.abs().max().clamp_min(1e-30)
+        errs[name] = ((got - want).abs().max() / scale).item()
+        if not torch.isfinite(got).all():
+            errs[name] = float("inf")
+    return errs
+
+
+def phase_parallel(torch, np, fa, k1, k5):
+    """The parallelism slice on one card: ``Trainer(mesh=build_mesh(
+    keep_trivial_axes=True), param_sharding="fsdp")`` trains the flash LM
+    30 steps at K = 1 and at K = 5 from the train phase's init and stream
+    (the mesh is a one-process world, every axis of size 1, so every leaf
+    replicates), its losses at steps 10, 20 and 30 against the dense runs'
+    and its flash launches against the kernels the card executed; then
+    ``ring_attention`` and ``ulysses_attention(impl="flash")`` forward and
+    backward on the flagship's attention shape against the plain
+    contraction and the flash op, and the ring recurrence chained over 4
+    sequence chunks against full attention."""
+    import functools
+
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch import train
+    from tensorflowonspark_torch.models import get_model, transformer
+    from tensorflowonspark_torch.parallel import mesh as mesh_mod, ring
+
+    t_start = time.perf_counter()
+    vocab, layers = LM_CONFIG["vocab_size"], LM_CONFIG["num_layers"]
+    heads, head_dim = LM_CONFIG["num_heads"], LM_CONFIG["head_dim"]
+    mesh = mesh_mod.build_mesh(keep_trivial_axes=True)
+    try:
+        model = get_model("transformer_lm", mesh=mesh, **LM_CONFIG)
+        model.init_weights(torch.Generator().manual_seed(0))
+        init = dict(model.state_dict())
+        flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
+        runs = {}
+        for k in (1, MEGA_K):
+            curve = LossCurve()
+            trainer = train.Trainer(
+                transformer.loss_fn(model), init,
+                functools.partial(torch.optim.Adam, lr=LR),
+                compute_dtype=torch.bfloat16, batch_size=TRAIN_BATCH,
+                log_steps=LOG_STEPS, extra_step_flops=flash_flops,
+                summary_writer=curve, mesh=mesh, param_sharding="fsdp")
+            feed = NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab)
+            torch.cuda.synchronize()
+            fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+            t0 = time.perf_counter()                  # the path starts
+            _, executed = counted_on_device(torch, lambda: trainer.fit_feed(
+                feed, max_steps=TRAIN_STEPS, steps_per_call=k))
+            fit_s = time.perf_counter() - t0
+            launches = launches_of(fa)                # ... and ends
+            checked = [LOG_STEPS * (i + 1)
+                       for i in range(TRAIN_STEPS // LOG_STEPS)]
+            losses = [curve.losses.get(step) for step in checked]
+            runs["k%d" % k] = {
+                "steps": trainer.state.step, "fit_feed_s": fit_s,
+                "launches": launches, "device_launches": executed,
+                "losses": losses,
+                "loss_diff_vs_train": [
+                    None if a is None else abs(a - b)
+                    for a, b in zip(losses, k1["window_losses"])],
+                "graphs": len(trainer._graphs),
+                "sharded_leaves": (0 if trainer.state.sharding is None
+                                   else len(trainer.state.sharding.names))}
+            del trainer
+
+        # the sequence-parallel contractions on this card's mesh (seq axis
+        # of 1) at the flagship's attention shape
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        inputs = [torch.randn(PARALLEL_SHAPE, device="cuda", generator=gen,
+                              dtype=torch.bfloat16) for _ in range(3)]
+        cotangent = torch.randn(PARALLEL_SHAPE, device="cuda", generator=gen,
+                                dtype=torch.bfloat16)
+
+        def full(q, k, v):
+            return ring.reference_attention(q, k, v, causal=True)
+
+        def flash(q, k, v):
+            return fa.flash_attention(q, k, v, causal=True)
+
+        def ring_fn(q, k, v):
+            return ring.ring_attention(q, k, v, mesh, causal=True)
+
+        def ulysses_flash(q, k, v):
+            return ring.ulysses_attention(q, k, v, mesh, causal=True,
+                                          impl="flash")
+
+        def chained(q, k, v):
+            return ring.chained_ring_attention(q, k, v, RING_CHUNKS,
+                                               causal=True)
+
+        checks = {"ring_vs_full": attention_check(torch, ring_fn, full,
+                                                  inputs, cotangent),
+                  "chained_ring_vs_full": attention_check(
+                      torch, chained, full, inputs, cotangent),
+                  "ulysses_flash_vs_flash": attention_check(
+                      torch, ulysses_flash, flash, inputs, cotangent),
+                  "ulysses_flash_vs_full": attention_check(
+                      torch, ulysses_flash, full, inputs, cotangent)}
+        torch.cuda.synchronize()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+        def ulysses_step():
+            q, k, v = (t.detach().clone().requires_grad_() for t in inputs)
+            torch.autograd.grad(ulysses_flash(q, k, v), (q, k, v), cotangent)
+
+        _, ulysses_executed = counted_on_device(torch, ulysses_step)
+        ulysses_launches = launches_of(fa)
+        times = {name: time_ms(torch, lambda f=f: f(*inputs), iters=5)
+                 for name, f in (("ring_fwd", ring_fn),
+                                 ("ulysses_flash_fwd", ulysses_flash),
+                                 ("chained_ring_fwd", chained),
+                                 ("full_fwd", full))}
+        del inputs, cotangent
+    finally:
+        dist.destroy_process_group()
+
+    expected = layers * TRAIN_STEPS
+    row = {"phase": "parallel", "mesh": dict(zip(mesh.mesh_dim_names,
+                                                 mesh.shape)),
+           "param_sharding": "fsdp", "runs": runs,
+           "train_window_losses": k1["window_losses"],
+           "train_k5_losses": k5["losses"],
+           "loss_tol": PARALLEL_LOSS_TOL, "expected_launches": expected,
+           "attention_shape": list(PARALLEL_SHAPE), "dtype": "bfloat16",
+           "checks": checks, "tol": PARALLEL_TOL,
+           "ring_chunks": RING_CHUNKS,
+           "ulysses_flash_launches": ulysses_launches,
+           "ulysses_flash_device_launches": ulysses_executed,
+           "forward_ms": times, "seconds": time.perf_counter() - t_start}
+    emit(row)
+    for name, run in runs.items():
+        if run["steps"] != TRAIN_STEPS:
+            raise AssertionError("the fsdp trainer ({}) took {} steps, "
+                                 "expected {}".format(name, run["steps"],
+                                                      TRAIN_STEPS))
+        if any(n != expected for n in list(run["launches"].values())
+               + list(run["device_launches"].values())):
+            raise AssertionError(
+                "the fsdp trainer ({}) launched {} and the card executed "
+                "{}, expected {} each".format(name, run["launches"],
+                                              run["device_launches"],
+                                              expected))
+        if not all(d is not None and d <= PARALLEL_LOSS_TOL
+                   for d in run["loss_diff_vs_train"]):
+            raise AssertionError("the fsdp trainer's losses ({}) differ "
+                                 "from the train phase's: {}".format(
+                                     name, run["loss_diff_vs_train"]))
+    bad = {(check, name): err for check, errs in checks.items()
+           for name, err in errs.items() if not err <= PARALLEL_TOL}
+    if bad:
+        raise AssertionError("sequence-parallel attention disagrees: "
+                             "{}".format(bad))
+    if any(n != 1 for n in list(ulysses_launches.values())
+           + list(ulysses_executed.values())):
+        raise AssertionError("ulysses_attention(impl='flash') launched {} "
+                             "and the card executed {}, expected 1 "
+                             "each".format(ulysses_launches,
+                                           ulysses_executed))
+    return row
+
+
 def main():
     import torch
 
@@ -3885,8 +4083,11 @@ def main():
     moe_served = phase_moe_serve(torch, np, fa, moe_model, moe_params)
     del moe_model, moe_params
     example = phase_lm_example(torch, np, moe)
+    before_parallel_s = time.perf_counter() - started
+    parallel = phase_parallel(torch, np, fa, trained, mega)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
-          "before_moe_phases_s": earlier_s})
+          "before_moe_phases_s": earlier_s,
+          "before_parallel_phase_s": before_parallel_s})
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -3909,12 +4110,19 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the MoE LM trained at K = 5 (graph
-            # replays); its counter, held equal to the kernels the profiler
-            # saw the card execute there (device_launches_by_path)
-            "launches": moe["k5"]["launches"][name],
+            # this slice's main path: the flash LM trained at K = 5 (graph
+            # replays) by Trainer(mesh=..., param_sharding="fsdp"); its
+            # counter, held equal to the kernels the profiler saw the card
+            # execute there (device_launches_by_path)
+            "launches": parallel["runs"]["k5"]["launches"][name],
             "device_launches_by_path": dict(
-                {"moe_train": moe["k1"]["device_launches"][name],
+                {"parallel_fsdp": parallel["runs"]["k1"][
+                    "device_launches"][name],
+                 "parallel_fsdp_k5": parallel["runs"]["k5"][
+                     "device_launches"][name],
+                 "ulysses_flash": parallel[
+                     "ulysses_flash_device_launches"][name],
+                 "moe_train": moe["k1"]["device_launches"][name],
                  "moe_train_k5": moe["k5"]["device_launches"][name],
                  "train_k5": mega["device_launches"][name],
                  "cluster": clustered["device_launches"][name],
@@ -3923,7 +4131,11 @@ def main():
                 **{path: run["device_launches"][name]
                    for path, run in supervised_paths.items()}),
             "launches_by_path": dict(
-                {"moe_train": moe["k1"]["launches"][name],
+                {"parallel_fsdp": parallel["runs"]["k1"]["launches"][name],
+                 "parallel_fsdp_k5": parallel["runs"]["k5"]["launches"][
+                     name],
+                 "ulysses_flash": parallel["ulysses_flash_launches"][name],
+                 "moe_train": moe["k1"]["launches"][name],
                  "moe_train_k5": moe["k5"]["launches"][name],
                  "lm_example_synthetic":
                      example["runs"]["synthetic"]["launches"][name],

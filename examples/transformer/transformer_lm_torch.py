@@ -13,13 +13,18 @@ TimeHistory stats with the port's FLOP count, and the chief's export, all
 through ``cluster.run`` in FILES mode: every node runs ``main_fun`` inline
 in its executor process, where CUDA comes up.
 
-Where the twin differs: it trains on one card a node (``--cluster_size``
-nodes train data-parallel, the global batch split among them), so the mesh
-flags ``--data``, ``--fsdp``, ``--seq``, ``--expert`` and ``--tensor``
-default to 1 (the JAX defaults of 2 need 8 devices) and any of them above
-1, like ``--attention ring|ulysses`` and ``--ep_mode shard_map``, raises
-``NotImplementedError`` (ROADMAP.md, Queue 1, the parallelism slice);
-``--attention`` defaults to ``full``; ``--device`` ("cpu" to run on the
+Where the twin differs: it trains on one card a node, so the mesh
+``--data`` x ``--fsdp`` x ``--seq`` spans the ``--cluster_size`` nodes: the
+product must equal it (``--data`` defaults to -1, the rest of the nodes;
+``--fsdp`` and ``--seq`` to 1, where the JAX defaults of 2 need 8 devices).
+``--fsdp`` above 1 shards the params and the Adam state over that axis
+(``Trainer(param_sharding="fsdp")``); ``--seq`` above 1 splits each
+sequence over that axis, with ring attention unless ``--attention`` says
+``ulysses``, and each ``seq`` group trains on its members' pooled rows.
+``--expert`` and ``--tensor`` above 1, ``--ep_mode shard_map`` and
+``--mlp moe`` with ``--seq`` above 1 raise ``NotImplementedError``
+(ROADMAP.md, item J2); ``--attention`` defaults to ``full`` without
+``--seq``; ``--device`` ("cpu" to run on the
 CPU; the nodes' cards by default); the steps go through the port's
 Trainer (``fit_feed``); the export's ``model_config`` also carries
 ``mlp``, ``num_experts`` and ``capacity_factor``, so an MoE export is
@@ -39,8 +44,8 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
-# the JAX example's mesh axes: one card a node here
-MESH_FLAGS = ("data", "fsdp", "seq", "expert", "tensor")
+# the JAX example's mesh axes that the port does not run yet
+J2_FLAGS = ("expert", "tensor")
 # the MoE capacity factor the JAX example builds with (the model's default)
 CAPACITY_FACTOR = 1.25
 
@@ -87,22 +92,19 @@ def train_lm(args, ctx):
     from tensorflowonspark_torch import train as train_mod
     from tensorflowonspark_torch.models import transformer as tfm
     from tensorflowonspark_torch.parallel import infeed
+    from tensorflowonspark_torch.parallel import mesh as mesh_mod
 
-    for flag in MESH_FLAGS:
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                "--{} {}: the twin trains on one card a node; mesh axes "
-                "are not ported yet (ROADMAP.md, Queue 1, the parallelism "
-                "slice)".format(flag, getattr(args, flag)))
-    attention = args.attention or "full"
+    spec = check_mesh_flags(args)
+    attention = args.attention or ("ring" if args.seq > 1 else "full")
+    device = ctx.initialize_distributed(device=args.device)
+    rank = ctx.process_id or 0
+    mesh = mesh_mod.build_mesh(spec, keep_trivial_axes=True, device=device)
     model = tfm.build_transformer(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, head_dim=args.head_dim,
         max_seq_len=args.seq_len, attention=attention, mlp=args.mlp,
         num_experts=args.num_experts, capacity_factor=CAPACITY_FACTOR,
-        ep_mode=args.ep_mode, dtype=args.dtype)
-    device = ctx.initialize_distributed(device=args.device)
-    rank = ctx.process_id or 0
+        ep_mode=args.ep_mode, mesh=mesh, dtype=args.dtype)
     # one seed on every node: the same init everywhere
     model.init_weights(torch.Generator().manual_seed(0))
 
@@ -117,7 +119,8 @@ def train_lm(args, ctx):
         functools.partial(torch.optim.AdamW, lr=args.lr, eps=1e-8,
                           weight_decay=1e-4),
         batch_size=args.batch_size, log_steps=args.log_steps,
-        extra_step_flops=flash_flops, device=device)
+        extra_step_flops=flash_flops, device=device, mesh=mesh,
+        param_sharding="fsdp" if args.fsdp > 1 else None)
 
     if args.data_dir:
         # real text: raw files -> byte-level token stream (vocab 256, no
@@ -136,7 +139,8 @@ def train_lm(args, ctx):
             seed=rank)
     else:
         source = SyntheticTokens(args.seq_len, args.vocab_size, rank)
-    feed = infeed.ShardedFeed(source, args.batch_size, device=device)
+    feed = infeed.ShardedFeed(source, args.batch_size, device=device,
+                              mesh=mesh)
     stats = trainer.fit_feed(feed, max_steps=args.train_steps)
     if trainer.state.step == 0:
         raise RuntimeError(
@@ -161,6 +165,38 @@ def train_lm(args, ctx):
     return trainer, stats
 
 
+def check_mesh_flags(args):
+    """The mesh spec of the flags, after the checks that need no cluster:
+    the axes and options of ROADMAP.md's item J2 raise
+    ``NotImplementedError``, and a mesh that does not span
+    ``--cluster_size`` nodes, one card each, raises ``ValueError``."""
+    from tensorflowonspark_torch.parallel import mesh as mesh_mod
+
+    for flag in J2_FLAGS:
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(
+                "--{} {}: {} parallelism is not ported yet (ROADMAP.md, "
+                "item J2)".format(flag, getattr(args, flag), flag))
+    if args.ep_mode != "gspmd":
+        raise NotImplementedError(
+            "--ep_mode {} is not ported yet (ROADMAP.md, item J2)".format(
+                args.ep_mode))
+    if args.mlp == "moe" and args.seq > 1:
+        raise NotImplementedError(
+            "--mlp moe with --seq {}: MoE capacity comes from the global "
+            "sequence (ROADMAP.md, item J2)".format(args.seq))
+    spec = mesh_mod.MeshSpec(data=args.data, fsdp=args.fsdp, seq=args.seq)
+    try:
+        spec.resolve(args.cluster_size)
+    except AssertionError as err:
+        raise ValueError(
+            "--data {} x --fsdp {} x --seq {} must span --cluster_size {} "
+            "nodes, one card each: {}".format(args.data, args.fsdp,
+                                              args.seq, args.cluster_size,
+                                              err)) from None
+    return spec
+
+
 def main_fun(args, ctx):
     """The node function: train on this node, return the final stats."""
     return train_lm(args, ctx)[1]
@@ -177,7 +213,16 @@ def parse_args(argv=None):
     parser.add_argument("--num_heads", type=int, default=8)
     parser.add_argument("--head_dim", type=int, default=32)
     parser.add_argument("--seq_len", type=int, default=1024)
-    for flag in MESH_FLAGS:
+    parser.add_argument("--data", type=int, default=-1,
+                        help="data-parallel mesh degree (-1: the nodes "
+                             "--fsdp and --seq leave)")
+    parser.add_argument("--fsdp", type=int, default=1,
+                        help="fsdp-axis size: shards params + optimizer "
+                             "state (and contributes to batch parallelism)")
+    parser.add_argument("--seq", type=int, default=1,
+                        help="sequence-parallel degree (ring attention "
+                             "unless --attention ulysses)")
+    for flag in J2_FLAGS:
         parser.add_argument("--" + flag, type=int, default=1,
                             help="mesh axis size: 1 (not ported above 1)")
     parser.add_argument("--mlp", default="dense", choices=["dense", "moe"],
@@ -190,8 +235,9 @@ def parse_args(argv=None):
                              "one-hot dispatch); shard_map is not ported")
     parser.add_argument("--attention", default=None,
                         choices=[None, "full", "flash", "ring", "ulysses"],
-                        help="attention kernel (default full; 'flash' runs "
-                             "the hand-written CUDA kernels)")
+                        help="attention kernel (default ring when --seq "
+                             "> 1, else full; 'flash' runs the hand-written "
+                             "CUDA kernels)")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--export_dir", default=None)
@@ -213,6 +259,7 @@ def main(argv=None):
     from tensorflowonspark_torch import backend, cluster
 
     args = parse_args(argv)
+    check_mesh_flags(args)   # before any node starts
     b = backend.LocalBackend(args.cluster_size)
     try:
         c = cluster.run(b, main_fun, args, num_executors=args.cluster_size,

@@ -82,7 +82,9 @@ class CheckpointManager(object):
       is_chief: whether this process writes.  In a world of more than one
         process every rank calls :meth:`maybe_save` at the same steps (the
         JAX package's contract); only the chief writes, since the
-        all-reduced params and optimizer state are the same on every rank.
+        all-reduced params and optimizer state are the same on every rank
+        (under FSDP every rank's ``state_dict()`` all-gathers the sharded
+        optimizer state, and the chief writes the one-card format).
         A non-chief records the step it was asked for, so its save gate
         stays in step with the chief's, and writes nothing.  Every rank
         restores from the chief's files, once they are written (after the
@@ -158,11 +160,12 @@ class CheckpointManager(object):
                 return False
         if step == self._latest_effective():
             return False  # already saved (e.g. final force after interval hit)
+        if hasattr(state, "state_dict"):
+            # on every rank: under FSDP it all-gathers the optimizer state
+            state = state.state_dict()
         if not self.is_chief:
             self._last_requested = step   # the chief writes this step
             return True
-        if hasattr(state, "state_dict"):
-            state = state.state_dict()
         if self.async_save:
             state = _map_tensors(state, lambda t: t.detach().clone())
         ready = None

@@ -29,8 +29,14 @@ state, so the recompute of ``remat=True`` does not count it twice.
 ``attention`` picks the core contraction: ``"full"`` is
 :func:`~tensorflowonspark_torch.parallel.ring.reference_attention`,
 ``"flash"`` the hand-written CUDA kernel
-(:mod:`tensorflowonspark_torch.ops.flash_attention`).  Both read the same
-weights, as in the JAX package.  :mod:`~tensorflowonspark_torch.convert`
+(:mod:`tensorflowonspark_torch.ops.flash_attention`), ``"ring"`` and
+``"ulysses"`` the sequence-parallel contractions of
+:mod:`~tensorflowonspark_torch.parallel.ring` over the ``mesh``'s ``seq``
+axis (Ulysses with the JAX model's default ``impl="einsum"``).  All read the
+same weights, as in the JAX package.  On a mesh whose ``seq`` axis is P > 1
+each process holds ``[B, S/P]`` tokens, the chunk of its ``seq`` rank: the
+position embedding reads the chunk's global positions, and :func:`loss_fn`
+takes each row's mean over the global sequence.  :mod:`~tensorflowonspark_torch.convert`
 maps a flax param tree onto this module's ``state_dict`` and back.
 :func:`loss_fn` is the next-token loss the Trainer takes.
 
@@ -49,6 +55,7 @@ from torch import nn
 
 from tensorflowonspark_torch.models import register_model
 from tensorflowonspark_torch.ops import flash_attention
+from tensorflowonspark_torch.parallel import mesh as mesh_mod
 from tensorflowonspark_torch.parallel import ring
 
 _ATTENTIONS = ("full", "flash", "ring", "ulysses")
@@ -125,13 +132,12 @@ class Attention(nn.Module):
         if attention not in _ATTENTIONS:
             raise ValueError("attention must be one of {}, got {!r}".format(
                 _ATTENTIONS, attention))
-        if attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                "attention={!r} is not ported yet (ROADMAP.md, Queue 1, "
-                "the parallelism slice)".format(attention))
+        if attention in ("ring", "ulysses") and mesh is None:
+            raise ValueError("{} attention needs a mesh".format(attention))
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.attention = attention
+        self.mesh = mesh
         features = num_heads * head_dim
         self.qkv = Dense(features, 3 * features, dtype)
         self.proj = Dense(features, features, dtype)
@@ -144,6 +150,10 @@ class Attention(nn.Module):
         q, k, v = qkv.unbind(2)
         if self.attention == "flash":
             out = flash_attention(q, k, v, causal=True)
+        elif self.attention == "ring":
+            out = ring.ring_attention(q, k, v, self.mesh, causal=True)
+        elif self.attention == "ulysses":
+            out = ring.ulysses_attention(q, k, v, self.mesh, causal=True)
         else:
             out = ring.reference_attention(q, k, v, causal=True)
         return self.proj(out.reshape(batch, seq, -1))
@@ -167,17 +177,22 @@ class MoEMlp(nn.Module):
     ``w2 [E, H, D]``, ``b2 [E, D]``.
 
     The explicit expert-parallel schedule (``ep_mode="shard_map"``) and a
-    mesh are not ported."""
+    mesh whose ``seq`` or ``expert`` axis is above 1 are not ported (the
+    capacity comes from the global sequence length, so a local chunk would
+    route otherwise)."""
 
     def __init__(self, d_model, num_experts=8, mlp_ratio=4,
                  capacity_factor=1.25, ep_mode="gspmd", mesh=None,
                  dtype=torch.float32):
         super().__init__()
-        if ep_mode != "gspmd" or mesh is not None:
+        split = {} if mesh is None else {
+            a: mesh_mod.axis_size(mesh, a) for a in ("seq", "expert")
+            if mesh_mod.axis_size(mesh, a) > 1}
+        if ep_mode != "gspmd" or split:
             raise NotImplementedError(
                 "MoE with ep_mode={!r}{} is not ported yet (ROADMAP.md, "
-                "Queue 1, the parallelism slice)".format(
-                    ep_mode, "" if mesh is None else " on a mesh"))
+                "item J2)".format(ep_mode, " on mesh axes {}".format(split)
+                                  if split else ""))
         hidden = d_model * mlp_ratio
         self.num_experts = num_experts
         self.capacity_factor = capacity_factor
@@ -310,7 +325,20 @@ class TransformerLM(nn.Module):
         self.remat = bool(remat)
         dtype = _torch_dtype(dtype)
         self.dtype = dtype
+        self.mesh = mesh
         d_model = num_heads * head_dim
+        if mesh is not None:
+            axes = mesh_mod.unsupported_axes(mesh)
+            if axes:
+                raise NotImplementedError(
+                    "mesh axes {} are not ported yet (ROADMAP.md, item "
+                    "J2)".format(axes))
+            if self.seq_parallel > 1 and attention not in ("ring",
+                                                            "ulysses"):
+                raise ValueError(
+                    "attention={!r} sees only this process's chunk of a "
+                    "sequence sharded over the mesh's seq axis: use ring "
+                    "or ulysses".format(attention))
         self.embed = Embed(vocab_size, d_model, dtype)
         self.pos_embed = Embed(max_seq_len, d_model, dtype)
         self.blocks = nn.ModuleList(
@@ -330,9 +358,24 @@ class TransformerLM(nn.Module):
                 module.reset_parameters(generator)
         return self
 
+    @property
+    def seq_parallel(self):
+        """P, the size of the mesh's ``seq`` axis (1 without a mesh)."""
+        return 1 if self.mesh is None else mesh_mod.axis_size(self.mesh,
+                                                               "seq")
+
+    def seq_offset(self, chunk):
+        """The global position of this process's first token, for chunks of
+        ``chunk`` tokens (0 unless the ``seq`` axis is above 1)."""
+        if self.seq_parallel == 1:
+            return 0
+        return self.mesh.get_local_rank("seq") * chunk
+
     def forward(self, tokens, return_aux=False):
         seq = tokens.shape[1]
-        x = self.embed(tokens.long()) + self.pos_embed.weight[:seq].to(self.dtype)
+        start = self.seq_offset(seq)
+        x = (self.embed(tokens.long())
+             + self.pos_embed.weight[start:start + seq].to(self.dtype))
         remat = self.remat and torch.is_grad_enabled()
         aux_sum = None
         for block in self.blocks:
@@ -368,10 +411,20 @@ def loss_fn(model, moe_aux_weight=0.01):
     rolled by -1 and the last position, which has no target, is masked
     out.  The cross entropy is taken on the fp32 logits, averaged over
     positions per row, then over rows weighted by ``mask`` (divided by
-    ``max(mask.sum(), 1)``).  A model with MoE blocks adds
+    ``max(mask.sum(), 1)``).
+
+    On a mesh whose ``seq`` axis is P > 1 the batch is this process's
+    ``[B, S/P]`` chunk of its ``seq`` group's rows (the group's members hold
+    the same rows and mask): the target of a chunk's last token is the
+    first token of the next chunk (one all-gather over the group), only the
+    global last position is masked out, and each row's sum is divided by
+    the global S - 1.  The loss is this chunk's share: the group's losses
+    sum to the masked mean over its rows.  A model with MoE blocks adds
     ``moe_aux_weight`` (Switch Transformer's alpha) times the summed
     load-balance term, taken over every row, and reports it as
     ``aux["moe_aux_loss"]``; ``aux`` is empty otherwise."""
+
+    parts = model.seq_parallel
 
     def loss(params, batch, mask):
         tokens = batch["tokens"].long()
@@ -379,13 +432,17 @@ def loss_fn(model, moe_aux_weight=0.01):
             model, params, (tokens,), {"return_aux": True})
         batch_size, seq = tokens.shape
         targets = torch.roll(tokens, -1, dims=1)
+        if parts > 1:
+            targets[:, -1] = _next_chunk_first(tokens, model.mesh)
         ce = F.cross_entropy(logits.float().reshape(batch_size * seq, -1),
                              targets.reshape(-1), reduction="none")
-        # 1 for every position but the last; built on the device with no
-        # host copy, so a CUDA graph can capture it
-        pos_mask = (torch.arange(seq, device=logits.device)
-                    < seq - 1).float()
-        ce = (ce.reshape(batch_size, seq) * pos_mask).sum(-1) / pos_mask.sum()
+        # 1 for every global position but the last; built on the device
+        # with no host copy, so a CUDA graph can capture it
+        start = model.seq_offset(seq)
+        pos_mask = (torch.arange(start, start + seq, device=logits.device)
+                    < parts * seq - 1).float()
+        ce = (ce.reshape(batch_size, seq) * pos_mask).sum(-1) / (
+            parts * seq - 1)
         mask = mask.to(ce.dtype)
         ce = (ce * mask).sum() / mask.sum().clamp_min(1.0)
         aux = {}
@@ -395,3 +452,16 @@ def loss_fn(model, moe_aux_weight=0.01):
         return ce, aux
 
     return loss
+
+
+def _next_chunk_first(tokens, mesh):
+    """The first token of every row of the next ``seq`` rank's chunk (the
+    last rank's next is the first chunk, as a roll wraps): one all-gather of
+    ``[B]`` tokens over the ``seq`` group."""
+    group = mesh_mod.group(mesh, "seq")
+    parts = mesh_mod.axis_size(mesh, "seq")
+    firsts = torch.empty(parts * tokens.shape[0], dtype=tokens.dtype,
+                         device=tokens.device)
+    torch.distributed.all_gather_into_tensor(
+        firsts, tokens[:, 0].contiguous(), group=group)
+    return firsts.view(parts, -1)[(mesh.get_local_rank("seq") + 1) % parts]

@@ -43,6 +43,22 @@ coupled, as by BatchNorm statistics synchronised across ranks, whose
 all-reduce hands every rank the other ranks' gradients too.  Every rank then
 applies identical gradients.
 
+``mesh`` (:func:`~tensorflowonspark_torch.parallel.mesh.build_mesh`) names
+the world's axes.  Its ``data`` and ``fsdp`` coordinates carry distinct rows
+of the global batch; the ranks of one ``seq`` group hold the same rows, each
+its chunk of the sequence (the model's loss is then that chunk's share), so
+the global valid-row count counts a row once per ``seq`` group.
+``param_sharding="fsdp"`` shards the params and the optimizer state over
+the ``fsdp`` axis by the JAX package's rule
+(:class:`~tensorflowonspark_torch.parallel.fsdp.ShardedParams`): the
+gradients are reduce-scattered into shards (and summed over the mesh's
+other axes), the optimizer steps the shards, and the full params are
+all-gathered into their fixed buffers after every step, so
+``state.params`` always holds the full params.  The grad norm is then
+``sqrt`` of the all-reduced Σ of the shards' squares plus the replicated
+leaves', each leaf counted once.  ``tensor``, ``expert`` and ``pipe`` axes
+above 1 and explicit sharding trees raise (ROADMAP.md, item J2).
+
 ``extra_state`` is the JAX Trainer's non-trainable state (BatchNorm running
 averages): a name->tensor dict that the loss reads and hands back updated in
 ``aux["extra_state"]``; after each (micro-)batch the new values are copied
@@ -67,6 +83,8 @@ from tensorflowonspark_torch import fault as fault_mod
 from tensorflowonspark_torch import metrics as metrics_mod
 from tensorflowonspark_torch import telemetry
 from tensorflowonspark_torch.device import resolve_device
+from tensorflowonspark_torch.parallel import fsdp as fsdp_mod
+from tensorflowonspark_torch.parallel import mesh as mesh_mod
 
 # the flash kernels' launch counters (the module; ``ops`` re-exports the
 # function under the same name)
@@ -88,8 +106,6 @@ GRAPH_WARMUP_STEPS = 2
 # constructor arguments of the JAX Trainer that this port does not take yet:
 # (JAX default, the ROADMAP.md item that ports it)
 _UNPORTED = {
-    "mesh": (None, "Queue 1, the parallelism slice"),
-    "param_sharding": (None, "Queue 1, the parallelism slice (FSDP)"),
     "aot_cache": (None, "Queue 1, the compile plane"),
 }
 
@@ -99,18 +115,26 @@ class TrainState:
     """The step counter, the params (a name->tensor dict, updated in place),
     the optimizer that holds their state, and the non-trainable ``extra``
     state (a name->tensor dict, e.g. BatchNorm running averages; None
-    without one), updated in place too."""
+    without one), updated in place too.  Under FSDP ``sharding`` is the
+    :class:`~tensorflowonspark_torch.parallel.fsdp.ShardedParams` whose
+    shards the optimizer steps (``params`` are the full params)."""
 
     step: int
     params: dict
     optimizer: Any
     extra: Any = None
+    sharding: Any = None
 
     def state_dict(self):
         """``{"step", "params", "opt_state"}`` and ``"extra"`` when there is
-        extra state: what a checkpoint holds."""
+        extra state: what a checkpoint holds.  Under FSDP the optimizer
+        state is all-gathered to its full shapes, so the state is a
+        one-card state (a collective call: every rank makes it)."""
+        opt_state = self.optimizer.state_dict()
+        if self.sharding is not None:
+            opt_state = self.sharding.full_optimizer_state(opt_state)
         state = {"step": self.step, "params": self.params,
-                 "opt_state": self.optimizer.state_dict()}
+                 "opt_state": opt_state}
         if self.extra is not None:
             state["extra"] = self.extra
         return state
@@ -121,13 +145,20 @@ class TrainState:
         tensor hyperparameter this optimizer already holds, which keep their
         storage (a captured CUDA graph reads them at their addresses).
         ``capturable`` flags stay as they are; the other hyperparameters
-        come from ``state``."""
+        come from ``state``.  Under FSDP each rank takes its shards of the
+        one-card state."""
         opt = self.optimizer
         with torch.no_grad():
-            for name, t in self.params.items():
-                t.copy_(state["params"][name])
+            if self.sharding is not None:
+                self.sharding.load_full(state["params"])
+            else:
+                for name, t in self.params.items():
+                    t.copy_(state["params"][name])
             for name, t in (self.extra or {}).items():
                 t.copy_(state["extra"][name])
+        opt_state = state["opt_state"]
+        if self.sharding is not None:
+            opt_state = self.sharding.local_optimizer_state(opt_state)
         held = {p: dict(s) for p, s in opt.state.items()}
         flags = [g.get("capturable") for g in opt.param_groups]
         # tensor hyperparameters (a tensor lr a schedule writes on the
@@ -135,7 +166,7 @@ class TrainState:
         held_hyper = [{k: v for k, v in g.items()
                        if isinstance(v, torch.Tensor)}
                       for g in opt.param_groups]
-        opt.load_state_dict(state["opt_state"])
+        opt.load_state_dict(opt_state)
         for group, flag, hyper in zip(opt.param_groups, flags, held_hyper):
             if flag is not None:
                 group["capturable"] = flag
@@ -345,15 +376,21 @@ class Trainer(object):
         micro-batches' products add up to it); the counted bytes are the
         dispatched step's, which reads the params once per micro-batch.
 
-    ``mesh``, ``param_sharding`` and ``aot_cache`` raise
-    ``NotImplementedError`` at any value other than the JAX default: they
-    are not ported yet.
+      mesh: the device mesh
+        (:func:`~tensorflowonspark_torch.parallel.mesh.build_mesh`), or None:
+        data parallelism over the world, as a ``("data",)`` mesh gives.
+      param_sharding: None (replicated params and optimizer state) or
+        ``"fsdp"`` (sharded over the mesh's ``fsdp`` axis, which it needs).
+
+    ``aot_cache`` raises ``NotImplementedError`` at any value other than
+    the JAX default: it is not ported yet.
     """
 
     def __init__(self, loss_fn, init_params, optimizer, extra_state=None,
                  compute_dtype=None, batch_size=None, log_steps=20,
                  extra_step_flops=0, step_flops_override=None,
-                 summary_writer=None, device=None, accum_steps=1, **unported):
+                 summary_writer=None, device=None, accum_steps=1, mesh=None,
+                 param_sharding=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError("Trainer() got an unexpected keyword "
@@ -364,6 +401,20 @@ class Trainer(object):
                     "Trainer({}=...) is not ported yet (ROADMAP.md, "
                     "{})".format(name, item))
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh_mod.unsupported_axes(mesh):
+            raise NotImplementedError(
+                "Trainer(mesh=...) with mesh axes {} is not ported yet "
+                "(ROADMAP.md, item J2)".format(
+                    mesh_mod.unsupported_axes(mesh)))
+        if param_sharding not in (None, "fsdp"):
+            raise NotImplementedError(
+                "Trainer(param_sharding=<a sharding tree>) is not ported "
+                "yet (ROADMAP.md, item J2); None and 'fsdp' are")
+        # the ranks of one seq group hold the same rows: the global
+        # valid-row count divides by it
+        self._seq_parallel = (1 if mesh is None
+                              else mesh_mod.axis_size(mesh, "seq"))
         if int(accum_steps) < 1:
             raise ValueError("accum_steps must be >= 1, got {}".format(
                 accum_steps))
@@ -382,9 +433,16 @@ class Trainer(object):
             extra = {name: torch.as_tensor(t).detach().to(self.device,
                                                           copy=True)
                      for name, t in extra_state.items()}
+        sharding = None
+        if param_sharding == "fsdp":
+            sharding = fsdp_mod.ShardedParams(params, mesh)
+            if not sharding.names:   # a size-1 axis: everything replicates
+                sharding = None
+        stepped = (list(params.values()) if sharding is None
+                   else sharding.optimizer_params())
         self.state = TrainState(step=0, params=params,
-                                optimizer=optimizer(list(params.values())),
-                                extra=extra)
+                                optimizer=optimizer(stepped), extra=extra,
+                                sharding=sharding)
         if self.device.type == "cuda" and not _asks_not_capturable(
                 optimizer):
             # eager steps and graph replays share one optimizer arithmetic
@@ -481,6 +539,9 @@ class Trainer(object):
         ``accum_steps`` micro-batches, see :meth:`_accum_grads`; in a world
         of more than one process, :meth:`_global_grads`)."""
         self.state.optimizer.zero_grad(set_to_none=True)
+        for p in self.state.params.values():
+            p.grad = None   # under FSDP a sharded leaf's full param is not
+            # the optimizer's (compile_and_measure leaves its grad set)
         if _world_size() > 1:
             return self._global_grads(batch, mask)
         if self.accum_steps > 1:
@@ -535,9 +596,13 @@ class Trainer(object):
         the masked mean over the global batch, the micro-batches weighted
         as :meth:`_accum_grads` weights them.  A loss coupled across ranks
         (synchronised BatchNorm statistics) gets each rank's share of the
-        cross terms right too.  Returns this rank's share of the loss."""
+        cross terms right too.  Under a ``seq`` axis above 1 the members of
+        a group count their shared rows once.  Returns this rank's share of
+        the loss."""
         total = mask.sum().reshape(1)
         dist.all_reduce(total)
+        if self._seq_parallel > 1:
+            total = total / self._seq_parallel
         total = total.clamp_min(1.0)
         l_sum = mask.new_zeros(())
         for b, m in self._micro_batches(batch, mask):
@@ -567,15 +632,26 @@ class Trainer(object):
         scalars; in a multi-process world the loss and gradients are the
         global batch's."""
         loss, aux = self._grads(batch, mask)
+        sharding = self.state.sharding
+        if sharding is not None:
+            sharding.scatter_grads()
         grads = [p.grad for p in self.state.params.values()
                  if p.grad is not None]
         if _world_size() > 1:
             loss = self._allreduce(loss, grads)
-        grad_norm = torch.nn.utils.get_total_norm(grads)
+        if sharding is None:
+            grad_norm = torch.nn.utils.get_total_norm(grads)
+        else:
+            sq = sharding.grad_sq_sum()
+            for g in grads:
+                sq = sq + g.float().square().sum()
+            grad_norm = sq.sqrt()
         with warnings.catch_warnings():
             # a capturable optimizer stepped eagerly: meant (see __init__)
             warnings.filterwarnings("ignore", message=".*capturable=True")
             self.state.optimizer.step()
+        if sharding is not None:
+            sharding.gather()
         return loss, aux, grad_norm
 
     def _step_core(self, batch, mask):
@@ -796,8 +872,10 @@ class Trainer(object):
         launches = {name: n - before[name]
                     for name, n in _kernels.launch_counts().items()}
         _kernels.add_launches({name: -n for name, n in launches.items()})
+        stepped = [p for g in self.state.optimizer.param_groups
+                   for p in g["params"]]
         entry = _StepGraph(graph, static_batch, static_mask, loss, grad_norm,
-                           [p.grad for p in self.state.params.values()],
+                           [p.grad for p in stepped],
                            launches,
                            _frozen_hyperparameters(self.state.optimizer))
         self._graphs[key] = entry

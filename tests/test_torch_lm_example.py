@@ -4,10 +4,12 @@
 on the synthetic stream and on byte files (``--data_dir``); each export is
 served by the port's ``ModelServer`` and its loss on the stream is below
 the initial model's.  Also the stream against the JAX example's formula
-and the flags that wait for the parallelism slice."""
+the mesh flags over gloo (``--fsdp 2``, ``--data 1 --seq 2``) against
+the one-node run, and the flags that still raise."""
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 
@@ -122,11 +124,66 @@ def test_synthetic_stream_is_the_jax_examples():
         np.testing.assert_array_equal(got["tokens"], want)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--data", "2"], ["--fsdp", "2"], ["--seq", "2"], ["--expert", "2"],
-    ["--tensor", "2"], ["--attention", "ring"], ["--attention", "ulysses"],
-    MOE + ["--ep_mode", "shard_map"]])
-def test_parallel_flags_wait_for_the_parallelism_slice(flags):
+# --data, --fsdp and --seq are ported: a mesh that does not span
+# --cluster_size (1 here) refuses before any node starts; --expert,
+# --tensor, --ep_mode shard_map and MoE under --seq wait for ROADMAP.md's
+# item J2
+@pytest.mark.parametrize("flags,error,match", [
+    (["--data", "2"], ValueError, "cluster_size"),
+    (["--fsdp", "2"], ValueError, "cluster_size"),
+    (["--seq", "2"], ValueError, "cluster_size"),
+    (["--expert", "2"], NotImplementedError, "J2"),
+    (["--tensor", "2"], NotImplementedError, "J2"),
+    (["--attention", "ring", "--seq", "2"] + MOE, NotImplementedError, "J2"),
+    (["--attention", "ulysses", "--seq", "2"], ValueError, "cluster_size"),
+    (MOE + ["--ep_mode", "shard_map"], NotImplementedError, "J2")])
+def test_parallel_flags_wait_for_the_parallelism_slice(flags, error, match):
     args = twin.parse_args(TINY + ["--vocab_size", "64"] + flags)
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    with pytest.raises(error, match=match):
         twin.train_lm(args, argparse.Namespace())
+
+
+# d_model 64 and vocab 256: the token table and MLP weights shard under
+# --fsdp 2; 4 rows a node a step
+MESH_RUN = ["--device", "cpu", "--cluster_size", "2", "--num_layers", "2",
+            "--num_heads", "4", "--head_dim", "16", "--vocab_size", "256",
+            "--seq_len", "32", "--batch_size", "8", "--train_steps", "4",
+            "--lr", "1e-3", "--log_steps", "2"]
+# the last step's loss as printed (4 decimals), fp32 sums in another order
+MESH_LOSS_TOL = 2e-4
+# the exports' token tables after 4 AdamW steps of lr 1e-3
+MESH_PARAM_TOL = 1e-5
+
+
+def test_mesh_flags_train_as_data_parallel(tmp_path):
+    """Two nodes over gloo: ``--fsdp 2`` (the Adam state sharded) and
+    ``--data 1 --seq 2`` (each sequence split over both nodes, ring
+    attention, the nodes' rows pooled) train on the global batch that
+    ``--data 2`` trains on, to the same loss; each chief exports the full
+    params."""
+    runs = {}
+    for name, flags in (("data", ["--data", "2"]),
+                        ("fsdp", ["--data", "1", "--fsdp", "2"]),
+                        ("seq", ["--data", "1", "--seq", "2"])):
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        runs[name] = subprocess.Popen(
+            [sys.executable, EXAMPLE] + MESH_RUN + flags + [
+                "--export_dir", str(tmp_path / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+    outs = {name: _wait(proc) for name, proc in runs.items()}
+    losses = {}
+    for name, out in outs.items():
+        # one a node; the nodes share a stdout, so lines may interleave
+        losses[name] = [float(x) for x in re.findall(
+            r"trained 4 steps, loss ([0-9.]+)", out)]
+        assert len(losses[name]) == 2, (name, out[-2000:])
+    want = losses["data"][0]
+    for name, got in losses.items():
+        assert max(abs(x - want) for x in got) <= MESH_LOSS_TOL, losses
+    tables = {name: checkpoint.load_model(str(tmp_path / name))[0][
+        "embed.weight"].numpy() for name in runs}
+    for name, table in tables.items():
+        assert table.shape == (256, 64)
+        np.testing.assert_allclose(table, tables["data"], rtol=0,
+                                   atol=MESH_PARAM_TOL, err_msg=name)

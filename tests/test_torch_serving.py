@@ -203,8 +203,17 @@ bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden!r})
 missing = sorted(set(pkg.__name__ + "." + m for m in (
     "summary", "tfrecord", "example_proto", "schema", "dfutil", "transport",
     "gateway", "fleet", "pipeline", "models.linear", "models.twotower",
-    "models.resnet", "ops.augment", "data"))
+    "models.resnet", "ops.augment", "data", "parallel.mesh",
+    "parallel.fsdp", "parallel.ring"))
     - set(names))
+from tensorflowonspark_torch.parallel import fsdp, mesh, ring
+missing += [n for n in ("ring_attention", "ulysses_attention",
+                        "chained_ring_attention") if not hasattr(ring, n)]
+missing += [n for n in ("MeshSpec", "build_mesh", "batch_sharding",
+                        "replicated", "local_batch_size")
+            if not hasattr(mesh, n)]
+missing += [n for n in ("leaf_spec", "tree_shardings", "shard_tree",
+                        "ShardedParams") if not hasattr(fsdp, n)]
 from tensorflowonspark_torch import fleet, gateway, pipeline
 missing += [n for n in ("TFEstimator", "TFModel", "_run_model_fn")
             if not hasattr(pipeline, n)]
@@ -230,9 +239,10 @@ sys.exit(1 if bad or missing or len(names) < 25 else 0)
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every port module (the copied
-    cluster layer, the serving tier, the ResNets, ``ops.augment`` and
-    ``data`` among them), chip_smoke.py and the port's MNIST, ResNet and
-    LM examples has no jax, flax, optax, orbax or JAX-package module."""
+    cluster layer, the serving tier, the ResNets, ``ops.augment``,
+    ``data`` and the mesh, FSDP and ring modules among them),
+    chip_smoke.py and the port's MNIST, ResNet and LM examples has no jax,
+    flax, optax, orbax or JAX-package module."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],

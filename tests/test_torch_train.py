@@ -296,12 +296,37 @@ def test_trainer_without_cpu_raises_when_no_cuda(flax_params, monkeypatch):
         _trainer(flax_params, device=None)
 
 
+class _DataMesh(object):
+    """A stand-in for a one-process ``("data",)`` mesh: its axis names and
+    sizes, all the Trainer reads of it."""
+
+    mesh_dim_names = ("data",)
+
+    def size(self, dim):
+        return 1
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"param_sharding": "fsdp"}, {"accum_steps": 2},
+    {"mesh": _DataMesh()}, {"param_sharding": "fsdp"}, {"accum_steps": 2},
     {"aot_cache": "/nonexistent"}, {"summary_writer": "tfevents"},
 ])
 def test_unported_trainer_arguments_raise(flax_params, kwargs, tmp_path):
     name = next(iter(kwargs))
+    if name == "mesh":
+        # ported: a one-process data mesh steps as no mesh
+        # (tests/test_torch_parallel_ckpt.py holds a world of two to the
+        # bit, tests/test_torch_parallel_train.py meshes against JAX)
+        tr, plain = _trainer(flax_params, **kwargs), _trainer(flax_params)
+        got, _ = tr.step({"tokens": _tokens(5)})
+        want, _ = plain.step({"tokens": _tokens(5)})
+        assert got.item() == want.item()
+        return
+    if name == "param_sharding":
+        # ported, on a mesh with an fsdp axis; without one it refuses, as
+        # the JAX Trainer does
+        with pytest.raises(ValueError, match="fsdp"):
+            _trainer(flax_params, **kwargs)
+        return
     if name == "accum_steps":
         # ported: two micro-batches of 4 rows give the full-batch step
         # (tests/test_torch_evaluate_accum.py holds it against the JAX

@@ -103,13 +103,29 @@ def test_init_weights_is_seeded():
     assert torch.equal(a.blocks[0].ln1.weight, torch.ones(16))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"attention": "ring"}, "parallelism slice"),
-    ({"attention": "ulysses"}, "parallelism slice"),
-    ({"mlp": "moe", "ep_mode": "shard_map"}, "parallelism slice"),
+class _Mesh(object):
+    """A stand-in for a mesh: its axis names and sizes, all the model reads
+    before it refuses one."""
+
+    def __init__(self, **sizes):
+        self.mesh_dim_names = tuple(sizes)
+        self._sizes = tuple(sizes.values())
+
+    def size(self, dim):
+        return self._sizes[dim]
+
+
+# ring and Ulysses attention are ported; without a mesh they refuse as the
+# JAX model asserts ("ring attention needs a mesh"), and a mesh with a
+# tensor axis waits for ROADMAP.md's item J2
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"attention": "ring"}, ValueError, "ring attention needs a mesh"),
+    ({"attention": "ulysses"}, ValueError, "ulysses attention needs a mesh"),
+    ({"attention": "ring", "mesh": _Mesh(data=1, tensor=2)},
+     NotImplementedError, "J2"),
 ])
-def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise(kwargs, error, match):
+    with pytest.raises(error, match=match):
         transformer.build_transformer(**dict(CFG, **kwargs))
 
 
