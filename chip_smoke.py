@@ -151,6 +151,30 @@ weights from a seed) along both paths:
   and the ring recurrence chained over 4 sequence chunks against full
   attention, each within 2e-2 of the largest value or gradient.  The
   four-card cases of the slice are ``tests/test_torch_nccl_cuda.py``'s.
+- observability: the flagship LM in one SPARK-mode executor under
+  ``cluster.run(observatory=True, telemetry=True, profiler=True)``, from
+  rows a driver thread streams until the phase is done: a K = 1 stretch
+  until the driver's switch, then K = 5 (graph replays) to the end of the
+  feed.  ``/metrics`` is scraped mid-run at heartbeat cadence: every line
+  parses as text exposition 0.0.4, ``tfos_up`` is 1, the step-time
+  histogram and the ``*_per_sec`` rates are there, and the MFU gauge of one
+  closed window agrees within 5% with the analytic FLOPs over that window's
+  step time; ``/status`` lists the node's profiler address; ``GET
+  /profile?steps=5`` at K = 1 and during the K = 5 stretch each land a
+  manifest and a trace that ``profiling.merge_capture`` merges with the
+  telemetry host traces, holding all three flash kernels (their counts,
+  the dispatches the window held, the capture's seconds, its bytes and the
+  profiler's start-up printed); the node's ``/capture`` dialed directly
+  holds them too; the step at K = 1 and K = 5 with the observatory on and
+  with a capture in flight, beside the cluster phases' (neither).  Then on
+  this card: ``fit_supervised(profiler=StepProfiler(dir, "10,12"))`` at K
+  = 1, whose trace holds exactly the flash kernels the launch counters
+  counted over its window (3 x 8 of each); ``fit_feed(transfer_guard=
+  "disallow")`` at K = 1 and K = 5 on device-resident batches equal to the
+  unguarded runs bit for bit (at K = 5 with a capture asked for during the
+  graph capture, which waits for it and then sees the replays); a loss
+  with one implicit host-to-device copy raising under ``"disallow"`` and
+  logged under ``"log"``; and the guard's cost a step at K = 1.
 
 A last line before the kernels line gives the script's wall time.
 
@@ -159,6 +183,7 @@ non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
 one card; without CUDA, or without the package beside it, it fails.
 """
 
+import gzip
 import importlib
 import json
 import math
@@ -4028,6 +4053,782 @@ def phase_parallel(torch, np, fa, k1, k5):
     return row
 
 
+# ---------------------------------------------------------------------------
+# device observability: the observatory, cluster captures, the step
+# profiler and the transfer guard
+# ---------------------------------------------------------------------------
+
+# the observed cluster: one SPARK-mode executor trains the flagship LM from
+# rows that a driver thread streams in partitions of 64 until the phase is
+# done; windows of 20 steps; beats every 0.5 s, and 60 missed beats (30 s)
+# before a node counts as dead, as the first capture's profiler start-up
+# in a fresh process can hold the node for seconds
+OBS_PART_ROWS = 64
+OBS_LOG_STEPS = 20
+OBS_HEARTBEAT_SECS = 0.5
+OBS_HEARTBEAT_MISSES = 60
+# the K = 1 stretch runs until the driver's switch (after its captures at
+# K = 1) or this many steps; each capture spans this many dispatches
+OBS_K1_MAX_STEPS = 1500
+OBS_CAPTURE_STEPS = 5
+# dispatches at K = 5 before its capture: the first warms up and captures
+# the graph, the rest replay it (3 windows of OBS_LOG_STEPS, for the step
+# time with the observatory on)
+OBS_K5_DISPATCHES = 12
+OBS_DIRECT_CAPTURE_MS = 500
+# the driver's waits: to the first steady windows (bring-up included), for
+# a capture to land, for K = 5's graph to replay
+OBS_READY_SECS = 300
+OBS_CAPTURE_SECS = 180
+OBS_SCRAPE_SECS = 0.1
+# the MFU gauge against the analytic count over the same window: the
+# gauge's FLOPs are FlopCounterMode's count plus the flash kernels'
+# analytic ones, and the analytic model count is 3 x the forward's matmuls
+# plus the same flash figure: on the card both came out equal (PERF.md), so
+# 5% holds any timing rounding and a wrong count or peak is off by far more
+OBS_MFU_RTOL = 0.05
+# the step profiler over steps 10-12 of a fit_supervised run at K = 1: its
+# trace holds exactly the kernels of those three dispatches
+STEP_PROFILE = "10,12"
+STEP_PROFILE_STEPS = 15
+# then, late in this long-lived process, more step-profiler windows of
+# three eager steps each, alternately with the profiler's edge kernels (as
+# shipped, every one held exact) and with its idle edges alone (counted)
+EDGE_WINDOWS = 5
+EDGE_WINDOW = "1,3"
+# the guarded train path at K = 1 and K = 5 on device-resident batches,
+# against the same path unguarded: the same kernels on the same data, so
+# the losses and params are held bit for bit
+GUARD_STEPS = 20
+GUARD_TIMED_STEPS = 10
+GUARD_ROUNDS = 3
+
+
+# text exposition 0.0.4: metric names and one sample line
+METRIC_NAME_RE = re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*\Z")
+METRIC_SAMPLE_RE = re.compile(
+    r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (-?[0-9.e+-]+|[+-]Inf|NaN)\Z')
+
+
+def parse_exposition(text):
+    """``({family: type}, {sample line name + labels: value})`` of a
+    Prometheus text exposition (0.0.4); raises on any line that is neither
+    a well-formed HELP/TYPE comment nor a sample, on a family typed twice
+    and on a family with HELP but no TYPE."""
+    families, helped, samples = {}, set(), {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            name = line.split()[2]
+            if not METRIC_NAME_RE.match(name):
+                raise AssertionError("bad HELP line: %r" % line)
+            helped.add(name)
+        elif line.startswith("# TYPE "):
+            _, _, name, mtype = line.split()[:4]
+            if (not METRIC_NAME_RE.match(name) or name in families
+                    or mtype not in ("counter", "gauge", "histogram")):
+                raise AssertionError("bad TYPE line: %r" % line)
+            families[name] = mtype
+        else:
+            found = METRIC_SAMPLE_RE.match(line)
+            if not found:
+                raise AssertionError("unparseable sample line: %r" % line)
+            samples[found.group(1) + (found.group(2) or "")] = float(
+                found.group(3))
+    if helped != set(families):
+        raise AssertionError("HELP and TYPE families differ: {}".format(
+            sorted(helped ^ set(families))))
+    return families, samples
+
+
+def flash_kernel_counts(events):
+    """The flash kernels a Chrome trace's device events hold, by the names
+    of the kernels line (fp32 and bf16 variants together)."""
+    counts = dict.fromkeys(FLASH_KERNELS, 0)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for name, fragment in FLASH_KERNELS.items():
+                if fragment in str(e.get("name", "")):
+                    counts[name] += 1
+    return counts
+
+
+class Stretches(object):
+    """One ShardedFeed's K-step groups for two ``fit_feed`` calls on one
+    node: :meth:`batches` takes the groups apart into single steps (the K =
+    1 stretch) until the driver's ``switch`` file exists at a group
+    boundary (or ``max_steps``); :meth:`grouped_batches` then hands on the
+    rest as they come (the K = 5 stretch).  Nothing is dropped between the
+    two: one prefetch thread, one consumer."""
+
+    def __init__(self, sharded, k, switch, max_steps):
+        self.groups = sharded.grouped_batches(k)
+        self.switch, self.max_steps = switch, max_steps
+
+    def batches(self):
+        steps = 0
+        for kind, batch, mask in self.groups:
+            if kind == "multi":
+                for i in range(mask.shape[0]):
+                    yield {n: t[i] for n, t in batch.items()}, mask[i]
+                steps += mask.shape[0]
+            else:
+                yield batch, mask
+                steps += 1
+            if os.path.exists(self.switch) or steps >= self.max_steps:
+                return
+
+    def grouped_batches(self, k):
+        yield from self.groups
+
+
+def observe_main(args, ctx):
+    """The observed node's user fn, run in the child the node forked: the
+    LM from the node's feed, steady at K = 1 until the driver's switch,
+    then K = 5 to the end of the feed; the flash launch counters zeroed
+    before and read after both; reports each dispatch's wall-clock end and
+    each stretch's windows to ``args["report"]``."""
+    import functools
+    import importlib
+    import traceback
+
+    report = {}
+    try:
+        import torch
+
+        from tensorflowonspark_torch import profiler, train
+        from tensorflowonspark_torch.models import get_model, transformer
+        from tensorflowonspark_torch.ops import _build
+        from tensorflowonspark_torch.parallel import infeed
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        # the node warmed the profiler before this fn (its seconds)
+        report["profiler_preload_s"] = profiler.preload_secs
+        device = ctx.initialize_distributed(device=args["device"])
+        if device.type == "cuda":
+            for name in _build.build():     # the parent built them: loads
+                _build.load(name)
+        cfg = args["config"]
+        model = get_model("transformer_lm", **cfg)
+        model.init_weights(torch.Generator().manual_seed(0))
+        trainer = train.Trainer(
+            transformer.loss_fn(model), dict(model.state_dict()),
+            functools.partial(torch.optim.Adam, lr=args["lr"]),
+            compute_dtype=getattr(torch, cfg["dtype"]),
+            batch_size=args["batch"], log_steps=args["log_steps"],
+            extra_step_flops=args["flash_flops"], device=device)
+        feed = Stretches(infeed.ShardedFeed(
+            ctx.get_data_feed(), args["batch"],
+            transform=lambda t: {"tokens": t}, device=device),
+            MEGA_K, args["switch"], OBS_K1_MAX_STEPS)
+        ends = []
+
+        def on_steps(step):
+            ends.append((time.time(), step))
+
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        trainer.fit_feed(feed, on_steps=on_steps)          # the path starts
+        k1_steps = trainer.state.step
+        k1_windows = len(trainer.history.timestamp_log)
+        stats = trainer.fit_feed(feed, steps_per_call=MEGA_K,
+                                 on_steps=on_steps)
+        launches = launches_of(fa)                         # ... and ends
+        report.update({"launches": launches, "k1_steps": k1_steps,
+                       "steps": trainer.state.step, "dispatch_ends": ends,
+                       "windows": trainer.history.timestamp_log,
+                       "k1_windows": k1_windows,
+                       "megastep": stats["megastep"],
+                       "graphs": len(trainer._graphs),
+                       "step_flops": trainer.history.step_flops})
+        # the last beats carry the final counters before the roster BYEs
+        time.sleep(3 * OBS_HEARTBEAT_SECS)
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args["report"] + ".tmp", "w") as f:
+            json.dump(report, f)
+        os.replace(args["report"] + ".tmp", args["report"])
+
+
+def http_get(url, timeout=60):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read(), dict(r.headers)
+
+
+def node_metrics(base):
+    """One ``/metrics`` scrape: the text and its parsed families and
+    samples (raises if any line does not parse)."""
+    text = http_get(base + "/metrics")[0].decode()
+    families, samples = parse_exposition(text)
+    return text, families, samples
+
+
+def wait_until(what, fn, seconds, every=OBS_SCRAPE_SECS):
+    deadline = time.monotonic() + seconds
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError("waited {} s for {}".format(seconds, what))
+        time.sleep(every)
+
+
+def cluster_capture(base, steps):
+    """``GET /profile?steps=`` and wait until its manifest is written;
+    returns the trigger's answer, the manifest and the seconds to it."""
+    t0 = time.perf_counter()
+    out = json.loads(http_get(base + "/profile?steps=%d" % steps)[0])
+
+    def done():
+        last = json.loads(http_get(base + "/status")[0]).get("last_capture")
+        return (last if last and last["capture_id"] == out["capture_id"]
+                and last["complete"] else None)
+
+    wait_until("capture " + out["capture_id"], done, OBS_CAPTURE_SECS, 0.2)
+    with open(os.path.join(out["dir"], "capture.json")) as f:
+        manifest = json.load(f)
+    return out, manifest, time.perf_counter() - t0
+
+
+def median_or_none(xs):
+    return median(xs) if xs else None
+
+
+def step_costs(report, captures):
+    """Per-step ms of the node's dispatches at K = 1 and K = 5: the
+    windows (of OBS_LOG_STEPS) that overlap no capture, its profiler's
+    start-up included, the first window of each stretch left out; and the
+    dispatch intervals wholly inside a capture's window.  ``captures``
+    hold each capture's wall-clock ``window`` and ``start_secs``."""
+    spans = [(c["window"][0] - c["start_secs"], c["window"][1])
+             for c in captures]
+
+    def overlaps(a, b):
+        return any(a < hi and b > lo for lo, hi in spans)
+
+    out = {}
+    ends = report["dispatch_ends"]
+    k1_steps = report["k1_steps"]
+    log, n1 = report["windows"], report["k1_windows"]
+    for name, log in (("k1", log[:n1]), ("k5", log[n1 - 1:])):
+        clean = [1e3 * (t1 - t0) / (s1 - s0)
+                 for (s0, t0), (s1, t1) in list(zip(log, log[1:]))[1:]
+                 if not overlaps(t0, t1)]
+        inside = [1e3 * (t1 - t0) / (s1 - s0)
+                  for (t0, s0), (t1, s1) in zip(ends, ends[1:])
+                  if (s1 <= k1_steps) == (name == "k1") and s1 > s0
+                  and any(lo <= t0 and t1 <= hi for lo, hi in spans)]
+        out[name] = {"observatory_on_ms_per_step": median_or_none(clean),
+                     "observatory_on_windows": len(clean),
+                     "capture_in_flight_ms_per_step": median_or_none(inside),
+                     "capture_in_flight_dispatches": len(inside)}
+    return out
+
+
+def phase_observability_cluster(torch, np, metrics, clustered, mega_cluster,
+                                device=None):
+    """The flagship LM in one SPARK-mode executor under ``cluster.run(
+    observatory=True, telemetry=True, profiler=True)``: ``/metrics``
+    scraped mid-run (it parses; ``tfos_up`` 1; the step-time histogram and
+    the rates; the MFU gauge against the analytic count over the same
+    window), ``/status``'s profiler address, ``GET /profile?steps=5`` at K
+    = 1 and during a K = 5 stretch (graph replays), each merged with the
+    telemetry host traces and holding all three flash kernels, and the
+    node's ``/capture`` dialed directly."""
+    import threading
+
+    from tensorflowonspark_torch import backend, cluster, profiling
+
+    vocab, layers = LM_CONFIG["vocab_size"], LM_CONFIG["num_layers"]
+    heads, head_dim = LM_CONFIG["num_heads"], LM_CONFIG["head_dim"]
+    d_model = heads * head_dim
+    flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
+    analytic_flops = (3 * TRAIN_BATCH * SEQ * (24 * d_model * d_model * layers
+                                              + 2 * d_model * vocab)
+                      + flash_flops)
+    peak = metrics.peak_flops_per_device(device)
+    if device is None:
+        torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(tmp, "logs")
+        args = {"config": LM_CONFIG, "device": device, "lr": LR,
+                "batch": TRAIN_BATCH, "log_steps": OBS_LOG_STEPS,
+                "flash_flops": flash_flops,
+                "switch": os.path.join(tmp, "switch"),
+                "report": os.path.join(tmp, "report.json")}
+        stop_feed = threading.Event()
+        fed = {"rows": 0}
+
+        def partitions():
+            seed = 100
+            while not stop_feed.is_set():
+                seed += 1
+                fed["rows"] += OBS_PART_ROWS
+                yield list(lm_rows(np, seed, OBS_PART_ROWS, SEQ, vocab))
+
+        b = backend.LocalBackend(1)
+        try:
+            c = cluster.run(b, observe_main, args, num_executors=1,
+                            input_mode=cluster.InputMode.SPARK,
+                            log_dir=log_dir, telemetry=True,
+                            observatory=True, profiler=True,
+                            heartbeat_interval=OBS_HEARTBEAT_SECS,
+                            heartbeat_misses=OBS_HEARTBEAT_MISSES)
+            base = "http://127.0.0.1:%d" % c.observatory.addr[1]
+            feed_errors = []
+
+            def feed():
+                try:
+                    c.train(partitions())
+                except Exception as e:
+                    feed_errors.append(repr(e))
+
+            feeder = threading.Thread(target=feed, daemon=True)
+            feeder.start()
+            try:
+                def windows_closed(n):
+                    return node_metrics(base)[2].get(
+                        'tfos_step_ms_count{executor="0"}', 0) >= (
+                            n * OBS_LOG_STEPS)
+
+                wait_until("two steady windows at K = 1",
+                           lambda: windows_closed(2), OBS_READY_SECS)
+                # scrapes at heartbeat cadence until two consecutive
+                # samples differ by one closed window: its step time and
+                # the MFU gauge folded from that same window
+                scrapes, pair = [], None
+                deadline = time.monotonic() + 60
+                while pair is None and time.monotonic() < deadline:
+                    scrapes.append(node_metrics(base)[2])
+                    if len(scrapes) > 1:
+                        key = 'tfos_step_ms_count{executor="0"}'
+                        if (scrapes[-1].get(key, 0) - scrapes[-2].get(key, 0)
+                                == OBS_LOG_STEPS):
+                            pair = scrapes[-2:]
+                    time.sleep(OBS_SCRAPE_SECS)
+                if pair is None:
+                    raise AssertionError("no two scrapes one window apart")
+                before, after = pair
+                window_ms = (after['tfos_step_ms_sum{executor="0"}']
+                             - before['tfos_step_ms_sum{executor="0"}']) / (
+                                 OBS_LOG_STEPS)
+                gauge = after.get('tfos_train_mfu_pct_max{executor="0"}')
+                analytic_mfu = (100.0 * analytic_flops / peak / (
+                    window_ms / 1e3) if peak else None)
+                status = json.loads(http_get(base + "/status")[0])
+                addresses = status.get("profiler_addresses")
+                cap1, man1, cap1_s = cluster_capture(base,
+                                                     OBS_CAPTURE_STEPS)
+                body, headers = http_get(
+                    "http://%s/capture?duration_ms=%d" % (
+                        addresses[0], OBS_DIRECT_CAPTURE_MS))
+                direct = flash_kernel_counts(json.loads(
+                    gzip.decompress(body))["traceEvents"])
+                direct_info = {k[len("X-Tfos-Capture-"):]: v
+                               for k, v in headers.items()
+                               if k.startswith("X-Tfos-Capture-")}
+                # the K = 5 stretch: past the switch, and two dispatches
+                # after the first at K = 5 (which warms up and captures)
+                open(args["switch"], "w").close()
+                dispatches = 'tfos_dispatch_count_total{executor="0"}'
+
+                def at_k5():
+                    s = node_metrics(base)[2]
+                    return (s.get(dispatches) if s.get(
+                        'tfos_train_steps_per_call_max{executor="0"}')
+                        == MEGA_K else None)
+
+                first_k5 = wait_until("K = 5", at_k5, OBS_READY_SECS)
+                wait_until("K = 5 replays",
+                           lambda: (node_metrics(base)[2].get(dispatches, 0)
+                                    >= first_k5 + OBS_K5_DISPATCHES),
+                           OBS_READY_SECS)
+                cap2, man2, cap2_s = cluster_capture(base,
+                                                     OBS_CAPTURE_STEPS)
+                _, last_families, last_samples = node_metrics(base)
+            finally:
+                stop_feed.set()
+                feeder.join(timeout=120)
+            c.shutdown(grace_secs=1)
+            report = wait_for_report(args["report"], CLUSTER_REPORT_SECS)
+        finally:
+            b.stop()
+        merged = {}
+        for name, cap in (("k1", cap1), ("k5", cap2)):
+            payload = profiling.merge_capture(
+                cap["dir"], telemetry_dir=os.path.join(log_dir, "telemetry"))
+            events = payload["traceEvents"]
+            merged[name] = {
+                "flash_kernels": flash_kernel_counts(events),
+                "events": len(events),
+                "host_spans": sum(1 for e in events
+                                  if e.get("name") == "train/dispatch"),
+                "sources": payload["otherData"]["sources"]}
+    phase_s = time.perf_counter() - t_start
+    captures = {}
+    for name, cap, man, secs in (("k1", cap1, man1, cap1_s),
+                                 ("k5", cap2, man2, cap2_s)):
+        node = man["nodes"]["0"]
+        k = 1 if name == "k1" else MEGA_K
+        captures[name] = dict(
+            merged[name], capture_id=cap["capture_id"],
+            request=cap["request"], errors=man["errors"],
+            dispatches=node.get("steps"), steps=(node.get("steps") or 0) * k,
+            expected_flash_kernels=layers * (node.get("steps") or 0) * k,
+            elapsed_secs=node.get("elapsed_secs"),
+            profiler_start_secs=node.get("start_secs"),
+            artifact_bytes=node.get("artifact_bytes"),
+            files_dropped=node.get("files_dropped", 0),
+            all_threads=node.get("all_threads"),
+            trigger_to_manifest_s=secs)
+    direct_info["window"] = json.loads(direct_info["window"])
+    direct_info["start-secs"] = float(direct_info["start-secs"])
+    costs = step_costs(report, [man1["nodes"]["0"], man2["nodes"]["0"],
+                                {"window": direct_info["window"],
+                                 "start_secs": direct_info["start-secs"]}])
+    costs["k1"]["neither_ms_per_step"] = clustered["steady_ms_per_step"]
+    costs["k5"]["neither_ms_per_step"] = mega_cluster["steady_ms_per_step"]
+    rates = sorted(n for n in last_families if n.endswith("_per_sec"))
+    row = {"phase": "observability_cluster", "config": LM_CONFIG,
+           "backend": "LocalBackend(1)", "input_mode": "SPARK",
+           "rows_fed": fed["rows"], "feed_errors": feed_errors,
+           "steps": report["steps"],
+           "k1_steps": report["k1_steps"], "graphs": report["graphs"],
+           "megastep": report["megastep"], "launches": report["launches"],
+           "node_profiler_preload_s": report["profiler_preload_s"],
+           "scrapes": len(scrapes) + 1,
+           "metric_families": len(last_families),
+           "tfos_up": last_samples.get('tfos_up{executor="0"}'),
+           "step_histogram": last_families.get("tfos_step_ms"),
+           "rate_gauges": len(rates),
+           "mfu": {"gauge_pct": gauge, "window_ms_per_step": window_ms,
+                   "analytic_step_flops": analytic_flops,
+                   "counted_step_flops": report["step_flops"],
+                   "peak_flops": peak, "analytic_pct": analytic_mfu,
+                   "rtol": OBS_MFU_RTOL},
+           "profiler_addresses": addresses,
+           "captures": captures,
+           "direct_capture": {"flash_kernels": direct,
+                              "gzip_bytes": len(body), "info": direct_info},
+           "step_cost": costs, "phase_s": phase_s}
+    emit(row)
+    if feed_errors:
+        raise AssertionError("feeding the observed node failed: {}".format(
+            feed_errors))
+    if last_samples.get('tfos_up{executor="0"}') != 1:
+        raise AssertionError("/metrics does not say the node is up")
+    if (last_families.get("tfos_step_ms") != "histogram" or not rates
+            or len(scrapes) < 2):
+        raise AssertionError("/metrics lacks the step histogram or the "
+                             "rates: {}".format(sorted(last_families)))
+    if not (gauge and analytic_mfu
+            and abs(gauge / analytic_mfu - 1) <= OBS_MFU_RTOL):
+        raise AssertionError("the MFU gauge {} disagrees with the analytic "
+                             "count's {} over the same window".format(
+                                 gauge, analytic_mfu))
+    if not (isinstance(addresses, list) and len(addresses) == 1):
+        raise AssertionError("/status lists profiler addresses {}".format(
+            addresses))
+    for name, cap in list(captures.items()) + [("direct", {
+            "flash_kernels": direct, "errors": {}})]:
+        if cap["errors"] or not all(cap["flash_kernels"].values()):
+            raise AssertionError("the {} capture holds flash kernels {}, "
+                                 "errors {}".format(name,
+                                                    cap["flash_kernels"],
+                                                    cap["errors"]))
+    if report["megastep"]["steps_per_call"] != MEGA_K or not report["graphs"]:
+        raise AssertionError("the K = 5 stretch did not replay a graph: "
+                             "{}".format(report["megastep"]))
+    return row
+
+
+class OnCard(object):
+    """An NgramFeed's batches (and K-step stacks) moved to the card as the
+    loop pulls them, outside the dispatch: what an infeed hands a guarded
+    ``fit_feed``."""
+
+    def __init__(self, torch, feed, device):
+        self.torch, self.feed, self.device = torch, feed, device
+
+    def _on_card(self, batch, mask):
+        return ({"tokens": self.torch.from_numpy(batch["tokens"]).to(
+            self.device)}, self.torch.from_numpy(mask).to(self.device))
+
+    def batches(self):
+        for batch, mask in self.feed.batches():
+            yield self._on_card(batch, mask)
+
+    def grouped_batches(self, k):
+        while True:
+            yield ("multi",) + self._on_card(*self.feed.next_group(k))
+
+
+class Guarded(object):
+    """A trainer whose ``step`` runs under the transfer guard, for
+    :func:`interleaved_steady`."""
+
+    def __init__(self, train, trainer):
+        self.train, self.trainer = train, trainer
+
+    def step(self, batch, mask):
+        with self.train._TransferGuard("disallow"):
+            return self.trainer.step(batch, mask)
+
+
+def phase_observability(torch, np, fa, metrics, clustered, mega_cluster,
+                        device=None):
+    """Device observability: the observed cluster (above); then on this
+    card the step profiler over steps 10-12 of ``fit_supervised`` at K = 1
+    (the trace's flash kernels against the launch counters over the same
+    dispatches), and the transfer guard: the guarded train path at K = 1
+    and K = 5 against the unguarded one, bit for bit (at K = 5 with a
+    cluster-style capture landing during the graph capture, held off until
+    it ends), a loss with one implicit host->device copy raising under
+    ``"disallow"`` and logged under ``"log"``, and the guard's cost a step
+    at K = 1."""
+    import functools
+    import logging
+    import threading
+
+    from tensorflowonspark_torch import checkpoint, profiler, profiling, train
+    from tensorflowonspark_torch.models import get_model, transformer
+
+    cluster_row = phase_observability_cluster(torch, np, metrics, clustered,
+                                              mega_cluster, device)
+    t_start = time.perf_counter()
+    vocab, layers = LM_CONFIG["vocab_size"], LM_CONFIG["num_layers"]
+    heads, head_dim = LM_CONFIG["num_heads"], LM_CONFIG["head_dim"]
+    model = get_model("transformer_lm", **LM_CONFIG)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = dict(model.state_dict())
+    lm_loss = transformer.loss_fn(model)
+    flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
+    dev = torch.device(device or "cuda")
+
+    def new_trainer(loss=lm_loss, **kwargs):
+        return train.Trainer(loss, init,
+                             functools.partial(torch.optim.Adam, lr=LR),
+                             compute_dtype=torch.bfloat16,
+                             batch_size=TRAIN_BATCH, log_steps=LOG_STEPS,
+                             extra_step_flops=flash_flops, device=dev,
+                             **kwargs)
+
+    def stream(seed=0):
+        return OnCard(torch, NgramFeed(np, seed, TRAIN_BATCH, SEQ, vocab),
+                      dev)
+
+    # the step profiler: fit_supervised at K = 1, steps 10-12 traced
+    class Counted(profiler.StepProfiler):
+        """The step profiler, reading the launch counters as it starts and
+        stops (after the card ran every queued step)."""
+
+        def _start(self):
+            super()._start()
+            self.at_start = launches_of(fa)
+
+        def stop(self):
+            if self._active:
+                profiler.synchronize()
+                self.at_stop = launches_of(fa)
+            super().stop()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = Counted(os.path.join(tmp, "trace"), STEP_PROFILE)
+        ckpt = checkpoint.CheckpointManager(os.path.join(tmp, "ckpt"),
+                                            save_interval_steps=0)
+        trainer = new_trainer()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        train.fit_supervised(trainer, stream, ckpt,          # path starts
+                             max_steps=STEP_PROFILE_STEPS, profiler=prof)
+        step_profiler_launches = launches_of(fa)            # ... and ends
+        ckpt.close()
+        del trainer
+        with gzip.open(prof.trace_path, "rt") as f:
+            traced = flash_kernel_counts(json.load(f)["traceEvents"])
+        trace_bytes = os.path.getsize(prof.trace_path)
+    window = {n: prof.at_stop[n] - prof.at_start[n] for n in traced}
+
+    # more windows: the edge kernels against the idle edges alone
+    trainer = new_trainer()
+    batches = device_batches(torch, NgramFeed(np, 4, TRAIN_BATCH, SEQ,
+                                              vocab), 5, dev)
+    trainer.step(*batches[0])
+    edge_kernels = profiler.EDGE_KERNELS
+    edges = {"padded": [], "idle_only": []}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for i in range(2 * EDGE_WINDOWS):
+                arm = "padded" if i % 2 == 0 else "idle_only"
+                profiler.EDGE_KERNELS = edge_kernels if i % 2 == 0 else 0
+                extra = Counted(os.path.join(tmp, str(i)), EDGE_WINDOW)
+                for batch, mask in batches:
+                    extra.on_step_begin()
+                    trainer.step(batch, mask)
+                    extra.on_step_end()
+                with gzip.open(extra.trace_path, "rt") as f:
+                    got = flash_kernel_counts(json.load(f)["traceEvents"])
+                moved = {n: extra.at_stop[n] - extra.at_start[n]
+                         for n in got}
+                edges[arm].append({"moved": moved, "traced": got})
+    finally:
+        profiler.EDGE_KERNELS = edge_kernels
+    del trainer, batches
+    edge_lost = {arm: sum(w["moved"][n] - w["traced"][n]
+                          for w in ws for n in w["moved"])
+                 for arm, ws in edges.items()}
+
+    # the guarded train path against the unguarded one, K = 1 and K = 5;
+    # at K = 5 a capture asked for while the graph is captured (the first
+    # hold of cuda_graph_lock: the warm-ups before it take no lock)
+    guard_runs, landed = {}, {}
+    for k in (1, MEGA_K):
+        run = {}
+        for guard in (None, "disallow"):
+            curve = LossCurve()
+            trainer = new_trainer(summary_writer=curve)
+            capture = None
+            if k > 1 and guard and dev.type == "cuda":
+                def during_graph_capture():
+                    deadline = time.monotonic() + 120
+                    while (not profiling.cuda_graph_lock.locked()
+                           and time.monotonic() < deadline):
+                        time.sleep(0.0005)
+                    landed["during_graph_capture"] = (
+                        profiling.cuda_graph_lock.locked())
+                    body, info = profiling.capture_bytes(duration_ms=500)
+                    landed.update(info, flash_kernels=flash_kernel_counts(
+                        json.loads(gzip.decompress(body))["traceEvents"]))
+                capture = threading.Thread(target=during_graph_capture)
+                capture.start()
+            fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+            trainer.fit_feed(stream(), max_steps=GUARD_STEPS,  # path starts
+                             steps_per_call=k, transfer_guard=guard)
+            launches = launches_of(fa)                       # ... and ends
+            if capture is not None:
+                capture.join(timeout=180)
+            run[guard or "unguarded"] = {
+                "losses": [curve.losses.get(s)
+                           for s in range(1, GUARD_STEPS + 1)
+                           if s in curve.losses],
+                "params": {n: t.detach().clone()
+                           for n, t in trainer.state.params.items()},
+                "launches": launches, "graphs": len(trainer._graphs)}
+            del trainer
+        params_equal = all(torch.equal(run["disallow"]["params"][n], t)
+                           for n, t in run["unguarded"]["params"].items())
+        guard_runs["k%d" % k] = {
+            "losses": run["disallow"]["losses"],
+            "unguarded_losses": run["unguarded"]["losses"],
+            "losses_equal": (run["disallow"]["losses"]
+                             == run["unguarded"]["losses"]),
+            "params_equal": params_equal,
+            "launches": run["disallow"]["launches"],
+            "graphs": run["disallow"]["graphs"]}
+        del run
+
+    # the planted copy: raises under "disallow", logged under "log"
+    def planted(params, batch, mask):
+        weights = torch.ones(batch["tokens"].shape[0]).to(dev)
+        return lm_loss(params, batch, mask * weights)
+
+    raised = None
+    try:
+        new_trainer(planted).fit_feed(stream(), max_steps=1,
+                                      transfer_guard="disallow")
+    except RuntimeError as err:
+        raised = str(err)
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    records = Records()
+    train.logger.addHandler(records)
+    try:
+        new_trainer(planted).fit_feed(stream(), max_steps=2,
+                                      transfer_guard="log")
+    finally:
+        train.logger.removeHandler(records)
+    logged = [m for m in records.messages if "host->device copy" in m]
+
+    # the guard's cost a step at K = 1: eager steps on batches already on
+    # the card, guarded and not, interleaved
+    trainer = new_trainer()
+    batches = device_batches(torch, NgramFeed(np, 3, TRAIN_BATCH, SEQ,
+                                              vocab), GUARD_TIMED_STEPS, dev)
+    trainer.step(*batches[0])
+    timed = interleaved_steady(
+        torch, {"unguarded": trainer, "guarded": Guarded(train, trainer)},
+        batches, GUARD_ROUNDS)
+    del trainer
+    row = {"phase": "observability", "config": LM_CONFIG,
+           "step_profiler": {
+               "profile_steps": STEP_PROFILE, "steps": STEP_PROFILE_STEPS,
+               "launches": step_profiler_launches,
+               "trace_flash_kernels": traced,
+               "counter_delta_over_window": window,
+               "trace_bytes": trace_bytes,
+               "edge_windows": {"windows_each": EDGE_WINDOWS,
+                                "profile_steps": EDGE_WINDOW,
+                                "by_window": edges,
+                                "lost": edge_lost}},
+           "transfer_guard": {
+               "runs": guard_runs,
+               "capture_during_graph_capture": landed,
+               "planted_raised": raised, "planted_logged": len(logged),
+               "k1_ms_per_step": {n: median(v) for n, v in timed.items()},
+               "k1_ms_runs": timed},
+           "card_s": time.perf_counter() - t_start}
+    emit(row)
+    expected = 3 * layers
+    if not (traced == window and all(n == expected
+                                     for n in traced.values())):
+        raise AssertionError("the step profiler's trace holds flash "
+                             "kernels {}, the counters moved {} over its "
+                             "window, expected {} each".format(
+                                 traced, window, expected))
+    if not all(w["traced"] == w["moved"]
+               and all(n == expected for n in w["moved"].values())
+               for w in edges["padded"]):
+        raise AssertionError("step-profiler windows with edge kernels, "
+                             "flash kernels traced against the counters' "
+                             "moves (expected {} each): {}".format(
+                                 expected, edges["padded"]))
+    for name, run in guard_runs.items():
+        # K = 1 writes the loss at each window's end, K = 5 every step's
+        want = GUARD_STEPS // (LOG_STEPS if name == "k1" else 1)
+        if not (run["losses_equal"] and run["params_equal"]
+                and len(run["losses"]) == want):
+            raise AssertionError("the guarded run ({}) differs from the "
+                                 "unguarded one: {} against {}".format(
+                                     name, run["losses"],
+                                     run["unguarded_losses"]))
+    if not guard_runs["k%d" % MEGA_K]["graphs"]:
+        raise AssertionError("the guarded K = 5 run captured no graph")
+    if not (landed.get("during_graph_capture")
+            and all(landed.get("flash_kernels", {0: 0}).values())):
+        raise AssertionError("the capture asked for during the graph "
+                             "capture did not land on the replays: "
+                             "{}".format(landed))
+    if raised is None or "host->device copy" not in raised or len(
+            logged) != 2:
+        raise AssertionError("the planted copy raised {!r} under disallow "
+                             "and was logged {} times under log (2 "
+                             "steps)".format(raised, len(logged)))
+    return cluster_row, row
+
+
 def main():
     import torch
 
@@ -4085,9 +4886,13 @@ def main():
     example = phase_lm_example(torch, np, moe)
     before_parallel_s = time.perf_counter() - started
     parallel = phase_parallel(torch, np, fa, trained, mega)
+    before_observability_s = time.perf_counter() - started
+    observed, observed_card = phase_observability(
+        torch, np, fa, metrics, clustered, mega_cluster)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
           "before_moe_phases_s": earlier_s,
-          "before_parallel_phase_s": before_parallel_s})
+          "before_parallel_phase_s": before_parallel_s,
+          "before_observability_phase_s": before_observability_s})
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -4110,11 +4915,11 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the flash LM trained at K = 5 (graph
-            # replays) by Trainer(mesh=..., param_sharding="fsdp"); its
-            # counter, held equal to the kernels the profiler saw the card
-            # execute there (device_launches_by_path)
-            "launches": parallel["runs"]["k5"]["launches"][name],
+            # this slice's main path: the flash LM trained in the observed
+            # SPARK-mode cluster node, a K = 1 stretch then a K = 5 one,
+            # under the observatory's scrapes and captures; the node's
+            # counters, zeroed before and read after both stretches
+            "launches": observed["launches"][name],
             "device_launches_by_path": dict(
                 {"parallel_fsdp": parallel["runs"]["k1"][
                     "device_launches"][name],
@@ -4131,7 +4936,14 @@ def main():
                 **{path: run["device_launches"][name]
                    for path, run in supervised_paths.items()}),
             "launches_by_path": dict(
-                {"parallel_fsdp": parallel["runs"]["k1"]["launches"][name],
+                {"observability_cluster": observed["launches"][name],
+                 "observability_step_profiler": observed_card[
+                     "step_profiler"]["launches"][name],
+                 "observability_guard_k1": observed_card["transfer_guard"][
+                     "runs"]["k1"]["launches"][name],
+                 "observability_guard_k5": observed_card["transfer_guard"][
+                     "runs"]["k%d" % MEGA_K]["launches"][name],
+                 "parallel_fsdp": parallel["runs"]["k1"]["launches"][name],
                  "parallel_fsdp_k5": parallel["runs"]["k5"]["launches"][
                      name],
                  "ulysses_flash": parallel["ulysses_flash_launches"][name],

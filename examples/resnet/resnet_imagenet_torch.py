@@ -25,9 +25,11 @@ Where the twin differs: ``--device`` ("cpu" to run on the CPU; the nodes'
 cards by default); ``--eval_data_dir`` with ``--predecoded`` reads
 predecoded ``validation-*.raw`` shards (center crop on the host), since a
 host without PIL or OpenCV cannot decode the JPEG validation shards the
-JAX example reads; ``--profile_steps`` raises ``NotImplementedError``
-(ROADMAP.md, item K).  The export carries the params alone, as the JAX
-example's does: the running averages stay in the checkpoints.
+JAX example reads; ``--profile_steps start,stop`` writes a gzipped Chrome
+trace (``*.pt.trace.json.gz``) of those steps into ``--profile_dir``
+(``profiler.StepProfiler``, on ``torch.profiler``).  The export carries the
+params alone, as the JAX example's does: the running averages stay in the
+checkpoints.
 
 Run on the CPU (tiny smoke):
     python examples/resnet/resnet_imagenet_torch.py --device cpu \\
@@ -135,10 +137,6 @@ def train_resnet(args, ctx):
 
     if EXAMPLE_DIR not in sys.path:   # imagenet_input_torch, in an executor
         sys.path.insert(0, EXAMPLE_DIR)
-    if args.profile_steps:
-        raise NotImplementedError(
-            "--profile_steps: the step profiler is not ported yet "
-            "(ROADMAP.md, item K)")
     device = ctx.initialize_distributed(device=args.device)
     rank = ctx.process_id or 0
     world = max(ctx.num_processes or 1, 1)
@@ -205,6 +203,13 @@ def train_resnet(args, ctx):
             ctx.absolute_path(args.model_dir),
             save_interval_steps=args.save_interval, is_chief=ctx.is_chief())
 
+    prof = None
+    if args.profile_steps:
+        from tensorflowonspark_torch import profiler
+
+        prof = profiler.StepProfiler(
+            args.profile_dir or "profile_logs", args.profile_steps)
+
     if args.data_dir:
         # ImageNet TFRecord shards: stream through data.FileFeed with the
         # reference's preprocessing (imagenet_input_torch) and the same
@@ -252,10 +257,18 @@ def train_resnet(args, ctx):
         def on_steps(s):
             if ckpt:
                 ckpt.maybe_save(s, trainer.state)
+            if prof:
+                # dispatch granularity: a K-step group counts as one hop
+                prof.on_step_end()
+                prof.on_step_begin()
 
+        if prof:
+            prof.on_step_begin()
         stats = trainer.fit_feed(sharded, max_steps=total_steps,
                                  steps_per_call=args.steps_per_call,
                                  on_steps=on_steps)
+        if prof:
+            prof.stop()
         _maybe_eval(args, ctx, model, trainer, size, in_dtype, stats)
         _finish(args, ctx, trainer, ckpt, int(trainer.state.step), size)
         return trainer, stats
@@ -272,13 +285,19 @@ def train_resnet(args, ctx):
             if len(idx) < local_bs:
                 break
             batch = {"image": images[idx], "label": labels[idx]}
+            if prof:
+                prof.on_step_begin()
             loss_v, aux = trainer.step(batch, mask_np)
+            if prof:
+                prof.on_step_end()
             step += 1
             if ckpt:
                 ckpt.maybe_save(step, trainer.state)
             if step >= total_steps:
                 break
 
+    if prof:
+        prof.stop()
     trainer.history.on_train_end(loss_v)
     stats = trainer.history.log_stats(
         loss=float(loss_v), accuracy=float(aux["accuracy"]))
@@ -437,7 +456,8 @@ def parse_args(argv=None):
                         help="TensorBoard event dir (chief writes loss/"
                              "throughput/MFU curves + eval accuracy)")
     parser.add_argument("--profile_steps", default=None,
-                        help="not ported yet (ROADMAP.md, item K)")
+                        help="'start,stop': trace these steps into "
+                             "--profile_dir")
     parser.add_argument("--profile_dir", default=None)
     parser.add_argument("--device", default=None,
                         help="'cpu' to train on the CPU; the nodes' cards "

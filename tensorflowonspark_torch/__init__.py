@@ -40,3 +40,5 @@ user-fn child), and a process that has initialized CUDA cannot hand it to
 a forked child.  The driver and the executor shells never initialize CUDA;
 the first CUDA call is in the user's ``main_fun``.
 """
+
+__version__ = "0.1.0"

@@ -15,10 +15,12 @@ Input modes (reference ``TFCluster.py:41-44``):
   per-executor queues into the nodes (feed jobs with backpressure).
 
 The driver never initializes CUDA for the cluster: the executors are
-spawned processes, and each node's first CUDA call is in its user fn.  Not
-ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md item
-when asked for: ``observatory``, ``watchtower``, ``autopilot``,
-``remediator``, ``data_service``, ``profiler`` and ``compile_cache_dir``.
+spawned processes, and each node's first CUDA call is in its user fn.  The
+observatory (``observatory=True``: ``/metrics``, ``/status``, ``/profile``,
+``/slow``) and the per-node profiler capture endpoints (``profiler=True``)
+are ported.  Not ported yet, each raising ``NotImplementedError`` naming its
+ROADMAP.md item when asked for: ``watchtower``, ``autopilot``,
+``remediator``, ``data_service`` and ``compile_cache_dir``.
 """
 
 import logging
@@ -43,12 +45,10 @@ COMPILE_CACHE_DIR_ENV = "TFOS_COMPILE_CACHE_DIR"
 # cluster.run options whose planes are not ported: (value that leaves them
 # off, the ROADMAP.md item that ports them)
 _UNPORTED = {
-    "observatory": "Queue 1, the observability planes (observatory)",
     "watchtower": "Queue 1, the observability planes (watchtower)",
     "autopilot": "Queue 1, the observability planes (autopilot)",
     "remediator": "Queue 1, the observability planes (remediator)",
     "data_service": "Queue 1, the module queue: the data service",
-    "profiler": "Queue 1, item 18 (device observability)",
     "compile_cache_dir": "Queue 1, item 16 (compile plane)",
 }
 
@@ -66,7 +66,8 @@ class TPUCluster(object):
     ``TFCluster.py:29-207``)."""
 
     def __init__(self, backend, cluster_meta, cluster_info, input_mode,
-                 server, start_job, tf_status, queues):
+                 server, start_job, tf_status, queues, observatory=None,
+                 profiling=None):
         self.backend = backend
         self.cluster_meta = cluster_meta
         self.cluster_info = cluster_info
@@ -75,6 +76,14 @@ class TPUCluster(object):
         self.start_job = start_job
         self.tf_status = tf_status
         self.queues = queues
+        # optional observatory.ObservatoryServer (cluster.run(observatory=
+        # True)): live /metrics + /status HTTP endpoint; stopped with the
+        # cluster on every shutdown path (see _latch_telemetry)
+        self.observatory = observatory
+        # optional profiling.CaptureCoordinator (rides the observatory
+        # flag): .trigger() captures traces from the driver without going
+        # through HTTP; artifacts land under <log_dir>/profiles
+        self.profiling = profiling
 
     # -- data plane -------------------------------------------------------
 
@@ -284,8 +293,24 @@ class TPUCluster(object):
             snap = self.server.metrics_snapshot()
             if snap.get("nodes"):
                 self.tf_status.setdefault("telemetry", snap)
+                # slow-request exemplars ride serving heartbeats; latch the
+                # cluster-wide worst offenders so a finished run still names
+                # the requests that blew its tail latency
+                from tensorflowonspark_torch import observatory as obs_mod
+
+                slow = obs_mod.collect_slow(snap)
+                if slow:
+                    self.tf_status.setdefault("serving_slow", slow)
         except Exception:
             logger.debug("telemetry latch failed", exc_info=True)
+        if self.observatory is not None:
+            # exporter outlives the nodes (scrapes tolerate node death) but
+            # not the cluster handle; stop is idempotent across the several
+            # shutdown paths that reach this latch
+            try:
+                self.observatory.stop()
+            except Exception:
+                logger.debug("observatory stop failed", exc_info=True)
         telemetry_mod.get_tracer().flush()
 
     def inference(self, data, qname="input", chunk_size=1024):
@@ -509,6 +534,14 @@ class TPUCluster(object):
         self.server.stop()
         logger.info("cluster stopped")
 
+    def profiler_addresses(self):
+        """``host:port`` of each node's profiler capture endpoint
+        (``cluster.run(..., profiler=True)``): ``GET
+        http://<address>/capture?duration_ms=`` answers with a gzipped
+        Chrome trace of that node's process."""
+        return ["{}:{}".format(n["host"], n["profiler_port"])
+                for n in self.cluster_info if n.get("profiler_port")]
+
     def tensorboard_url(self):
         """URL of the cluster-managed TensorBoard, if launched (reference
         ``TFCluster.py:202-207``)."""
@@ -565,24 +598,41 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
       telemetry_dir: directory for per-process trace/flight files
         (default: ``<log_dir>/telemetry``, or ``./telemetry`` without a
         log_dir).  See docs/OBSERVABILITY.md.
-      profiler, data_service, observatory, observatory_port, watchtower,
-        autopilot, remediator, compile_cache_dir: the JAX package's
-        observability, data-service and compile planes.  Not ported yet:
-        any value that would turn one on raises ``NotImplementedError``
-        naming its ROADMAP.md item (``watchtower=None``, the default,
-        follows ``observatory``).
+      profiler: serve a trace-capture endpoint from each training node's
+        user-fn process (``profiler.start_server``; ``GET
+        /capture?duration_ms=&steps=`` answers with a gzipped Chrome
+        trace) and publish its port in the roster
+        (:meth:`TPUCluster.profiler_addresses`).
+      observatory: start the driver-side HTTP observatory — ``/metrics``
+        (Prometheus text exposition), ``/status`` (JSON ``tf_status`` +
+        metrics snapshot, the profiler addresses and the last capture),
+        ``/profile?duration_ms=&steps=`` (a cluster-wide trace capture
+        fanned out on heartbeat replies, landing under
+        ``<log_dir>/profiles/<capture_id>/``) and ``/slow``; per-node
+        counter samples are kept in a bounded ring so the exporter also
+        derives ``*_per_sec`` rates.  The address lands on
+        ``cluster.observatory.addr``.  With telemetry off, nodes send bare
+        beats and the exporter mostly shows ``tfos_nodes``: enable both.
+      observatory_port: TCP port for the observatory (0 = ephemeral).
+      data_service, watchtower, autopilot, remediator, compile_cache_dir:
+        the JAX package's data-service, alerting, control and compile
+        planes.  Not ported yet: any value that would turn one on raises
+        ``NotImplementedError`` naming its ROADMAP.md item.  In the JAX
+        package ``watchtower=None`` (the default) follows ``observatory``;
+        here it stays off until the watchtower is ported (one log line
+        says so).
     """
-    for name, value in (("observatory", observatory),
-                        ("watchtower", watchtower), ("autopilot", autopilot),
+    for name, value in (("watchtower", watchtower), ("autopilot", autopilot),
                         ("remediator", remediator),
                         ("data_service", data_service),
-                        ("profiler", profiler),
                         ("compile_cache_dir", compile_cache_dir)):
         if value:
             raise NotImplementedError(
                 "cluster.run({}=...) is not ported yet (ROADMAP.md, "
                 "{})".format(name, _UNPORTED[name]))
-    del observatory_port
+    if observatory and watchtower is None:
+        logger.info("watchtower=None: off, as the watchtower is not ported "
+                    "yet (ROADMAP.md, %s)", _UNPORTED["watchtower"])
     if hasattr(cluster_backend, "parallelize"):  # raw SparkContext
         cluster_backend = backend_mod.SparkBackend(cluster_backend)
     num_executors = num_executors or cluster_backend.num_executors
@@ -713,6 +763,45 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
                                 on_dead=_on_dead, on_bye=_on_bye)
     server_addr = server.start()
 
+    obs = None
+    profiling_coord = None
+    if observatory:
+        from tensorflowonspark_torch import observatory as observatory_mod
+        from tensorflowonspark_torch import profiling as profiling_mod
+
+        # Sample ring first: the server records a timestamped copy of each
+        # node's folded counters on every metrics-bearing beat, so the
+        # exporter can derive rates; the HTTP endpoint reads only through
+        # snapshot callables (copies), so scrapes are safe mid-run and
+        # mid-node-death.
+        ring = observatory_mod.SampleRing()
+        server.sample_ring = ring
+        # On-demand trace captures: GET /profile fans out through the
+        # heartbeat channel and artifacts land under <log_dir>/profiles.
+        profiling_coord = profiling_mod.CaptureCoordinator(
+            server, os.path.abspath(
+                os.path.join(log_dir or ".", "profiles")))
+        server.profile_coordinator = profiling_coord
+
+        def _profiler_addresses():
+            # lazy: the observatory starts before the roster exists, and the
+            # roster can change on replacement admission
+            return ["{}:{}".format(m.get("host"), m.get("profiler_port"))
+                    for m in server.reservations.get()
+                    if isinstance(m, dict) and m.get("profiler_port")]
+
+        obs = observatory_mod.ObservatoryServer(
+            server.metrics_snapshot, ring=ring,
+            status_fn=lambda: tf_status, port=observatory_port,
+            profile_fn=profiling_coord.trigger,
+            profiler_addresses_fn=_profiler_addresses,
+            capture_status_fn=profiling_coord.status,
+            coordinator_fn=server.ha_status,
+            beat_ages_fn=server.beat_ages)
+        addr = obs.start()
+        logger.info("observatory serving /metrics, /status, /profile and "
+                    "/slow at http://%s:%d", addr[0], addr[1])
+
     # Reservation-coordinator endpoint list for the nodes: the live
     # primary first, then any warm standbys at pre-agreed pinned ports
     # (TFOS_RS_STANDBY env: "host:port[,host:port...]").  Node-side
@@ -739,6 +828,8 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         "heartbeat_interval": heartbeat_interval,
         "telemetry": telemetry_mod.meta_spec(telemetry, tdir),
         "data_service": None,
+        # the nodes warm their profiler where captures can come
+        "profiling": bool(observatory or profiler),
         # Resolved on the DRIVER, as in the JAX package, so a node refuses
         # a cache dir that only the driver's environment names.
         "compile_cache_dir": os.environ.get(COMPILE_CACHE_DIR_ENV),
@@ -754,7 +845,8 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
     background = (input_mode == InputMode.SPARK)
     start_fn = node.run(map_fun, tf_args, cluster_meta, tensorboard=tensorboard,
                         log_dir=log_dir, queues=tuple(queues),
-                        background=background, release_port=release_port)
+                        background=background, release_port=release_port,
+                        profiler=profiler)
     # Replacement admission re-runs this same start closure on the fresh
     # executor (the role travels as an explicit assignment item, see
     # node.run) — SPARK-mode nodes run the user fn in a background child,
@@ -818,4 +910,5 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         seen.add(key)
 
     return TPUCluster(cluster_backend, cluster_meta, cluster_info, input_mode,
-                      server, start_job, tf_status, tuple(queues))
+                      server, start_job, tf_status, tuple(queues),
+                      observatory=obs, profiling=profiling_coord)

@@ -166,6 +166,18 @@ def _knob_reply_handler(reply):
         apply_knobs(reply["knobs"])
 
 
+def _profile_handler(job_name):
+    """The ``on_profile`` capture handler for this node's HeartbeatSender:
+    the training roles run the trace captures fanned out on beat replies
+    (:func:`profiling.handle_capture_request`); other roles get None — the
+    driver never targets them."""
+    if job_name not in _DIST_JOBS:
+        return None
+    from tensorflowonspark_torch import profiling
+
+    return profiling.handle_capture_request
+
+
 def _node_metrics_provider(mgr, qname="input"):
     """Build the heartbeat metrics provider for this node's user-fn process.
 
@@ -206,6 +218,14 @@ def _node_metrics_provider(mgr, qname="input"):
                 parts.append(feed.counters_snapshot())
             except Exception:
                 pass
+        try:
+            # profiler capture endpoint liveness (its counter is {} unless
+            # this process started one)
+            from tensorflowonspark_torch import profiler as profiler_mod
+
+            parts.append(profiler_mod.server_counters())
+        except Exception:
+            pass
         try:
             # card memory HWMs: device-plane health riding the same beat as
             # the host-side feed counters ({} until this process initialized
@@ -515,7 +535,7 @@ def refuse_if_cuda_initialized():
 
 def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         queues=("input", "output", "error"), background=False,
-        release_port=True, driver_local=False):
+        release_port=True, profiler=False, driver_local=False):
     """Build the "start job" task closure (reference ``TFSparkNode.py:121-368``).
 
     Args:
@@ -530,6 +550,12 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         ``TFSparkNode.py:310-342``).
       release_port: close the reserved coordinator port right before invoking
         ``fn`` (reference ``TFSparkNode.py:306-308``).
+      profiler: serve the profiler's capture endpoint
+        (:func:`profiler.start_server`) from the process that runs ``fn``
+        on the training roles, and publish its port in the roster
+        (``profiler_port``).  In FILES mode that is this executor; in
+        SPARK mode the port is reserved here, before registration, and
+        the forked user-fn child serves on the reserved socket.
       driver_local: this node runs in a DRIVER thread, not on an executor
         (``cluster.run(driver_ps_nodes=True)``, reference
         ``TFCluster.py:291-309``): skip the executor working-dir handshakes
@@ -669,6 +695,21 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
         if tensorboard and job_name in ("chief", "master", "worker") and task_index == 0:
             tb_pid, tb_port = _start_tensorboard(log_dir or "tensorboard_logs")
 
+        # The profiler's capture endpoint lives in the process that runs the
+        # user fn and owns CUDA: this executor in FILES mode, the forked
+        # child in SPARK mode, which serves on a socket reserved here so
+        # the roster can carry its port.  Nothing here touches CUDA.
+        profiler_port, prof_sock = 0, None
+        if profiler and job_name in _DIST_JOBS:
+            from tensorflowonspark_torch import profiler as profiler_mod
+
+            if background:
+                prof_sock, profiler_port = _reserve_free_port()
+                prof_sock.listen(16)  # dials queue until the child serves
+            else:
+                profiler_mod.preload()
+                profiler_port = profiler_mod.start_server()
+
         # Reserve the port this node contributes to the roster.  For process 0
         # it becomes the torch.distributed store port (reference reserved
         # the TF gRPC server port here, TFSparkNode.py:239-244).
@@ -688,7 +729,7 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             "pid": os.getpid(),
             "tb_pid": tb_pid,
             "tb_port": tb_port,
-            "profiler_port": 0,
+            "profiler_port": profiler_port,
             "working_dir": os.getcwd(),
         }
         # Trace flow across the rendezvous: started here, stepped by the
@@ -757,11 +798,23 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
 
         heartbeat_interval = cluster_meta.get("heartbeat_interval", 0)
 
+        def _preload_profiler(role):
+            # where the driver can ask for captures, the process that runs
+            # the user fn warms the profiler on its main thread first (see
+            # profiler.preload)
+            if cluster_meta.get("profiling") and role in _DIST_JOBS:
+                from tensorflowonspark_torch import profiler as prof_mod
+
+                prof_mod.preload()
+
         def wrapper_fn_background(args, context):
             """Background-process wrapper: route exceptions to the error queue
             (reference TFSparkNode.py:326-332)."""
             multiprocessing.current_process().authkey = authkey
             errq = context.mgr.get_queue("error")
+            _preload_profiler(context.job_name)
+            if prof_sock is not None:
+                profiler_mod.start_server(sock=prof_sock)
             # The heartbeat lives HERE, in the process executing the user fn:
             # a SIGKILL of training silences the beats even though the
             # executor shell and manager survive — that silence is what the
@@ -774,6 +827,7 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
                 heartbeat_interval,
                 metrics_provider=_node_metrics_provider(context.mgr),
                 trace_flow=node_meta.get("trace_flow"),
+                on_profile=_profile_handler(context.job_name),
                 on_reply=_knob_reply_handler).start()
             # Forked children inherit the parent's preemption registrations;
             # start from a clean slate, then install the SIGTERM drain in the
@@ -821,6 +875,8 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             p = multiprocessing.get_context("fork").Process(
                 target=wrapper_fn_background, args=(tf_args, ctx), daemon=True)
             p.start()
+            if prof_sock is not None:
+                prof_sock.close()  # the child serves on its inherited copy
             # Publish the user-fn pid so feeders can fast-fail on a consumer
             # that died instead of burning the whole feed_timeout.
             mgr.set("node_pid", p.pid)
@@ -851,12 +907,14 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             # the duration of training (reference TFSparkNode.py:362-366).
             errq = mgr.get_queue("error")
             mgr.set("node_pid", os.getpid())
+            _preload_profiler(job_name)
             hb = reservation.HeartbeatSender(
                 cluster_meta.get("server_addrs")
                 or cluster_meta["server_addr"], executor_id,
                 heartbeat_interval,
                 metrics_provider=_node_metrics_provider(mgr),
                 trace_flow=node_meta.get("trace_flow"),
+                on_profile=_profile_handler(job_name),
                 on_reply=_knob_reply_handler).start()
             _reset_preemption()
             _install_sigterm_drain()

@@ -66,6 +66,7 @@ into the same storage, so a captured CUDA graph updates them on every
 replay.
 """
 
+import contextlib
 import dataclasses
 import importlib
 import logging
@@ -73,14 +74,17 @@ import math
 import os
 import time
 import warnings
+import weakref
 from typing import Any
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tensorflowonspark_torch import fault as fault_mod
 from tensorflowonspark_torch import metrics as metrics_mod
+from tensorflowonspark_torch import profiling as profiling_mod
 from tensorflowonspark_torch import telemetry
 from tensorflowonspark_torch.device import resolve_device
 from tensorflowonspark_torch.parallel import fsdp as fsdp_mod
@@ -92,6 +96,12 @@ _kernels = importlib.import_module(
     "tensorflowonspark_torch.ops.flash_attention")
 
 logger = logging.getLogger(__name__)
+
+#: opt-in hot-loop transfer guard (see :func:`_resolve_transfer_guard`):
+#: "1"/"on"/"disallow" makes any host->device copy inside a fit_feed
+#: dispatch a hard error; "log" logs instead; ""/"0"/"off"/"allow"
+#: disables (the default: the guard costs Python per op of an eager step)
+TRANSFER_GUARD_ENV = "TFOS_TRANSFER_GUARD"
 
 #: ``fit_feed``'s default K when the caller leaves ``steps_per_call=1``
 #: (the JAX package's variable): cluster runs arm grouped dispatch through
@@ -108,6 +118,81 @@ GRAPH_WARMUP_STEPS = 2
 _UNPORTED = {
     "aot_cache": (None, "Queue 1, the compile plane"),
 }
+
+
+def _resolve_transfer_guard(mode):
+    """Normalize a ``fit_feed(transfer_guard=...)`` / env value to a guard
+    level string, or None when guarding is off (the JAX package's rule).
+
+    Only the **host->device** direction is guarded: the dispatch path must
+    never re-transfer batch data (that is the infeed prefetch thread's job),
+    but the metrics recorder legitimately syncs the loss device->host at
+    window boundaries.
+    """
+    if mode is None:
+        mode = os.environ.get(TRANSFER_GUARD_ENV, "")
+    if not mode or mode in ("0", "off", "allow", "allow_explicit", False):
+        return None
+    if mode in ("1", "on", True):
+        return "disallow"
+    return mode  # "disallow" / "log" / "log_explicit" pass through
+
+
+def _host_to_device(func, args, kwargs):
+    """The CPU tensor of more than zero dims that this ATen call copies off
+    the host, or None: ``_to_copy`` of a CPU tensor to another device,
+    ``copy_`` of a CPU source into a device destination, ``_copy_from``
+    of a CPU source to a device destination.  Zero-dim tensors are exempt
+    (scalars, like the optimizer's step counts)."""
+    packet = getattr(func, "overloadpacket", None)
+    src = dst_device = None
+    if packet is torch.ops.aten._to_copy and args:
+        src, dst_device = args[0], kwargs.get("device")
+    elif packet is torch.ops.aten.copy_ and len(args) >= 2:
+        src, dst_device = args[1], args[0].device
+    elif packet is torch.ops.aten._copy_from and len(args) >= 2:
+        src, dst_device = args[0], args[1].device
+    if (not isinstance(src, torch.Tensor) or src.device.type != "cpu"
+            or src.dim() == 0 or dst_device is None
+            or torch.device(dst_device).type == "cpu"):
+        return None
+    return src
+
+
+class _TransferGuard(TorchDispatchMode):
+    """The hot-loop transfer guard (``jax.transfer_guard_host_to_device``'s
+    counterpart): every ATen call of a dispatch passes through it, and a
+    host->device copy (:func:`_host_to_device`) raises at a ``disallow*``
+    level and is logged at a ``log*`` level.  Dispatch modes are per
+    thread, so the infeed prefetch thread's pinned copies are not seen; a
+    CUDA graph replay dispatches nothing, so at K > 1 the guard sees the
+    capture, not the replays; and a copy made below the dispatcher
+    (``torch.tensor(<a Python list>, device=...)``) is not seen either."""
+
+    def __init__(self, level):
+        super().__init__()
+        self.level = level
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        src = _host_to_device(func, args, kwargs)
+        if src is not None:
+            msg = ("host->device copy of a {} {} CPU tensor inside a "
+                   "fit_feed dispatch ({}): the batch is not device-resident "
+                   "(transfer_guard={!r})".format(
+                       list(src.shape), src.dtype, func, self.level))
+            if self.level.startswith("log"):
+                logger.warning(msg)
+            else:
+                raise RuntimeError(msg)
+        return func(*args, **kwargs)
+
+
+def _transfer_guard_ctx(level):
+    """A fresh guard context per dispatch (none when ``level`` is None)."""
+    if level is None:
+        return contextlib.nullcontext()
+    return _TransferGuard(level)
 
 
 @dataclasses.dataclass
@@ -323,7 +408,9 @@ class _StepGraph(object):
         self.mask.copy_(mask)
 
     def replay(self):
-        self.graph.replay()
+        # no profiler starts or stops while the host launches the graph
+        with profiling_mod.cuda_graph_lock:
+            self.graph.replay()
         _kernels.add_launches(self.launches)
 
 
@@ -860,8 +947,10 @@ class Trainer(object):
         before = _kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
+            # no profiler starts, stops or synchronizes the card meanwhile
+            with profiling_mod.cuda_graph_lock, \
+                    torch.cuda.graph(graph, stream=stream,
+                                     capture_error_mode="thread_local"):
                 loss, _, grad_norm = self._step_math(static_batch,
                                                      static_mask)
         except RuntimeError as err:
@@ -914,7 +1003,8 @@ class Trainer(object):
             return True
         return name == "train_steps_per_call"
 
-    def fit_feed(self, feed, max_steps=None, steps_per_call=1, on_steps=None):
+    def fit_feed(self, feed, max_steps=None, steps_per_call=1, on_steps=None,
+                 transfer_guard=None):
         """Train from ``feed`` until it ends (or ``max_steps``); returns the
         final stats.
 
@@ -941,10 +1031,24 @@ class Trainer(object):
         taken before count toward it, and a group may overshoot it by at
         most K-1.  ``on_steps``: optional ``fn(steps_done)`` called after
         every dispatch, the hook for periodic checkpoints (``lambda s:
-        ckpt.maybe_save(s, trainer.state)``)."""
+        ckpt.maybe_save(s, trainer.state)``).
+
+        ``transfer_guard``: opt-in hot-loop invariant — every dispatch runs
+        under :class:`_TransferGuard` at this level (``"disallow"`` /
+        ``"log"``; ``None`` reads :data:`TRANSFER_GUARD_ENV`), so a batch
+        that is NOT already on the device (a host->device copy sneaking
+        back onto the dispatch path) is a hard error instead of a silent
+        step-time regression.  The guard wraps only the dispatch calls,
+        not the feed pulls: the infeed's own copies stay legal.  The
+        dispatch counter is registered for step-counted profile captures
+        (``GET /profile?steps=N``)."""
         from tensorflowonspark_torch import node as node_mod
 
         node_mod._register_feed(self)
+        # weakly: the registration outlives this call, the trainer need not
+        this = weakref.ref(self)
+        profiling_mod.register_step_counter(lambda: this()._dispatch_count)
+        guard_level = _resolve_transfer_guard(transfer_guard)
         tracer = telemetry.get_tracer()
         injector = fault_mod.from_env()
         steps_per_call = int(steps_per_call)
@@ -988,7 +1092,8 @@ class Trainer(object):
                     # the feed
                     self._goodput_infeed_starved_us += max(
                         0, gap_us - self._last_drain_us)
-                with tracer.span("train/dispatch", kind=kind):
+                with tracer.span("train/dispatch", kind=kind), \
+                        _transfer_guard_ctx(guard_level):
                     if kind == "multi":
                         loss = self.multi_step(batch, mask)
                         steps_done += int(mask.shape[0])
@@ -1280,7 +1385,15 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
       retry_policy: a :class:`~tensorflowonspark_torch.fault.RetryPolicy`
         (the default policy when None).  Only retryable failures re-enter
         the loop; user-code errors re-raise at once.
-      max_steps / steps_per_call: forwarded to :meth:`Trainer.fit_feed`.
+      max_steps / steps_per_call / transfer_guard: forwarded to
+        :meth:`Trainer.fit_feed`.
+      profiler: optional
+        :class:`~tensorflowonspark_torch.profiler.StepProfiler`; it is
+        stepped once per dispatch and used as a context manager around
+        every attempt, so an exception mid-capture stops the trace instead
+        of leaking it into the retry's capture.
+      publish: the train-to-serve handoff to the fleet; not ported yet, it
+        raises ``NotImplementedError`` (ROADMAP.md, item G).
 
     Every attempt opens with ``trainer.restore_latest(validate=True)`` in a
     ``train/restore`` span and trains in a ``train/fit_attempt`` span.  The
@@ -1294,21 +1407,13 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
     emits ``train/retry``, sleeps the backoff and adds it, with the
     restores, to ``goodput_recovery_us``.
 
-    ``profiler``, ``transfer_guard`` and ``publish`` raise
-    ``NotImplementedError``: they wait for other parts of the port
-    (ROADMAP.md).  Returns the final fit stats dict."""
+    Returns the final fit stats dict."""
     from tensorflowonspark_torch import node as node_mod
 
-    for name, value, item in (
-            ("profiler", profiler, "item K, device observability"),
-            ("transfer_guard", transfer_guard,
-             "item C, the rest: the hot-loop transfer guard"),
-            ("publish", publish,
-             "item G, the train-to-serve handoff to the fleet")):
-        if value is not None:
-            raise NotImplementedError(
-                "fit_supervised({}=...) is not ported yet (ROADMAP.md, "
-                "{})".format(name, item))
+    if publish is not None:
+        raise NotImplementedError(
+            "fit_supervised(publish=...) is not ported yet (ROADMAP.md, "
+            "item G, the train-to-serve handoff to the fleet)")
     policy = retry_policy or fault_mod.RetryPolicy()
     tracer = telemetry.get_tracer()
 
@@ -1327,6 +1432,14 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
 
     def _on_steps(step):
         ckpt_manager.maybe_save(step, trainer.state)
+        if profiler is not None:
+            profiler.on_step_end()
+
+    def _fit_once():
+        return trainer.fit_feed(feed_factory(), max_steps=max_steps,
+                                steps_per_call=steps_per_call,
+                                on_steps=_on_steps,
+                                transfer_guard=transfer_guard)
 
     attempt = 0
     rollbacks = 0
@@ -1343,10 +1456,12 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
             try:
                 with tracer.span("train/fit_attempt", attempt=attempt + 1,
                                  restored_step=restored):
-                    stats = trainer.fit_feed(feed_factory(),
-                                             max_steps=max_steps,
-                                             steps_per_call=steps_per_call,
-                                             on_steps=_on_steps)
+                    # the context-manager form: stop() runs on the
+                    # exception path too, so a failed attempt cannot leak
+                    # an active trace into the next attempt's capture
+                    with (profiler if profiler is not None
+                          else contextlib.nullcontext()):
+                        stats = _fit_once()
                 ckpt_manager.maybe_save(int(trainer.state.step),
                                         trainer.state, force=True)
                 ckpt_manager.wait_until_finished()

@@ -268,12 +268,17 @@ def test_files_mode_node(tmp_path):
 
 
 @pytest.mark.parametrize("unported", [
-    {"observatory": True}, {"watchtower": {"interval_secs": 1}},
+    {"observatory": True, "watchtower": True},
+    {"watchtower": {"interval_secs": 1}},
     {"autopilot": True},
     {"remediator": True}, {"data_service": "localhost:1"},
-    {"profiler": True}, {"compile_cache_dir": "/nonexistent"},
+    {"observatory": True, "remediator": True},
+    {"compile_cache_dir": "/nonexistent"},
 ])
 def test_unported_planes_raise(unported):
+    """The planes still to port raise, naming their item, even beside the
+    ported observatory (whose ``observatory`` and ``profiler`` options are
+    tested in tests/test_torch_profiler.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cluster.run(object(), _raise_fun, None, num_executors=1, **unported)
 

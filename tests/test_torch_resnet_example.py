@@ -4,9 +4,8 @@ in FILES mode, at tiny flags: the synthetic branch, then the predecoded
 shards of ``write_synthetic_shards`` -> ``predecode_shards`` with the crop
 on the device, K = 2 dispatches, checkpoints, the exact eval and the
 chief's export, 2 steps each; its LR schedule against the JAX example's
-``optax.join_schedules``; and the flag that waits for another item."""
+``optax.join_schedules``; and ``--profile_steps``' trace."""
 
-import argparse
 import glob
 import os
 import subprocess
@@ -137,7 +136,36 @@ def test_lr_schedule_matches_optax():
         0.1, 5 * epoch, [30 * epoch, 60 * epoch, 80 * epoch], 90 * epoch)
 
 
-def test_profile_steps_waits_for_item_k():
-    args = twin.parse_args(TINY + ["--profile_steps", "2,4"])
-    with pytest.raises(NotImplementedError, match="item K"):
-        twin.train_resnet(args, argparse.Namespace())
+class _Ctx(object):
+    """The node context the twin's synthetic branch reads, one process."""
+
+    process_id, num_processes = 0, 1
+
+    def initialize_distributed(self, device=None):
+        return torch.device(device)
+
+    def is_chief(self):
+        return True
+
+    def absolute_path(self, path):
+        return path
+
+
+def test_profile_steps_waits_for_item_k(tmp_path):
+    """Item K is ported: ``--profile_steps 2,4`` traces exactly steps 2-4
+    (three optimizer steps) into ``--profile_dir`` as a gzipped Chrome
+    trace.  (The name predates the port of the step profiler.)"""
+    import gzip
+    import json
+
+    args = twin.parse_args(TINY + ["--train_steps", "6", "--profile_steps",
+                                   "2,4", "--profile_dir",
+                                   str(tmp_path / "trace"),
+                                   "--synthetic_examples", "48"])
+    twin.train_resnet(args, _Ctx())
+    (path,) = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json.gz"))
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith("Optimizer.step#")]
+    assert len(steps) == 3, [e["name"] for e in steps]

@@ -178,14 +178,16 @@ def test_roofline_at_the_serving_shape():
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
               "tensorflowonspark_tpu")
 
-# the port's examples, imported as modules like the port's own
+# the port's examples and its capture-merge script, imported as modules
+# like the port's own
 _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("examples", "mnist", "mnist_pipeline_torch.py"),
              os.path.join("examples", "mnist", "mnist_files_torch.py"),
              os.path.join("examples", "resnet", "imagenet_input_torch.py"),
              os.path.join("examples", "resnet", "resnet_imagenet_torch.py"),
              os.path.join("examples", "transformer",
-                          "transformer_lm_torch.py"))
+                          "transformer_lm_torch.py"),
+             os.path.join("scripts", "analyze_profile_torch.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -204,7 +206,8 @@ missing = sorted(set(pkg.__name__ + "." + m for m in (
     "summary", "tfrecord", "example_proto", "schema", "dfutil", "transport",
     "gateway", "fleet", "pipeline", "models.linear", "models.twotower",
     "models.resnet", "ops.augment", "data", "parallel.mesh",
-    "parallel.fsdp", "parallel.ring"))
+    "parallel.fsdp", "parallel.ring", "observatory", "profiling",
+    "profiler"))
     - set(names))
 from tensorflowonspark_torch.parallel import fsdp, mesh, ring
 missing += [n for n in ("ring_attention", "ulysses_attention",
@@ -226,8 +229,18 @@ missing += [n for n in ("FileFeed", "ProcessPoolFeed", "shard_for_process")
             if not hasattr(data, n)]
 missing += [n for n in ("build_resnet50", "build_resnet56", "loss_fn")
             if not hasattr(resnet, n)]
-missing += [n for n in ("fit_supervised", "MAX_ROLLBACKS")
+missing += [n for n in ("fit_supervised", "MAX_ROLLBACKS",
+                        "_resolve_transfer_guard", "TRANSFER_GUARD_ENV")
             if not hasattr(train, n)]
+from tensorflowonspark_torch import observatory, profiler, profiling
+missing += [n for n in ("SampleRing", "render_prometheus",
+                        "ObservatoryServer", "build_info", "collect_slow")
+            if not hasattr(observatory, n)]
+missing += [n for n in ("CaptureCoordinator", "handle_capture_request",
+                        "merge_capture", "register_step_counter")
+            if not hasattr(profiling, n)]
+missing += [n for n in ("StepProfiler", "start_server", "server_counters",
+                        "parse_profile_steps") if not hasattr(profiler, n)]
 missing += [n for n in ("evaluate", "apply_knob")
             if not hasattr(train.Trainer, n)]
 missing += [n for n in ("restore_latest_valid", "_quarantine")
@@ -241,7 +254,8 @@ def test_port_imports_no_jax():
     """A fresh interpreter that imports every port module (the copied
     cluster layer, the serving tier, the ResNets, ``ops.augment``,
     ``data`` and the mesh, FSDP and ring modules among them),
-    chip_smoke.py and the port's MNIST, ResNet and LM examples has no jax,
+    chip_smoke.py, the port's MNIST, ResNet and LM examples and
+    scripts/analyze_profile_torch.py has no jax,
     flax, optax, orbax or JAX-package module."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
@@ -251,9 +265,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port, of chip_smoke.py or of the port's MNIST,
-    ResNet and LM examples imports a forbidden package, not even inside a
-    function."""
+    """No line of the port, of chip_smoke.py, of the port's MNIST, ResNet
+    and LM examples or of scripts/analyze_profile_torch.py imports a
+    forbidden package, not even inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
     paths = [os.path.join(REPO, "chip_smoke.py")] + [

@@ -374,12 +374,43 @@ def test_fit_supervised_fatal_error_raises_without_retry(tmp_path):
     mgr.close()
 
 
-@pytest.mark.parametrize("name", ["profiler", "transfer_guard", "publish"])
+@pytest.mark.parametrize("name", ["publish"])
 def test_fit_supervised_unported_options_raise(name, tmp_path):
     mgr = checkpoint.CheckpointManager(str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.fit_supervised(_torch_trainer(), _Feed, mgr,
                              **{name: object()})
+
+
+@pytest.mark.parametrize("name", ["profiler", "transfer_guard"])
+def test_fit_supervised_profiler_and_transfer_guard_run(name, tmp_path):
+    """``profiler=`` (a StepProfiler stepped once a dispatch, stopped
+    around each attempt) and ``transfer_guard=`` run, through a crash and
+    a resume, and end on the unguarded, unprofiled run's params."""
+    from tensorflowonspark_torch import profiler as profiler_mod
+
+    def run(ckpt_dir, **kwargs):
+        mgr = checkpoint.CheckpointManager(str(ckpt_dir),
+                                           save_interval_steps=2)
+        tr = _torch_trainer()
+        make, made = _factory("torch", crash_first=3)
+        train.fit_supervised(tr, make, mgr, retry_policy=_policy(fault),
+                             **kwargs)
+        mgr.close()
+        assert len(made) == 2
+        return tr
+
+    option = ({"profiler": profiler_mod.StepProfiler(
+        str(tmp_path / "trace"), "1,2")} if name == "profiler"
+        else {"transfer_guard": "disallow"})
+    got = run(tmp_path / "a", **option)
+    want = run(tmp_path / "b")
+    for key, value in want.state.params.items():
+        torch.testing.assert_close(got.state.params[key], value,
+                                   rtol=0, atol=0)
+    if name == "profiler":
+        assert option["profiler"].trace_path.endswith(".pt.trace.json.gz")
+        assert not option["profiler"]._active
 
 
 def test_preemption_emergency_checkpoint_then_resume(tmp_path):
