@@ -4053,6 +4053,299 @@ def phase_parallel(torch, np, fa, k1, k5):
     return row
 
 
+# the parallelism slice's second half on one card: gpipe's microbatches of
+# the LM's blocks, and the MoE layer checks' tolerance (bf16 products in
+# another order or on another batch split: 2e-2 of the largest value or
+# gradient, the parallel phase's)
+GPIPE_MICRO = 4
+J2_TOL = PARALLEL_TOL
+# the MoE run's rows go over data, fsdp and expert (the LM twin's layout)
+J2_EP_BATCH_AXES = ("data", "fsdp", "expert")
+
+
+def _max_rel(torch, got, want):
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        return float("inf")
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _j2_train(torch, np, fa, model, init, tree, mesh, config, k, feed_seed):
+    """``Trainer(mesh=mesh, param_sharding=tree)`` on ``model`` from
+    ``init``: ``TRAIN_STEPS`` of the train phases' stream through
+    ``fit_feed`` at ``k`` steps a dispatch, under the launch-counting
+    profiler; the per-step losses, the counters and the kernels the card
+    executed, peak memory and the K-step dispatch's graphs."""
+    import functools
+
+    from tensorflowonspark_torch import train
+    from tensorflowonspark_torch.models import transformer
+
+    heads, head_dim = config["num_heads"], config["head_dim"]
+    flash_flops = (7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads
+                   * config["num_layers"])
+    curve = LossCurve()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train.Trainer(
+        transformer.loss_fn(model), init,
+        functools.partial(torch.optim.Adam, lr=LR),
+        compute_dtype=torch.bfloat16, batch_size=TRAIN_BATCH,
+        log_steps=LOG_STEPS, extra_step_flops=flash_flops,
+        summary_writer=curve, mesh=mesh, param_sharding=tree)
+    feed = NgramFeed(np, feed_seed, TRAIN_BATCH, SEQ, config["vocab_size"])
+    torch.cuda.synchronize()
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    t0 = time.perf_counter()                          # the path starts
+    _, executed = counted_on_device(torch, lambda: trainer.fit_feed(
+        feed, max_steps=TRAIN_STEPS, steps_per_call=k))
+    fit_s = time.perf_counter() - t0
+    launches = launches_of(fa)                        # ... and ends
+    run = {"steps": trainer.state.step, "fit_feed_s": fit_s,
+           "launches": launches, "device_launches": executed,
+           "losses": [curve.losses.get(step)
+                      for step in range(1, TRAIN_STEPS + 1)],
+           "graphs": len(trainer._graphs),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "sharded_leaves": (0 if trainer.state.sharding is None
+                              else len(trainer.state.sharding.names))}
+    del trainer
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_parallel_j2(torch, np, fa, k1, moe):
+    """The parallelism slice's second half on one card, in a one-process
+    world whose every axis is 1 (the code paths and the kernels; the
+    collectives run on four cards, tests/test_torch_nccl_cuda.py): the
+    flagship flash LM under ``Trainer(mesh=build_mesh(MeshSpec(tensor=1,
+    pipe=1), keep_trivial_axes=True), param_sharding=tp_param_shardings(
+    ...))`` (its heads- and MLP-split path) and the MoE flash LM with
+    ``ep_mode="shard_map"`` under ``merge_ep_shardings``, each 30 steps at
+    K = 1 and K = 5 from the train phases' inits and stream, their losses at
+    steps 10, 20 and 30 against the train and ``moe_train`` phases' and
+    their flash launches against the kernels the card executed; then
+    ``moe_ffn`` forward and backward at the flagship MoE layer's shape
+    against ``MoEMlp`` (gspmd) and its fp32 products, and ``gpipe`` with
+    one stage over the LM's blocks against the blocks in sequence."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_torch.models import get_model, transformer
+    from tensorflowonspark_torch.parallel import ep, pp, tp
+    from tensorflowonspark_torch.parallel import mesh as mesh_mod
+
+    t_start = time.perf_counter()
+    mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec(tensor=1, pipe=1),
+                               keep_trivial_axes=True)
+    checked = [LOG_STEPS * (i + 1) for i in range(TRAIN_STEPS // LOG_STEPS)]
+    moe_ref = [moe["k1"]["losses"][step - 1] for step in checked]
+    try:
+        runs = {}
+        model = get_model("transformer_lm", mesh=mesh, **LM_CONFIG)
+        model.init_weights(torch.Generator().manual_seed(0))
+        init = dict(model.state_dict())
+        tree = tp.tp_param_shardings(init, mesh, views=model.flax_views())
+        for k in (1, MEGA_K):
+            runs["tp_k%d" % k] = _j2_train(torch, np, fa, model, init, tree,
+                                           mesh, LM_CONFIG, k, 0)
+        del model, init
+        # rows over data, fsdp and expert (the LM twin's layout): the
+        # model's choice, which the Trainer adopts
+        moe_model = get_model("transformer_lm", mesh=mesh,
+                              ep_mode="shard_map",
+                              ep_batch_axes=J2_EP_BATCH_AXES, **MOE_CONFIG)
+        moe_model.init_weights(torch.Generator().manual_seed(0))
+        moe_init = dict(moe_model.state_dict())
+        moe_tree = ep.merge_ep_shardings({}, moe_init, mesh)
+        for k in (1, MEGA_K):
+            runs["ep_k%d" % k] = _j2_train(
+                torch, np, fa, moe_model, moe_init, moe_tree, mesh,
+                MOE_CONFIG, k, 0)
+        del moe_model, moe_init
+        for name, run in runs.items():
+            ref = k1["window_losses"] if name.startswith("tp") else moe_ref
+            run["losses_at"] = [run["losses"][step - 1] for step in checked]
+            run["loss_diff_vs_ref"] = [
+                None if a is None or b is None else abs(a - b)
+                for a, b in zip(run["losses_at"], ref)]
+
+        # moe_ffn against MoEMlp (gspmd) and its fp32 products at the
+        # flagship MoE layer's shape
+        d_model = MOE_CONFIG["num_heads"] * MOE_CONFIG["head_dim"]
+        experts = MOE_CONFIG["num_experts"]
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        layer = transformer.MoEMlp(d_model, experts, dtype=torch.bfloat16)
+        layer = layer.cuda()
+        with torch.no_grad():
+            layer.router.reset_parameters(gen)
+            layer.reset_parameters(gen)
+        x = torch.randn(TRAIN_BATCH, SEQ, d_model, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        cot = torch.randn(TRAIN_BATCH, SEQ, d_model, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        names = ("router.weight", "router.bias", "w1", "b1", "w2", "b2")
+
+        def layer_grads(fn, dtype):
+            params = {n: p.detach().clone().requires_grad_()
+                      for n, p in layer.named_parameters()}
+            xs = x.detach().to(dtype).requires_grad_()
+            y, aux = fn(xs, params)
+            grads = torch.autograd.grad(
+                (y.float() * cot.float()).sum() + aux,
+                [xs] + [params[n] for n in names])
+            return [y.detach(), aux.detach()] + [g.detach() for g in grads]
+
+        def shard_map_fn(xs, params):
+            return ep.moe_ffn(xs, params, mesh, experts, dtype=torch.bfloat16,
+                              batch_axes=J2_EP_BATCH_AXES)
+
+        def gspmd_fn(xs, params):
+            return torch.func.functional_call(layer, params, (xs,))
+
+        def plain_fn(xs, params):
+            fp32 = {n: p.float() for n, p in params.items()}
+            dispatch, prob, (fraction, mean_prob) = ep._route(
+                xs, ep.router_logits(xs, fp32["router.weight"],
+                                     fp32["router.bias"]),
+                experts, layer.capacity(SEQ))
+            expert_in = torch.einsum("gsec,gsd->gecd", dispatch, xs)
+            out = ep.expert_ffn(expert_in, fp32["w1"], fp32["b1"],
+                                fp32["w2"], fp32["b2"], torch.float32)
+            combine = dispatch * prob[..., None, None]
+            y = torch.einsum("gsec,gecd->gsd", combine, out)
+            return y, experts * (fraction * mean_prob).sum()
+
+        got = layer_grads(shard_map_fn, torch.bfloat16)
+        refs = {"gspmd": layer_grads(gspmd_fn, torch.bfloat16),
+                "plain_fp32": layer_grads(plain_fn, torch.float32)}
+        labels = ("y", "aux", "x") + names
+        moe_checks = {ref: {label: _max_rel(torch, a, b)
+                            for label, a, b in zip(labels, got, want)}
+                      for ref, want in refs.items()}
+        moe_ms = {
+            "moe_ffn_fwd": time_ms(torch, lambda: shard_map_fn(
+                x, dict(layer.named_parameters())), iters=5),
+            "moe_mlp_fwd": time_ms(torch, lambda: layer(x), iters=5)}
+        del layer, got, refs
+
+        # gpipe with one stage: the LM's blocks as the stage, microbatches
+        # of the batch, against the blocks applied to the whole batch
+        lm = get_model("transformer_lm", **LM_CONFIG)
+        lm.init_weights(torch.Generator().manual_seed(0))
+        blocks = lm.blocks.cuda()
+
+        def stage_fn(params, h):
+            for i, block in enumerate(blocks):
+                prefix = "%d." % i
+                h, _ = torch.func.functional_call(
+                    block, {n[len(prefix):]: v for n, v in params.items()
+                            if n.startswith(prefix)}, (h,))
+            return h
+
+        params = {n: p.detach() for n, p in blocks.named_parameters()}
+        h0 = torch.randn(TRAIN_BATCH, SEQ, d_model, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+        hcot = torch.randn(TRAIN_BATCH, SEQ, d_model, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+        probe = ("0.attn.qkv.weight", "%d.mlp_out.weight" % (
+            len(blocks) - 1))
+
+        def pipe_run(pipelined):
+            leaves = {n: v.clone().requires_grad_() for n, v in
+                      params.items()}
+            hs = h0.detach().clone().requires_grad_()
+            if pipelined:
+                stacked = pp.stack_stage_params([leaves])
+                out = pp.gpipe(stage_fn, stacked, pp.split_microbatches(
+                    hs, GPIPE_MICRO), mesh).reshape(hs.shape)
+            else:
+                out = stage_fn(leaves, hs)
+            grads = torch.autograd.grad(out, [hs] + [leaves[n]
+                                                     for n in probe], hcot)
+            return [out.detach()] + [g.detach() for g in grads]
+
+        want = pipe_run(False)
+        torch.cuda.synchronize()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        got, gpipe_executed = counted_on_device(torch,
+                                                lambda: pipe_run(True))
+        gpipe_launches = launches_of(fa)
+        gpipe_checks = {label: _max_rel(torch, a, b) for label, a, b in zip(
+            ("out", "dx") + probe, got, want)}
+        del blocks, lm, params, got, want
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    expected = {"tp": LM_CONFIG["num_layers"] * TRAIN_STEPS,
+                "ep": MOE_CONFIG["num_layers"] * TRAIN_STEPS}
+    gpipe_expected = LM_CONFIG["num_layers"] * GPIPE_MICRO
+    # K = 1 writes the loss at window ends, K = 5 every step: the steps
+    # both wrote
+    k5_vs_k1 = {kind: max([abs(a - b) for a, b in zip(
+        runs[kind + "_k1"]["losses"], runs[kind + "_k5"]["losses"])
+        if a is not None and b is not None] or [float("inf")])
+        for kind in ("tp", "ep")}
+    row = {"phase": "parallel_j2",
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "runs": runs, "checked_steps": checked,
+           "train_window_losses": k1["window_losses"],
+           "moe_train_losses": moe_ref, "loss_tol": PARALLEL_LOSS_TOL,
+           "expected_launches": expected,
+           "k5_vs_k1_max_loss_diff": k5_vs_k1,
+           "k5_equals_k1_bitwise": {
+               kind: k5_vs_k1[kind] == 0.0 for kind in ("tp", "ep")},
+           "moe_ffn_shape": [TRAIN_BATCH, SEQ, d_model],
+           "moe_ffn_checks": moe_checks, "moe_ffn_ms": moe_ms,
+           "gpipe": {"stages": 1, "microbatches": GPIPE_MICRO,
+                     "shape": [TRAIN_BATCH, SEQ, d_model],
+                     "checks": gpipe_checks, "launches": gpipe_launches,
+                     "device_launches": gpipe_executed,
+                     "expected_launches": gpipe_expected},
+           "tol": J2_TOL, "seconds": time.perf_counter() - t_start}
+    emit(row)
+    for name, run in runs.items():
+        want = expected[name[:2]]
+        if run["steps"] != TRAIN_STEPS:
+            raise AssertionError("parallel_j2 {} took {} steps, expected "
+                                 "{}".format(name, run["steps"],
+                                             TRAIN_STEPS))
+        if any(n != want for n in list(run["launches"].values())
+               + list(run["device_launches"].values())):
+            raise AssertionError(
+                "parallel_j2 {} launched {} and the card executed {}, "
+                "expected {} each".format(name, run["launches"],
+                                          run["device_launches"], want))
+        if not all(d is not None and d <= PARALLEL_LOSS_TOL
+                   for d in run["loss_diff_vs_ref"]):
+            raise AssertionError("parallel_j2 {}: losses {} differ from "
+                                 "the reference's: {}".format(
+                                     name, run["losses_at"],
+                                     run["loss_diff_vs_ref"]))
+    for name in ("tp_k%d" % MEGA_K, "ep_k%d" % MEGA_K):
+        if runs[name]["graphs"] != 1:
+            raise AssertionError("parallel_j2 {} captured {} graphs, "
+                                 "expected 1".format(name,
+                                                     runs[name]["graphs"]))
+    if any(d > MEGA_LOSS_TOL for d in k5_vs_k1.values()):
+        raise AssertionError("parallel_j2: K = 5 losses differ from K = "
+                             "1's by {}".format(k5_vs_k1))
+    bad = {(ref, label): err for ref, errs in moe_checks.items()
+           for label, err in errs.items() if not err <= J2_TOL}
+    bad.update({("gpipe", label): err for label, err in gpipe_checks.items()
+                if not err <= J2_TOL})
+    if bad:
+        raise AssertionError("parallel_j2: moe_ffn / gpipe disagree: "
+                             "{}".format(bad))
+    if any(n != gpipe_expected for n in list(gpipe_launches.values())
+           + list(gpipe_executed.values())):
+        raise AssertionError("gpipe launched {} and the card executed {}, "
+                             "expected {} each".format(
+                                 gpipe_launches, gpipe_executed,
+                                 gpipe_expected))
+    return row
+
+
 # ---------------------------------------------------------------------------
 # device observability: the observatory, cluster captures, the step
 # profiler and the transfer guard
@@ -4886,12 +5179,15 @@ def main():
     example = phase_lm_example(torch, np, moe)
     before_parallel_s = time.perf_counter() - started
     parallel = phase_parallel(torch, np, fa, trained, mega)
+    before_j2_s = time.perf_counter() - started
+    j2 = phase_parallel_j2(torch, np, fa, trained, moe)
     before_observability_s = time.perf_counter() - started
     observed, observed_card = phase_observability(
         torch, np, fa, metrics, clustered, mega_cluster)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
           "before_moe_phases_s": earlier_s,
           "before_parallel_phase_s": before_parallel_s,
+          "before_parallel_j2_phase_s": before_j2_s,
           "before_observability_phase_s": before_observability_s})
 
     serve_row = fwd_rows[0]
@@ -4927,6 +5223,15 @@ def main():
                      "device_launches"][name],
                  "ulysses_flash": parallel[
                      "ulysses_flash_device_launches"][name],
+                 "parallel_j2_tp": j2["runs"]["tp_k1"][
+                     "device_launches"][name],
+                 "parallel_j2_tp_k5": j2["runs"]["tp_k5"][
+                     "device_launches"][name],
+                 "parallel_j2_ep": j2["runs"]["ep_k1"][
+                     "device_launches"][name],
+                 "parallel_j2_ep_k5": j2["runs"]["ep_k5"][
+                     "device_launches"][name],
+                 "gpipe_s1": j2["gpipe"]["device_launches"][name],
                  "moe_train": moe["k1"]["device_launches"][name],
                  "moe_train_k5": moe["k5"]["device_launches"][name],
                  "train_k5": mega["device_launches"][name],
@@ -4947,6 +5252,11 @@ def main():
                  "parallel_fsdp_k5": parallel["runs"]["k5"]["launches"][
                      name],
                  "ulysses_flash": parallel["ulysses_flash_launches"][name],
+                 "parallel_j2_tp": j2["runs"]["tp_k1"]["launches"][name],
+                 "parallel_j2_tp_k5": j2["runs"]["tp_k5"]["launches"][name],
+                 "parallel_j2_ep": j2["runs"]["ep_k1"]["launches"][name],
+                 "parallel_j2_ep_k5": j2["runs"]["ep_k5"]["launches"][name],
+                 "gpipe_s1": j2["gpipe"]["launches"][name],
                  "moe_train": moe["k1"]["launches"][name],
                  "moe_train_k5": moe["k5"]["launches"][name],
                  "lm_example_synthetic":

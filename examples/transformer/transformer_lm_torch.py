@@ -14,17 +14,23 @@ through ``cluster.run`` in FILES mode: every node runs ``main_fun`` inline
 in its executor process, where CUDA comes up.
 
 Where the twin differs: it trains on one card a node, so the mesh
-``--data`` x ``--fsdp`` x ``--seq`` spans the ``--cluster_size`` nodes: the
-product must equal it (``--data`` defaults to -1, the rest of the nodes;
-``--fsdp`` and ``--seq`` to 1, where the JAX defaults of 2 need 8 devices).
-``--fsdp`` above 1 shards the params and the Adam state over that axis
-(``Trainer(param_sharding="fsdp")``); ``--seq`` above 1 splits each
-sequence over that axis, with ring attention unless ``--attention`` says
-``ulysses``, and each ``seq`` group trains on its members' pooled rows.
-``--expert`` and ``--tensor`` above 1, ``--ep_mode shard_map`` and
-``--mlp moe`` with ``--seq`` above 1 raise ``NotImplementedError``
-(ROADMAP.md, item J2); ``--attention`` defaults to ``full`` without
-``--seq``; ``--device`` ("cpu" to run on the
+``--data`` x ``--fsdp`` x ``--seq`` x ``--expert`` x ``--tensor`` spans the
+``--cluster_size`` nodes: the product must equal it (``--data`` defaults
+to -1, the rest of the nodes; the other axes to 1, where the JAX defaults
+of 2 need 8 devices).  The layout is the JAX example's ``layout()``: the
+FSDP rule over ``--fsdp`` when it is above 1, else replicated, with the
+expert-stacked MoE leaves over ``expert`` (``merge_ep_shardings``) when
+``--expert`` is above 1; the rows go over data, fsdp and expert (the
+model's ``ep_batch_axes`` and the feed's and Trainer's ``batch_axes``).
+``--tensor`` above 1 splits each block's heads and MLP over that axis
+while the params replicate over it, as the JAX example's ``layout()`` does
+(its docstring says "tensor-parallel", its code never calls
+``tp_param_shardings``: ROADMAP.md, Queue 3).  ``--seq`` above 1 splits
+each sequence over that axis, with ring attention unless ``--attention``
+says ``ulysses``, and each ``seq`` group trains on its members' pooled
+rows; an MoE layer then routes the whole sequence.  ``--ep_mode
+shard_map`` runs the explicit all-to-all schedule.  ``--attention``
+defaults to ``full`` without ``--seq``; ``--device`` ("cpu" to run on the
 CPU; the nodes' cards by default); the steps go through the port's
 Trainer (``fit_feed``); the export's ``model_config`` also carries
 ``mlp``, ``num_experts`` and ``capacity_factor``, so an MoE export is
@@ -44,8 +50,6 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
-# the JAX example's mesh axes that the port does not run yet
-J2_FLAGS = ("expert", "tensor")
 # the MoE capacity factor the JAX example builds with (the model's default)
 CAPACITY_FACTOR = 1.25
 
@@ -99,14 +103,22 @@ def train_lm(args, ctx):
     device = ctx.initialize_distributed(device=args.device)
     rank = ctx.process_id or 0
     mesh = mesh_mod.build_mesh(spec, keep_trivial_axes=True, device=device)
+    # batch: dp (data, fsdp AND expert axes all carry distinct rows) x sp,
+    # as the JAX example's
+    batch_axes = tuple(a for a, n in (("data", args.data),
+                                      ("fsdp", args.fsdp),
+                                      ("expert", args.expert)) if n != 1)
+    batch_axes = batch_axes or ("data",)
     model = tfm.build_transformer(
         vocab_size=args.vocab_size, num_layers=args.num_layers,
         num_heads=args.num_heads, head_dim=args.head_dim,
         max_seq_len=args.seq_len, attention=attention, mlp=args.mlp,
         num_experts=args.num_experts, capacity_factor=CAPACITY_FACTOR,
-        ep_mode=args.ep_mode, mesh=mesh, dtype=args.dtype)
+        ep_mode=args.ep_mode, mesh=mesh, ep_batch_axes=batch_axes,
+        dtype=args.dtype)
     # one seed on every node: the same init everywhere
     model.init_weights(torch.Generator().manual_seed(0))
+    params = dict(model.state_dict())
 
     # the flash kernels' FLOPs, which FlopCounterMode cannot see: causal
     # forward 2 and backward 5 S^2 D products per (row, head, layer)
@@ -114,13 +126,13 @@ def train_lm(args, ctx):
                    * args.num_heads * args.num_layers
                    if attention == "flash" else 0)
     trainer = train_mod.Trainer(
-        tfm.loss_fn(model), dict(model.state_dict()),
+        tfm.loss_fn(model), params,
         # optax.adamw(lr): b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
         functools.partial(torch.optim.AdamW, lr=args.lr, eps=1e-8,
                           weight_decay=1e-4),
         batch_size=args.batch_size, log_steps=args.log_steps,
         extra_step_flops=flash_flops, device=device, mesh=mesh,
-        param_sharding="fsdp" if args.fsdp > 1 else None)
+        param_sharding=layout(args, params, mesh), batch_axes=batch_axes)
 
     if args.data_dir:
         # real text: raw files -> byte-level token stream (vocab 256, no
@@ -140,7 +152,7 @@ def train_lm(args, ctx):
     else:
         source = SyntheticTokens(args.seq_len, args.vocab_size, rank)
     feed = infeed.ShardedFeed(source, args.batch_size, device=device,
-                              mesh=mesh)
+                              mesh=mesh, batch_axes=batch_axes)
     stats = trainer.fit_feed(feed, max_steps=args.train_steps)
     if trainer.state.step == 0:
         raise RuntimeError(
@@ -149,10 +161,12 @@ def train_lm(args, ctx):
     print("trained {} steps, loss {:.4f}".format(trainer.state.step,
                                                  stats["loss"]))
 
+    # every node: a local expert leaf's blocks are all-gathered
+    params = trainer.state.full_params()
     if args.export_dir and checkpoint.should_export(ctx):
         # the JAX example's model_config, plus the FFN's
         checkpoint.export_model(
-            ctx.absolute_path(args.export_dir), trainer.state.params,
+            ctx.absolute_path(args.export_dir), params,
             "transformer_lm",
             model_config={"vocab_size": args.vocab_size,
                           "num_layers": args.num_layers,
@@ -165,35 +179,37 @@ def train_lm(args, ctx):
     return trainer, stats
 
 
+def layout(args, params, mesh):
+    """The JAX example's ``layout()``: the FSDP rule by shape when
+    ``--fsdp`` is above 1, else replicated, then the expert-stacked MoE
+    leaves overlaid on the expert axis when ``--expert`` is above 1; None
+    when everything replicates."""
+    from tensorflowonspark_torch.parallel import ep as ep_mod
+    from tensorflowonspark_torch.parallel import fsdp as fsdp_mod
+
+    shardings = (fsdp_mod.tree_shardings(params, mesh) if args.fsdp > 1
+                 else None)
+    if args.expert > 1:
+        shardings = ep_mod.merge_ep_shardings(shardings or {}, params, mesh)
+    return shardings
+
+
 def check_mesh_flags(args):
-    """The mesh spec of the flags, after the checks that need no cluster:
-    the axes and options of ROADMAP.md's item J2 raise
-    ``NotImplementedError``, and a mesh that does not span
-    ``--cluster_size`` nodes, one card each, raises ``ValueError``."""
+    """The mesh spec of the flags, before any node starts: a mesh that
+    does not span ``--cluster_size`` nodes, one card each, raises
+    ``ValueError``."""
     from tensorflowonspark_torch.parallel import mesh as mesh_mod
 
-    for flag in J2_FLAGS:
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                "--{} {}: {} parallelism is not ported yet (ROADMAP.md, "
-                "item J2)".format(flag, getattr(args, flag), flag))
-    if args.ep_mode != "gspmd":
-        raise NotImplementedError(
-            "--ep_mode {} is not ported yet (ROADMAP.md, item J2)".format(
-                args.ep_mode))
-    if args.mlp == "moe" and args.seq > 1:
-        raise NotImplementedError(
-            "--mlp moe with --seq {}: MoE capacity comes from the global "
-            "sequence (ROADMAP.md, item J2)".format(args.seq))
-    spec = mesh_mod.MeshSpec(data=args.data, fsdp=args.fsdp, seq=args.seq)
+    spec = mesh_mod.MeshSpec(data=args.data, fsdp=args.fsdp, seq=args.seq,
+                             expert=args.expert, tensor=args.tensor)
     try:
         spec.resolve(args.cluster_size)
     except AssertionError as err:
         raise ValueError(
-            "--data {} x --fsdp {} x --seq {} must span --cluster_size {} "
-            "nodes, one card each: {}".format(args.data, args.fsdp,
-                                              args.seq, args.cluster_size,
-                                              err)) from None
+            "--data {} x --fsdp {} x --seq {} x --expert {} x --tensor {} "
+            "must span --cluster_size {} nodes, one card each: {}".format(
+                args.data, args.fsdp, args.seq, args.expert, args.tensor,
+                args.cluster_size, err)) from None
     return spec
 
 
@@ -222,9 +238,13 @@ def parse_args(argv=None):
     parser.add_argument("--seq", type=int, default=1,
                         help="sequence-parallel degree (ring attention "
                              "unless --attention ulysses)")
-    for flag in J2_FLAGS:
-        parser.add_argument("--" + flag, type=int, default=1,
-                            help="mesh axis size: 1 (not ported above 1)")
+    parser.add_argument("--expert", type=int, default=1,
+                        help="expert-parallel degree: MoE expert weights "
+                             "shard over this axis")
+    parser.add_argument("--tensor", type=int, default=1,
+                        help="tensor-parallel degree: heads and MLP split "
+                             "over it, params replicated (the JAX "
+                             "example's layout)")
     parser.add_argument("--mlp", default="dense", choices=["dense", "moe"],
                         help="FFN flavor; 'moe' = Switch-style mixture of "
                              "experts")
@@ -232,7 +252,8 @@ def parse_args(argv=None):
     parser.add_argument("--ep_mode", default="gspmd",
                         choices=["gspmd", "shard_map"],
                         help="expert parallelism flavor: gspmd (dense "
-                             "one-hot dispatch); shard_map is not ported")
+                             "one-hot dispatch) or shard_map (explicit "
+                             "all_to_all schedule, parallel/ep.py)")
     parser.add_argument("--attention", default=None,
                         choices=[None, "full", "flash", "ring", "ulysses"],
                         help="attention kernel (default ring when --seq "

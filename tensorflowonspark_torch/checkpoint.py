@@ -83,8 +83,10 @@ class CheckpointManager(object):
         process every rank calls :meth:`maybe_save` at the same steps (the
         JAX package's contract); only the chief writes, since the
         all-reduced params and optimizer state are the same on every rank
-        (under FSDP every rank's ``state_dict()`` all-gathers the sharded
-        optimizer state, and the chief writes the one-card format).
+        (under a sharded layout, FSDP, tensor or expert parallel, every
+        rank's ``state_dict()`` all-gathers the sharded optimizer state and
+        the expert blocks, and the chief writes the one-card format, which
+        restores into any mesh).
         A non-chief records the step it was asked for, so its save gate
         stays in step with the chief's, and writes nothing.  Every rank
         restores from the chief's files, once they are written (after the
@@ -161,7 +163,8 @@ class CheckpointManager(object):
         if step == self._latest_effective():
             return False  # already saved (e.g. final force after interval hit)
         if hasattr(state, "state_dict"):
-            # on every rank: under FSDP it all-gathers the optimizer state
+            # on every rank: under a sharded layout it all-gathers the
+            # optimizer state and the expert blocks
             state = state.state_dict()
         if not self.is_chief:
             self._last_requested = step   # the chief writes this step

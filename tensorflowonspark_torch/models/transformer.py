@@ -19,12 +19,20 @@ runs the flash forward twice per layer and a server (no gradients) never
 pays for the recompute.
 
 ``mlp="moe"`` replaces each block's dense MLP with :class:`MoEMlp`, the
-Switch-style top-1 mixture of experts with the JAX layer's GSPMD dispatch
-(``ep_mode="gspmd"``): routing as dense one-hot products, grouped per batch
-row, and the load-balance term of every block summed and returned beside
-the logits (``forward(tokens, return_aux=True)``), which :func:`loss_fn`
-weights in.  Each block returns its term instead of keeping it in module
-state, so the recompute of ``remat=True`` does not count it twice.
+Switch-style top-1 mixture of experts: routing as dense one-hot products,
+grouped per batch row, with the JAX layer's two expert-parallel modes
+(``ep_mode="gspmd"``, the dense dispatch partitioned over an ``expert``
+axis, and ``"shard_map"``, the explicit all-to-all schedule of
+:func:`~tensorflowonspark_torch.parallel.ep.moe_ffn`), and the load-balance
+term of every block summed and returned beside the logits
+(``forward(tokens, return_aux=True)``), which :func:`loss_fn` weights in.
+Each block returns its term instead of keeping it in module state, so the
+recompute of ``remat=True`` does not count it twice.
+
+On a mesh with a ``tensor`` axis each block splits its heads and its MLP's
+hidden features over that axis (Megatron's layout; the flash kernels run
+on the rank's H/T heads), whatever layout the params are stored in
+(:mod:`~tensorflowonspark_torch.parallel.tp`).
 
 ``attention`` picks the core contraction: ``"full"`` is
 :func:`~tensorflowonspark_torch.parallel.ring.reference_attention`,
@@ -55,6 +63,8 @@ from torch import nn
 
 from tensorflowonspark_torch.models import register_model
 from tensorflowonspark_torch.ops import flash_attention
+from tensorflowonspark_torch.parallel import comm
+from tensorflowonspark_torch.parallel import ep as ep_mod
 from tensorflowonspark_torch.parallel import mesh as mesh_mod
 from tensorflowonspark_torch.parallel import ring
 
@@ -125,7 +135,49 @@ class LayerNorm(nn.Module):
         return (y + self.bias).to(self.dtype)
 
 
+def _tensor_split(mesh):
+    """``(T, rank, group)`` of the mesh's ``tensor`` axis: ``(1, 0, None)``
+    without a mesh or with an axis of 1, where the split products are the
+    whole ones, to the bit."""
+    size = 1 if mesh is None else mesh_mod.axis_size(mesh, "tensor")
+    if size == 1:
+        return 1, 0, None
+    return size, mesh.get_local_rank("tensor"), mesh_mod.group(mesh,
+                                                                "tensor")
+
+
+def _row_parallel(x, dense, rank, width, group, dtype):
+    """``x`` (this rank's ``width`` input features) through its columns of
+    ``dense``, the partial products summed over ``group`` in fp32, then the
+    bias (every rank uses every leaf, so their gradients line up); with one
+    rank this is ``dense(x)`` to the bit."""
+    weight = dense.weight.narrow(1, rank * width, width).to(dtype)
+    if group is None:
+        return F.linear(x, weight, dense.bias.to(dtype))
+    part = comm.all_reduce(F.linear(x, weight).float(), group)
+    return part.to(dtype) + dense.bias.to(dtype)
+
+
+def _row_block(weight, bias, rank, size, dtype):
+    """Rows ``rank`` of ``size`` blocks of a Dense weight (and its bias):
+    the output features of a column-parallel product, in ``dtype``."""
+    rows = weight.shape[0] // size
+    return (weight.narrow(0, rank * rows, rows).to(dtype),
+            bias.narrow(0, rank * rows, rows).to(dtype))
+
+
 class Attention(nn.Module):
+    """qkv projection, causal attention, output projection (the
+    :class:`Dense` modules hold the params; the products read them).
+
+    On a mesh whose ``tensor`` axis is T > 1 the heads split over it
+    (Megatron's attention): rank r projects and attends over heads
+    ``r*H/T ... (r+1)*H/T`` only (the flash kernels take whole heads, so the
+    q/k/v activations are head-sharded whatever the qkv weight's stored
+    layout) and applies the matching columns of ``proj``; the partial
+    products are summed over the ``tensor`` group in fp32.  H must divide
+    by T."""
+
     def __init__(self, num_heads, head_dim, attention="full", mesh=None,
                  dtype=torch.float32):
         super().__init__()
@@ -134,68 +186,119 @@ class Attention(nn.Module):
                 _ATTENTIONS, attention))
         if attention in ("ring", "ulysses") and mesh is None:
             raise ValueError("{} attention needs a mesh".format(attention))
+        tensor = 1 if mesh is None else mesh_mod.axis_size(mesh, "tensor")
+        if num_heads % tensor:
+            raise ValueError(
+                "heads {} not divisible by the tensor axis {}".format(
+                    num_heads, tensor))
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.attention = attention
         self.mesh = mesh
+        self.dtype = dtype
         features = num_heads * head_dim
         self.qkv = Dense(features, 3 * features, dtype)
         self.proj = Dense(features, features, dtype)
 
+    def _core(self, q, k, v):
+        if self.attention == "flash":
+            return flash_attention(q, k, v, causal=True)
+        if self.attention == "ring":
+            return ring.ring_attention(q, k, v, self.mesh, causal=True)
+        if self.attention == "ulysses":
+            return ring.ulysses_attention(q, k, v, self.mesh, causal=True)
+        return ring.reference_attention(q, k, v, causal=True)
+
     def forward(self, x):
         batch, seq, _ = x.shape
-        qkv = self.qkv(x).view(batch, seq, 3, self.num_heads, self.head_dim)
+        size, rank, group = _tensor_split(self.mesh)
+        heads = self.num_heads // size
+        d_model = x.shape[-1]
+        w = self.qkv.weight.view(3, self.num_heads, self.head_dim, d_model)
+        w = w.narrow(1, rank * heads, heads).reshape(-1, d_model)
+        b = self.qkv.bias.view(3, self.num_heads, self.head_dim).narrow(
+            1, rank * heads, heads).reshape(-1)
+        qkv = F.linear(x.to(self.dtype), w.to(self.dtype),
+                       b.to(self.dtype)).view(batch, seq, 3, heads,
+                                              self.head_dim)
         # strided views into the one projection output: the kernel reads
         # them in place
         q, k, v = qkv.unbind(2)
-        if self.attention == "flash":
-            out = flash_attention(q, k, v, causal=True)
-        elif self.attention == "ring":
-            out = ring.ring_attention(q, k, v, self.mesh, causal=True)
-        elif self.attention == "ulysses":
-            out = ring.ulysses_attention(q, k, v, self.mesh, causal=True)
-        else:
-            out = ring.reference_attention(q, k, v, causal=True)
-        return self.proj(out.reshape(batch, seq, -1))
+        out = self._core(q, k, v).reshape(batch, seq, -1)
+        width = heads * self.head_dim
+        return _row_parallel(out, self.proj, rank, width, group, self.dtype)
 
 
 class MoEMlp(nn.Module):
     """Switch-style top-1 mixture-of-experts FFN with GShard dispatch and
-    combine (flax ``MoEMlp`` with ``ep_mode="gspmd"``): ``x [G, S, D] ->
-    (y [G, S, D], load-balance term)``, a group per batch row.
+    combine (flax ``MoEMlp``): ``x [G, S, D] -> (y [G, S, D], load-balance
+    term)``, a group per batch row.
 
     The router is a fp32 ``Dense(D, E)`` on ``x`` cast to fp32; each token
     goes to its most probable expert, in that expert's buffer of
     ``capacity = max(int(capacity_factor * S / E), 1)`` slots at its
-    position among the group's tokens routed there.  Tokens past capacity
-    get no slot: they contribute zero and ride the block's residual.  The
-    layer is three products in ``dtype`` (dispatch, the expert FFN with
-    tanh gelu, combine), the one-hot dispatch and combine tensors
-    ``[G, S, E, C]`` built by comparison, with no data-dependent shape and
-    no host readback, so a CUDA graph captures it.  Params keep flax's
-    layout: ``router`` (a :class:`Dense`), ``w1 [E, D, H]``, ``b1 [E, H]``,
-    ``w2 [E, H, D]``, ``b2 [E, D]``.
+    position among the group's tokens routed there
+    (:func:`~tensorflowonspark_torch.parallel.ep.route`, shared with the
+    explicit schedule).  Tokens past capacity get no slot: they contribute
+    zero and ride the block's residual.  The layer is three products in
+    ``dtype`` (dispatch, the expert FFN with tanh gelu, combine), the
+    one-hot dispatch and combine tensors ``[G, S, E, C]`` built by
+    comparison, with no data-dependent shape and no host readback, so a
+    CUDA graph captures it.  Params keep flax's layout: ``router`` (a
+    :class:`Dense`), ``w1 [E, D, H]``, ``b1 [E, H]``, ``w2 [E, H, D]``,
+    ``b2 [E, D]``.
 
-    The explicit expert-parallel schedule (``ep_mode="shard_map"``) and a
-    mesh whose ``seq`` or ``expert`` axis is above 1 are not ported (the
-    capacity comes from the global sequence length, so a local chunk would
-    route otherwise)."""
+    On a mesh:
+
+    - a ``seq`` axis above 1: the capacity comes from the global sequence
+      (as in the JAX layer, which sees it whole), so the group's chunks are
+      all-gathered, routed and computed whole, and this rank keeps its
+      chunk;
+    - ``ep_mode="gspmd"`` on an ``expert`` axis above 1: this rank applies
+      its E/ep experts (its block of the dispatch tensor's E dim) and the
+      partial combines are summed over the ``expert`` group; when
+      ``expert`` carries distinct rows (it is in ``ep_batch_axes``) the
+      group's rows are gathered first and the sum reduce-scattered back;
+    - ``ep_mode="shard_map"``: :func:`~tensorflowonspark_torch.parallel.ep.moe_ffn`,
+      the explicit all-to-all schedule, with ``ep_batch_axes`` (which needs
+      a mesh with an ``expert`` axis).
+
+    ``ep_batch_axes`` names the mesh axes over which this process's rows
+    are distinct (JAX's "mesh axes the caller's batch sharding puts on the
+    group dim"); None is the Trainer's default, the mesh's ``data`` and
+    ``fsdp`` axes.  The load-balance term averages ``fraction`` and
+    ``mean_prob`` over them, so it is the global batch's, as the JAX
+    layer's.  The expert leaves may hold all E experts or this rank's E/ep
+    block (placed over ``expert``, see
+    :func:`~tensorflowonspark_torch.parallel.ep.merge_ep_shardings`)."""
 
     def __init__(self, d_model, num_experts=8, mlp_ratio=4,
                  capacity_factor=1.25, ep_mode="gspmd", mesh=None,
-                 dtype=torch.float32):
+                 ep_batch_axes=None, dtype=torch.float32):
         super().__init__()
-        split = {} if mesh is None else {
-            a: mesh_mod.axis_size(mesh, a) for a in ("seq", "expert")
-            if mesh_mod.axis_size(mesh, a) > 1}
-        if ep_mode != "gspmd" or split:
-            raise NotImplementedError(
-                "MoE with ep_mode={!r}{} is not ported yet (ROADMAP.md, "
-                "item J2)".format(ep_mode, " on mesh axes {}".format(split)
-                                  if split else ""))
+        if ep_mode not in ("gspmd", "shard_map"):
+            raise ValueError("ep_mode must be 'gspmd' or 'shard_map', got "
+                             "{!r}".format(ep_mode))
+        if ep_mode == "shard_map" and (
+                mesh is None or "expert" not in (mesh.mesh_dim_names or ())):
+            raise ValueError("ep_mode='shard_map' needs a mesh with an "
+                             "'expert' axis")
+        ep = 1 if mesh is None else mesh_mod.axis_size(mesh, "expert")
+        if num_experts % ep:
+            raise ValueError(
+                "num_experts {} not divisible by expert axis size {}".format(
+                    num_experts, ep))
         hidden = d_model * mlp_ratio
         self.num_experts = num_experts
         self.capacity_factor = capacity_factor
+        self.ep_mode = ep_mode
+        self.mesh = mesh
+        if ep_batch_axes is None:
+            ep_batch_axes = () if mesh is None else tuple(
+                a for a in mesh_mod.BATCH_AXES if a in mesh.mesh_dim_names)
+        self.ep_batch_axes = ((ep_batch_axes,)
+                              if isinstance(ep_batch_axes, str)
+                              else tuple(ep_batch_axes))
         self.dtype = dtype
         self.router = Dense(d_model, num_experts, torch.float32)
         self.w1 = nn.Parameter(torch.empty(num_experts, d_model, hidden))
@@ -218,40 +321,63 @@ class MoEMlp(nn.Module):
 
     def route(self, x):
         """``(probs [G, S, E] fp32, expert_idx [G, S], expert_prob [G, S],
-        pos [G, S])``: the router's softmax, each token's expert (the
-        first most probable, as ``jnp.argmax`` picks: a tie decides an
-        expert) and its probability, and its 0-based position among the
-        group's tokens routed to that expert."""
-        probs = torch.softmax(self.router(x.float()), dim=-1)
-        expert_prob, expert_idx = probs.max(dim=-1)
-        experts = torch.arange(self.num_experts, device=x.device)
-        onehot = (expert_idx[..., None] == experts).long()
-        # an integer cumsum: a low-precision one would saturate and give
-        # two tokens one slot
-        pos = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1
-        return probs, expert_idx, expert_prob, pos
+        pos [G, S])`` (see :func:`~tensorflowonspark_torch.parallel.ep.route`)."""
+        return ep_mod.route(self.router(x.float()), self.num_experts)
+
+    def _group(self, axis):
+        return None if self.mesh is None else mesh_mod.group(self.mesh, axis)
 
     def forward(self, x):
-        seq = x.shape[1]
-        capacity = self.capacity(seq)
-        probs, expert_idx, expert_prob, pos = self.route(x)
-        experts = torch.arange(self.num_experts, device=x.device)
-        onehot = expert_idx[..., None] == experts                # [G, S, E]
-        # a position past capacity matches no slot: the token is dropped
-        # (jax.nn.one_hot's zero row; F.one_hot would raise)
-        slot = pos[..., None] == torch.arange(capacity, device=x.device)
-        dispatch = (onehot[..., None] & slot[:, :, None, :]).to(x.dtype)
+        seq_group = self._group("seq")
+        if seq_group is not None:
+            chunk = x.shape[1]
+            x = comm.all_gather(x, seq_group, dim=1)
+        if self.ep_mode == "shard_map":
+            params = {"router.weight": self.router.weight,
+                      "router.bias": self.router.bias, "w1": self.w1,
+                      "b1": self.b1, "w2": self.w2, "b2": self.b2}
+            y, aux = ep_mod.moe_ffn(
+                x, params, self.mesh, self.num_experts,
+                capacity_factor=self.capacity_factor, dtype=self.dtype,
+                batch_axes=self.ep_batch_axes)
+        else:
+            y, aux = self._gspmd(x)
+        if seq_group is not None:
+            y = y.narrow(1, self.mesh.get_local_rank("seq") * chunk, chunk)
+        return y, aux
+
+    def _gspmd(self, x):
+        expert_group = self._group("expert")
+        distinct = "expert" in self.ep_batch_axes
+        if expert_group is not None and distinct:
+            x = comm.all_gather(x, expert_group, dim=0)
+        dispatch, expert_prob, (fraction, mean_prob) = ep_mod._route(
+            x, self.router(x.float()), self.num_experts,
+            self.capacity(x.shape[1]))
+        if expert_group is None:
+            w1, b1, w2, b2 = self.w1, self.b1, self.w2, self.b2
+        else:
+            w1, b1, w2, b2 = (ep_mod.local_experts(
+                t, self.mesh, "expert", self.num_experts)
+                for t in (self.w1, self.b1, self.w2, self.b2))
+            local = w1.shape[0]
+            dispatch = dispatch.narrow(
+                2, self.mesh.get_local_rank("expert") * local, local)
         expert_in = torch.einsum("gsec,gsd->gecd", dispatch, x)
-        h = (torch.einsum("gecd,edh->gech", expert_in, self.w1.to(self.dtype))
-             + self.b1.to(self.dtype)[:, None])
-        h = F.gelu(h, approximate="tanh")
-        out = (torch.einsum("gech,ehd->gecd", h, self.w2.to(self.dtype))
-               + self.b2.to(self.dtype)[:, None])
+        out = ep_mod.expert_ffn(expert_in, w1, b1, w2, b2, self.dtype)
         combine = dispatch * expert_prob.to(x.dtype)[..., None, None]
         mixed = torch.einsum("gsec,gecd->gsd", combine, out)
-        # Switch load balance: E * sum_e fraction_e * mean_prob_e
-        fraction = onehot.float().mean(dim=(0, 1))
-        aux = self.num_experts * (fraction * probs.mean(dim=(0, 1))).sum()
+        if expert_group is not None:
+            mixed = (comm.reduce_scatter(mixed, expert_group, dim=0)
+                     if distinct else comm.all_reduce(mixed, expert_group))
+        # Switch load balance: E * sum_e fraction_e * mean_prob_e, the
+        # means over the rows of every axis that carries distinct rows
+        axes = tuple(a for a in self.ep_batch_axes if a != "expert")
+        if axes:
+            mean_group = mesh_mod.groups(self.mesh, axes)
+            fraction = comm.pmean(fraction, mean_group)
+            mean_prob = comm.pmean(mean_prob, mean_group)
+        aux = self.num_experts * (fraction * mean_prob).sum()
         return mixed, aux
 
 
@@ -272,10 +398,12 @@ class Block(nn.Module):
         self.ln1 = LayerNorm(d_model, dtype)
         self.attn = Attention(num_heads, head_dim, attention, mesh, dtype)
         self.ln2 = LayerNorm(d_model, dtype)
+        self.mesh = mesh
+        self.dtype = dtype
         if mlp == "moe":
-            # ep_batch_axes is an option of the shard_map mode alone
             self.moe = MoEMlp(d_model, num_experts, mlp_ratio,
-                              capacity_factor, ep_mode, mesh, dtype)
+                              capacity_factor, ep_mode, mesh, ep_batch_axes,
+                              dtype)
         else:
             self.moe = None
             self.mlp_in = Dense(d_model, d_model * mlp_ratio, dtype)
@@ -287,8 +415,14 @@ class Block(nn.Module):
         if self.moe is not None:
             h, aux = self.moe(h)
             return x + h, aux
-        h = F.gelu(self.mlp_in(h), approximate="tanh")
-        return x + self.mlp_out(h), None
+        # Megatron's MLP: rank r's block of the hidden features, the
+        # second product's partial sums added over the tensor group
+        size, rank, group = _tensor_split(self.mesh)
+        w, b = _row_block(self.mlp_in.weight, self.mlp_in.bias, rank, size,
+                          self.dtype)
+        h = F.gelu(F.linear(h.to(self.dtype), w, b), approximate="tanh")
+        return x + _row_parallel(h, self.mlp_out, rank, h.shape[-1], group,
+                                 self.dtype), None
 
 
 def _remat_block(block, x):
@@ -328,11 +462,6 @@ class TransformerLM(nn.Module):
         self.mesh = mesh
         d_model = num_heads * head_dim
         if mesh is not None:
-            axes = mesh_mod.unsupported_axes(mesh)
-            if axes:
-                raise NotImplementedError(
-                    "mesh axes {} are not ported yet (ROADMAP.md, item "
-                    "J2)".format(axes))
             if self.seq_parallel > 1 and attention not in ("ring",
                                                             "ulysses"):
                 raise ValueError(
@@ -357,6 +486,37 @@ class TransformerLM(nn.Module):
             if isinstance(module, (Dense, Embed, LayerNorm, MoEMlp)):
                 module.reset_parameters(generator)
         return self
+
+    @property
+    def batch_axes(self):
+        """The mesh axes over which this process's rows are distinct, as
+        the MoE blocks read them (their ``ep_batch_axes``); None for a
+        dense model, whose layers do not depend on it.  The Trainer takes
+        this value through :func:`loss_fn` and raises on another."""
+        for block in self.blocks:
+            if block.moe is not None:
+                return block.moe.ep_batch_axes
+        return None
+
+    def flax_views(self):
+        """``{name: (view shape, perm)}`` of the params laid out otherwise
+        than their flax counterparts: ``param.view(shape).permute(perm)``
+        is the flax leaf (shape None: the param's own).  A :class:`Dense`
+        weight is the flax kernel transposed; the fused qkv projection is
+        flax's ``DenseGeneral`` kernel ``[D, 3, H, Dh]`` and bias ``[3, H,
+        Dh]``.  The sharding rules read the flax layout through these
+        (:func:`~tensorflowonspark_torch.parallel.tp.tp_param_shardings`)."""
+        views = {}
+        for prefix, module in self.named_modules():
+            dot = prefix + "." if prefix else ""
+            if isinstance(module, Attention):
+                heads, width = module.num_heads, module.head_dim
+                views[dot + "qkv.weight"] = ((3, heads, width,
+                                              heads * width), (3, 0, 1, 2))
+                views[dot + "qkv.bias"] = ((3, heads, width), (0, 1, 2))
+            elif isinstance(module, Dense) and dot + "weight" not in views:
+                views[dot + "weight"] = (None, (1, 0))
+        return views
 
     @property
     def seq_parallel(self):
@@ -421,8 +581,11 @@ def loss_fn(model, moe_aux_weight=0.01):
     the global S - 1.  The loss is this chunk's share: the group's losses
     sum to the masked mean over its rows.  A model with MoE blocks adds
     ``moe_aux_weight`` (Switch Transformer's alpha) times the summed
-    load-balance term, taken over every row, and reports it as
-    ``aux["moe_aux_loss"]``; ``aux`` is empty otherwise."""
+    load-balance term, taken over every row (each rank of a ``seq`` group
+    holds the whole sequence's term and adds 1/P of it), and reports it as
+    ``aux["moe_aux_loss"]``; ``aux`` is empty otherwise.  The function's
+    ``batch_axes`` is the model's (:attr:`TransformerLM.batch_axes`), which
+    the Trainer adopts."""
 
     parts = model.seq_parallel
 
@@ -448,9 +611,13 @@ def loss_fn(model, moe_aux_weight=0.01):
         aux = {}
         if balance is not None:
             aux["moe_aux_loss"] = balance
-            ce = ce + moe_aux_weight * balance
+            # every rank of a seq group holds the whole sequence's term:
+            # its chunk's loss carries 1/P of it
+            ce = ce + moe_aux_weight * balance / parts
         return ce, aux
 
+    # the rows' layout the model was built for: the Trainer adopts it
+    loss.batch_axes = model.batch_axes
     return loss
 
 

@@ -30,13 +30,16 @@ host:
    prefetch thread's side stream; ``group_assembly="host"`` stacks on the
    host and makes one pinned copy per group.
 
-With ``mesh=`` (the JAX keyword) whose ``seq`` axis is P > 1, the ranks
-of one ``seq`` group train on the same rows, each on its S/P columns: every
-rank still feeds ``global_batch_size / world_size`` rows (in SPARK mode it
-drains the partitions pushed to it), and on the consuming thread the group
-all-gathers its members' batches and masks and each rank keeps its chunk of
+With ``mesh=`` (the JAX keyword), the ranks that differ only in the
+mesh's non-batch axes (:func:`~tensorflowonspark_torch.parallel.mesh.pooled_axes`:
+``seq``, ``tensor``, ``pipe``, and ``expert`` unless ``batch_axes`` names
+it) train on the same rows: every rank still feeds ``global_batch_size /
+world_size`` rows (in SPARK mode it drains the partitions pushed to it),
+and on the consuming thread that group all-gathers its members' batches and
+masks.  Its batch is then ``N * global_batch_size / world_size`` rows for a
+group of N.  Under a ``seq`` axis of P > 1 each rank keeps its chunk of
 dim 1 of every leaf of rank 2 or more (the JAX ``PartitionSpec(batch_axes,
-"seq")``).  Its batch is then ``P * global_batch_size / world_size`` rows.
+"seq")``).
 
 On the CPU (``device="cpu"``, the tests) the batch is the same tensors,
 copied from the feed's arrays, without a stream.  The ``infeed_*``
@@ -44,6 +47,7 @@ counters keep the JAX package's names and ride heartbeats the same way.
 """
 
 import logging
+import math
 import os
 import queue as _queue
 import threading
@@ -132,13 +136,16 @@ class ShardedFeed(object):
         buffers every group) or ``"host"`` (``np.stack``, one pinned copy a
         group).  ``None`` reads ``TFOS_GROUP_ASSEMBLY``.
       mesh: the device mesh (:func:`~tensorflowonspark_torch.parallel.mesh.build_mesh`)
-        or None; a ``seq`` axis above 1 pools the rows of each ``seq``
-        group (see the module docstring).
+        or None; its non-batch axes above 1 pool their ranks' rows (see
+        the module docstring).
+      batch_axes: the mesh axes that carry distinct rows (``("data",
+        "fsdp")`` by default, JAX ``batch_sharding``'s; the LM twin adds
+        ``"expert"``).
     """
 
     def __init__(self, feed, global_batch_size, preprocess=None,
                  transform=None, pad_final=True, prefetch=None, device=None,
-                 group_assembly=None, mesh=None):
+                 group_assembly=None, mesh=None, batch_axes=None):
         if preprocess is not None and transform is not None:
             raise ValueError("pass either preprocess (row-list path) or "
                              "transform (columnar)")
@@ -148,13 +155,18 @@ class ShardedFeed(object):
             raise ValueError(
                 "global_batch_size {} does not split over {} processes".format(
                     global_batch_size, self._num_processes))
+        self.mesh = mesh
+        self.batch_axes = batch_axes
+        self._pool_group = None
         if mesh is not None:
-            mesh_mod.local_batch_size(mesh, global_batch_size)
-        self._seq_group = (None if mesh is None
-                           else mesh_mod.group(mesh, "seq"))
-        if self._seq_group is not None:
+            mesh_mod.local_batch_size(mesh, global_batch_size, batch_axes)
+            pooled = mesh_mod.pooled_axes(mesh, batch_axes)
+            self._pool_group = mesh_mod.groups(mesh, pooled)
+            self._pool_size = math.prod(mesh_mod.axis_size(mesh, a)
+                                        for a in pooled)
             self._seq_size = mesh_mod.axis_size(mesh, "seq")
-            self._seq_rank = mesh.get_local_rank("seq")
+            self._seq_rank = (mesh.get_local_rank("seq")
+                              if self._seq_size > 1 else 0)
         self.feed = feed
         self.global_batch_size = global_batch_size
         self.local_batch_size = global_batch_size // self._num_processes
@@ -358,32 +370,34 @@ class ShardedFeed(object):
     def _handoff(self, item, stacked=False):
         """``(batch, mask)`` of a sharded item, safe to use on the calling
         thread's current stream: that stream waits for the copies, and the
-        allocator learns that it uses the tensors.  Under a ``seq`` axis
-        above 1, the group's pooled rows (see :meth:`_pool_seq_group`)."""
+        allocator learns that it uses the tensors.  On a mesh with non-batch
+        axes above 1, the group's pooled rows (see :meth:`_pool_rows`)."""
         batch, mask, _, ready = item
         if ready is not None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(ready)
             for t in _leaves(batch) + [mask]:
                 t.record_stream(consumer)
-        if self._seq_group is not None:
+        if self._pool_group is not None:
             row_dim = 1 if stacked else 0
-            batch = _map(batch, lambda t: self._pool_seq_group(t, row_dim))
-            mask = self._pool_seq_group(mask, row_dim)
+            batch = _map(batch, lambda t: self._pool_rows(t, row_dim))
+            mask = self._pool_rows(mask, row_dim)
         return batch, mask
 
-    def _pool_seq_group(self, t, row_dim):
-        """All-gather ``t`` over the ``seq`` group along its row dim (the
-        members' rows in rank order) and keep this rank's chunk of the next
-        dim, when ``t`` has one.  Runs on the consuming thread, in the
-        order of the step's own collectives on every rank."""
-        size = self._seq_size
+    def _pool_rows(self, t, row_dim):
+        """All-gather ``t`` over the pooling group along its row dim (the
+        members' rows in rank order) and, under a ``seq`` axis above 1, keep
+        this rank's chunk of the next dim, when ``t`` has one.  Runs on the
+        consuming thread, in the order of the step's own collectives on
+        every rank."""
+        size = self._pool_size
         out = torch.empty(size * t.numel(), dtype=t.dtype, device=t.device)
         torch.distributed.all_gather_into_tensor(
-            out, t.contiguous().view(-1), group=self._seq_group)
+            out, t.contiguous().view(-1), group=self._pool_group)
         pooled = out.view((size,) + tuple(t.shape)).movedim(0, row_dim) \
             .flatten(row_dim, row_dim + 1)
-        if pooled.dim() > row_dim + 1:
+        if self._seq_size > 1 and pooled.dim() > row_dim + 1:
+            size = self._seq_size
             chunk = pooled.shape[row_dim + 1] // size
             pooled = pooled.narrow(row_dim + 1, self._seq_rank * chunk,
                                    chunk)

@@ -44,20 +44,37 @@ all-reduce hands every rank the other ranks' gradients too.  Every rank then
 applies identical gradients.
 
 ``mesh`` (:func:`~tensorflowonspark_torch.parallel.mesh.build_mesh`) names
-the world's axes.  Its ``data`` and ``fsdp`` coordinates carry distinct rows
-of the global batch; the ranks of one ``seq`` group hold the same rows, each
-its chunk of the sequence (the model's loss is then that chunk's share), so
-the global valid-row count counts a row once per ``seq`` group.
-``param_sharding="fsdp"`` shards the params and the optimizer state over
-the ``fsdp`` axis by the JAX package's rule
-(:class:`~tensorflowonspark_torch.parallel.fsdp.ShardedParams`): the
-gradients are reduce-scattered into shards (and summed over the mesh's
-other axes), the optimizer steps the shards, and the full params are
-all-gathered into their fixed buffers after every step, so
-``state.params`` always holds the full params.  The grad norm is then
-``sqrt`` of the all-reduced Σ of the shards' squares plus the replicated
-leaves', each leaf counted once.  ``tensor``, ``expert`` and ``pipe`` axes
-above 1 and explicit sharding trees raise (ROADMAP.md, item J2).
+the world's axes.  Its ``batch_axes`` (``data`` and ``fsdp`` unless the
+caller names others, as the LM twin adds ``expert``) carry distinct rows of
+the global batch; the ranks that differ only in the other axes
+(:func:`~tensorflowonspark_torch.parallel.mesh.pooled_axes`) hold the same
+rows: under ``seq`` each its chunk of the sequence (the model's loss is
+then that chunk's share), under ``tensor``, ``pipe`` and a non-batch
+``expert`` the same rows and the same loss.  The global valid-row count
+divides the all-reduced count by that group's size, and the loss of a rank
+whose work others repeat is scaled by 1/(their number), so that the SUM of
+every rank's gradient is the global batch's: the collectives inside the
+model differentiate as that sum (:mod:`~tensorflowonspark_torch.parallel.comm`),
+which keeps exact the leaves that a rank uses on part of the work only
+(the MoE router under ``moe_ffn``'s split, the qkv rows of its heads).
+
+``param_sharding`` lays the params and the optimizer state out per leaf
+(:class:`~tensorflowonspark_torch.parallel.fsdp.ShardedParams`): ``"fsdp"``
+by the JAX package's FSDP rule, or a ``{name: Placement}`` tree
+(:func:`~tensorflowonspark_torch.parallel.tp.tp_param_shardings`,
+:func:`~tensorflowonspark_torch.parallel.ep.merge_ep_shardings`).  Each
+rank holds its block of a sharded leaf and the optimizer steps only the
+blocks.  A leaf sharded over ``fsdp`` or ``tensor`` is gathered: its full
+gradient is reduce-scattered into the block over its axis (and summed over
+the others), and the full params are all-gathered into their fixed buffers
+after every step, so ``state.params`` holds them.  A leaf sharded over
+``expert`` stays local (the MoE layer computes with its E/ep experts):
+``state.params`` holds the block, whose gradient sums over the axes but
+``expert``.  Replicated leaves sum over the world, the loss with them, in
+one all-reduce.  Each group of leaves is one flat buffer and one collective
+(a CUDA graph captures them).  The grad norm is ``sqrt`` of the Σ of the
+blocks' squares over their axes plus the replicated leaves', each block
+counted once.
 
 ``extra_state`` is the JAX Trainer's non-trainable state (BatchNorm running
 averages): a name->tensor dict that the loss reads and hands back updated in
@@ -200,9 +217,11 @@ class TrainState:
     """The step counter, the params (a name->tensor dict, updated in place),
     the optimizer that holds their state, and the non-trainable ``extra``
     state (a name->tensor dict, e.g. BatchNorm running averages; None
-    without one), updated in place too.  Under FSDP ``sharding`` is the
+    without one), updated in place too.  Under a sharded layout
+    ``sharding`` is the
     :class:`~tensorflowonspark_torch.parallel.fsdp.ShardedParams` whose
-    shards the optimizer steps (``params`` are the full params)."""
+    blocks the optimizer steps (``params`` are its ``full``: the full
+    gathered leaves and this rank's block of a local one)."""
 
     step: int
     params: dict
@@ -212,17 +231,26 @@ class TrainState:
 
     def state_dict(self):
         """``{"step", "params", "opt_state"}`` and ``"extra"`` when there is
-        extra state: what a checkpoint holds.  Under FSDP the optimizer
-        state is all-gathered to its full shapes, so the state is a
-        one-card state (a collective call: every rank makes it)."""
+        extra state: what a checkpoint holds.  Under a sharded layout the
+        local leaves and the optimizer state are all-gathered to their full
+        shapes, so the state is a one-card state (a collective call: every
+        rank makes it)."""
         opt_state = self.optimizer.state_dict()
         if self.sharding is not None:
             opt_state = self.sharding.full_optimizer_state(opt_state)
-        state = {"step": self.step, "params": self.params,
+        state = {"step": self.step, "params": self.full_params(),
                  "opt_state": opt_state}
         if self.extra is not None:
             state["extra"] = self.extra
         return state
+
+    def full_params(self):
+        """The full params, one-card shapes: ``params`` itself, or under a
+        sharded layout with local leaves their all-gathered blocks (a
+        collective call: every rank makes it)."""
+        if self.sharding is None:
+            return self.params
+        return self.sharding.full_params()
 
     def load_state_dict(self, state):
         """Copy a :meth:`state_dict` into this state, in place: the params,
@@ -230,8 +258,8 @@ class TrainState:
         tensor hyperparameter this optimizer already holds, which keep their
         storage (a captured CUDA graph reads them at their addresses).
         ``capturable`` flags stay as they are; the other hyperparameters
-        come from ``state``.  Under FSDP each rank takes its shards of the
-        one-card state."""
+        come from ``state``.  Under a sharded layout each rank takes its
+        blocks of the one-card state."""
         opt = self.optimizer
         with torch.no_grad():
             if self.sharding is not None:
@@ -466,8 +494,15 @@ class Trainer(object):
       mesh: the device mesh
         (:func:`~tensorflowonspark_torch.parallel.mesh.build_mesh`), or None:
         data parallelism over the world, as a ``("data",)`` mesh gives.
-      param_sharding: None (replicated params and optimizer state) or
-        ``"fsdp"`` (sharded over the mesh's ``fsdp`` axis, which it needs).
+      param_sharding: None (replicated params and optimizer state),
+        ``"fsdp"`` (sharded over the mesh's ``fsdp`` axis, which it needs),
+        or a ``{name: Placement}`` tree over ``mesh``.
+      batch_axes: the mesh axes whose coordinates carry distinct rows;
+        by default the model's (``loss_fn.batch_axes``, as
+        :func:`~tensorflowonspark_torch.models.transformer.loss_fn` sets
+        it), else ``("data", "fsdp")``.  ``ValueError`` when it differs
+        from the model's; :meth:`fit_feed` raises when a meshed feed's
+        differs.
 
     ``aot_cache`` raises ``NotImplementedError`` at any value other than
     the JAX default: it is not ported yet.
@@ -477,7 +512,7 @@ class Trainer(object):
                  compute_dtype=None, batch_size=None, log_steps=20,
                  extra_step_flops=0, step_flops_override=None,
                  summary_writer=None, device=None, accum_steps=1, mesh=None,
-                 param_sharding=None, **unported):
+                 param_sharding=None, batch_axes=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError("Trainer() got an unexpected keyword "
@@ -489,19 +524,32 @@ class Trainer(object):
                     "{})".format(name, item))
         self.device = resolve_device(device)
         self.mesh = mesh
-        if mesh is not None and mesh_mod.unsupported_axes(mesh):
-            raise NotImplementedError(
-                "Trainer(mesh=...) with mesh axes {} is not ported yet "
-                "(ROADMAP.md, item J2)".format(
-                    mesh_mod.unsupported_axes(mesh)))
-        if param_sharding not in (None, "fsdp"):
-            raise NotImplementedError(
-                "Trainer(param_sharding=<a sharding tree>) is not ported "
-                "yet (ROADMAP.md, item J2); None and 'fsdp' are")
-        # the ranks of one seq group hold the same rows: the global
-        # valid-row count divides by it
-        self._seq_parallel = (1 if mesh is None
-                              else mesh_mod.axis_size(mesh, "seq"))
+        if isinstance(param_sharding, str) and param_sharding != "fsdp":
+            raise ValueError("param_sharding must be None, 'fsdp' or a "
+                             "sharding tree, got {!r}".format(param_sharding))
+        # one answer to which axes carry distinct rows: the model's (its
+        # MoE layers route by it), which the Trainer adopts and the feed
+        # must share (fit_feed checks it)
+        model_axes = getattr(loss_fn, "batch_axes", None)
+        if mesh is not None and model_axes is not None:
+            if batch_axes is None:
+                batch_axes = model_axes
+            elif (mesh_mod.batch_axes_of(mesh, batch_axes)
+                  != mesh_mod.batch_axes_of(mesh, model_axes)):
+                raise ValueError(
+                    "batch_axes {} differ from the model's {}: the rows "
+                    "would be laid out one way and routed another".format(
+                        tuple(batch_axes), tuple(model_axes)))
+        self.batch_axes = batch_axes
+        # the rows of the global batch: the all-reduced count divides by the
+        # size of the group that pools them; the ranks of that group but
+        # the seq ones repeat one another's work, each 1/n of the loss
+        pooled = (() if mesh is None
+                  else mesh_mod.pooled_axes(mesh, batch_axes))
+        self._row_holders = math.prod(mesh_mod.axis_size(mesh, a)
+                                      for a in pooled)
+        self._work_repeats = self._row_holders // (
+            1 if mesh is None else mesh_mod.axis_size(mesh, "seq"))
         if int(accum_steps) < 1:
             raise ValueError("accum_steps must be >= 1, got {}".format(
                 accum_steps))
@@ -521,10 +569,16 @@ class Trainer(object):
                                                           copy=True)
                      for name, t in extra_state.items()}
         sharding = None
-        if param_sharding == "fsdp":
-            sharding = fsdp_mod.ShardedParams(params, mesh)
-            if not sharding.names:   # a size-1 axis: everything replicates
+        if param_sharding is not None:
+            if mesh is None and param_sharding != "fsdp":
+                raise ValueError("a sharding tree needs a mesh")
+            sharding = fsdp_mod.ShardedParams(
+                params, mesh, placements=(None if param_sharding == "fsdp"
+                                          else param_sharding))
+            if not sharding.names:   # size-1 axes: everything replicates
                 sharding = None
+            else:
+                params = sharding.full
         stepped = (list(params.values()) if sharding is None
                    else sharding.optimizer_params())
         self.state = TrainState(step=0, params=params,
@@ -683,14 +737,16 @@ class Trainer(object):
         the masked mean over the global batch, the micro-batches weighted
         as :meth:`_accum_grads` weights them.  A loss coupled across ranks
         (synchronised BatchNorm statistics) gets each rank's share of the
-        cross terms right too.  Under a ``seq`` axis above 1 the members of
-        a group count their shared rows once.  Returns this rank's share of
-        the loss."""
+        cross terms right too.  The ranks that pool rows count them once,
+        and those that repeat the work each carry 1/n of it (see the module
+        docstring).  Returns this rank's share of the loss."""
         total = mask.sum().reshape(1)
         dist.all_reduce(total)
-        if self._seq_parallel > 1:
-            total = total / self._seq_parallel
+        if self._row_holders > 1:
+            total = total / self._row_holders
         total = total.clamp_min(1.0)
+        if self._work_repeats > 1:
+            total = total * self._work_repeats
         l_sum = mask.new_zeros(())
         for b, m in self._micro_batches(batch, mask):
             loss, aux, new_extra = self._loss(b, m)
@@ -722,8 +778,11 @@ class Trainer(object):
         sharding = self.state.sharding
         if sharding is not None:
             sharding.scatter_grads()
-        grads = [p.grad for p in self.state.params.values()
-                 if p.grad is not None]
+        # the replicated leaves' gradients (a gathered leaf's went into its
+        # shard, a local leaf's was summed by scatter_grads)
+        grads = [p.grad for name, p in self.state.params.items()
+                 if p.grad is not None
+                 and (sharding is None or name not in sharding.local)]
         if _world_size() > 1:
             loss = self._allreduce(loss, grads)
         if sharding is None:
@@ -1041,9 +1100,21 @@ class Trainer(object):
         step-time regression.  The guard wraps only the dispatch calls,
         not the feed pulls: the infeed's own copies stay legal.  The
         dispatch counter is registered for step-counted profile captures
-        (``GET /profile?steps=N``)."""
+        (``GET /profile?steps=N``).  A feed on a mesh (a
+        :class:`~tensorflowonspark_torch.parallel.infeed.ShardedFeed` with
+        ``mesh=``) must lay its rows out over the Trainer's batch axes:
+        ``ValueError`` otherwise."""
         from tensorflowonspark_torch import node as node_mod
 
+        feed_mesh = getattr(feed, "mesh", None)
+        if self.mesh is not None and feed_mesh is not None and (
+                mesh_mod.batch_axes_of(feed_mesh, feed.batch_axes)
+                != mesh_mod.batch_axes_of(self.mesh, self.batch_axes)):
+            raise ValueError(
+                "the feed's rows are over {} but the Trainer's over "
+                "{}".format(
+                    mesh_mod.batch_axes_of(feed_mesh, feed.batch_axes),
+                    mesh_mod.batch_axes_of(self.mesh, self.batch_axes)))
         node_mod._register_feed(self)
         # weakly: the registration outlives this call, the trainer need not
         this = weakref.ref(self)

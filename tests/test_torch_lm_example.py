@@ -4,8 +4,9 @@
 on the synthetic stream and on byte files (``--data_dir``); each export is
 served by the port's ``ModelServer`` and its loss on the stream is below
 the initial model's.  Also the stream against the JAX example's formula
-the mesh flags over gloo (``--fsdp 2``, ``--data 1 --seq 2``) against
-the one-node run, and the flags that still raise."""
+the mesh flags over gloo (``--fsdp 2``, ``--data 1 --seq 2``; and for
+the MoE LM ``--expert 2`` in both ep modes, ``--tensor 2`` and ``--seq
+2``) against ``--data 2``, and a mesh that does not span the cluster."""
 
 import argparse
 import os
@@ -124,19 +125,19 @@ def test_synthetic_stream_is_the_jax_examples():
         np.testing.assert_array_equal(got["tokens"], want)
 
 
-# --data, --fsdp and --seq are ported: a mesh that does not span
-# --cluster_size (1 here) refuses before any node starts; --expert,
-# --tensor, --ep_mode shard_map and MoE under --seq wait for ROADMAP.md's
-# item J2
+# every mesh axis is ported: a mesh that does not span --cluster_size (1
+# here) refuses before any node starts, whatever the axis or the MoE mode
 @pytest.mark.parametrize("flags,error,match", [
     (["--data", "2"], ValueError, "cluster_size"),
     (["--fsdp", "2"], ValueError, "cluster_size"),
     (["--seq", "2"], ValueError, "cluster_size"),
-    (["--expert", "2"], NotImplementedError, "J2"),
-    (["--tensor", "2"], NotImplementedError, "J2"),
-    (["--attention", "ring", "--seq", "2"] + MOE, NotImplementedError, "J2"),
+    (["--expert", "2"], ValueError, "cluster_size"),
+    (["--tensor", "2"], ValueError, "cluster_size"),
+    (["--attention", "ring", "--seq", "2"] + MOE, ValueError,
+     "cluster_size"),
     (["--attention", "ulysses", "--seq", "2"], ValueError, "cluster_size"),
-    (MOE + ["--ep_mode", "shard_map"], NotImplementedError, "J2")])
+    (MOE + ["--ep_mode", "shard_map", "--expert", "2"], ValueError,
+     "cluster_size")])
 def test_parallel_flags_wait_for_the_parallelism_slice(flags, error, match):
     args = twin.parse_args(TINY + ["--vocab_size", "64"] + flags)
     with pytest.raises(error, match=match):
@@ -187,3 +188,50 @@ def test_mesh_flags_train_as_data_parallel(tmp_path):
         assert table.shape == (256, 64)
         np.testing.assert_allclose(table, tables["data"], rtol=0,
                                    atol=MESH_PARAM_TOL, err_msg=name)
+
+
+# the MoE LM on two gloo nodes under the J2 axes: rows over data, expert
+# (its rows distinct, as the JAX example lays them), pooled under tensor
+# and seq; every run trains on --data 2's global batch
+MOE_MESH_RUNS = (("data", ["--data", "2"]),
+                 ("expert", ["--data", "1", "--expert", "2"]),
+                 ("expert_shard_map", ["--data", "1", "--expert", "2",
+                                       "--ep_mode", "shard_map"]),
+                 ("tensor", ["--data", "1", "--tensor", "2"]),
+                 ("seq", ["--data", "1", "--seq", "2"]))
+
+
+def test_moe_mesh_flags_train_as_data_parallel(tmp_path):
+    """Two nodes over gloo, the MoE LM: ``--expert 2`` (each node its two
+    experts and their Adam state; gspmd and ``--ep_mode shard_map``),
+    ``--tensor 2`` (heads and MLP split, params replicated, as the JAX
+    example lays them) and ``--seq 2`` (each MoE layer routing the whole
+    sequence) train to ``--data 2``'s loss; each chief exports the full
+    params."""
+    runs = {}
+    for name, flags in MOE_MESH_RUNS:
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        runs[name] = subprocess.Popen(
+            [sys.executable, EXAMPLE] + MESH_RUN + MOE + flags + [
+                "--export_dir", str(tmp_path / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+    outs = {name: _wait(proc) for name, proc in runs.items()}
+    losses = {}
+    for name, out in outs.items():
+        losses[name] = [float(x) for x in re.findall(
+            r"trained 4 steps, loss ([0-9.]+)", out)]
+        assert len(losses[name]) == 2, (name, out[-2000:])
+    want = losses["data"][0]
+    for name, got in losses.items():
+        assert max(abs(x - want) for x in got) <= MESH_LOSS_TOL, losses
+    # the token tables as test_mesh_flags_train_as_data_parallel holds
+    # them; the expert leaves whole (an expert's near-zero gradients turn
+    # rounding noise into Adam steps, so they are held by shape)
+    exports = {name: checkpoint.load_model(str(tmp_path / name))[0]
+               for name in runs}
+    for name, sd in exports.items():
+        assert sd["blocks.0.moe.w1"].shape == (4, 64, 256), name
+        np.testing.assert_allclose(sd["embed.weight"].numpy(),
+                                   exports["data"]["embed.weight"].numpy(),
+                                   rtol=0, atol=MESH_PARAM_TOL, err_msg=name)

@@ -2,7 +2,7 @@
 against the JAX package's flax model: the layer alone (output, each token's
 expert, the load-balance term, tokens dropped at capacity), the whole LM's
 logits, loss and gradients, bf16 routing, the init scale, the converter
-and the refused expert-parallel options.  The sizes are
+and the expert-parallel options the layer refuses.  The sizes are
 ``tests/test_models.py::TestMoE``'s; inputs come from numpy seeds and
 reach both sides as numpy; the JAX flash path runs in interpret mode, as
 its own tests run it on the CPU."""
@@ -184,11 +184,14 @@ class _Mesh(object):
         return self._sizes[dim]
 
 
-# expert parallelism and MoE under a seq axis wait for ROADMAP.md's item J2
-@pytest.mark.parametrize("kwargs", [{"ep_mode": "shard_map"},
-                                    {"mesh": _Mesh(data=1, expert=2)}])
-def test_expert_parallel_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="J2"):
+# expert parallelism is ported (tests/test_torch_ep.py): the explicit
+# schedule needs a mesh with an expert axis, and the experts must split
+# evenly over it, as the JAX layer asserts
+@pytest.mark.parametrize("kwargs,match", [
+    ({"ep_mode": "shard_map"}, "expert"),
+    ({"mesh": _Mesh(data=1, expert=3)}, "not divisible")])
+def test_expert_parallel_options_raise(kwargs, match):
+    with pytest.raises(ValueError, match=match):
         transformer.build_transformer(**dict(CFG, **kwargs))
 
 

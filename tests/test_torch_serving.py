@@ -206,10 +206,19 @@ missing = sorted(set(pkg.__name__ + "." + m for m in (
     "summary", "tfrecord", "example_proto", "schema", "dfutil", "transport",
     "gateway", "fleet", "pipeline", "models.linear", "models.twotower",
     "models.resnet", "ops.augment", "data", "parallel.mesh",
-    "parallel.fsdp", "parallel.ring", "observatory", "profiling",
+    "parallel.fsdp", "parallel.ring", "parallel.tp", "parallel.ep",
+    "parallel.pp", "parallel.comm", "observatory", "profiling",
     "profiler"))
     - set(names))
-from tensorflowonspark_torch.parallel import fsdp, mesh, ring
+from tensorflowonspark_torch.parallel import ep, fsdp, mesh, pp, ring, tp
+missing += [n for n in ("tp_param_shardings", "shard_params")
+            if not hasattr(tp, n)]
+missing += [n for n in ("ep_param_shardings", "merge_ep_shardings",
+                        "moe_ffn", "MOE_PARAM_RE") if not hasattr(ep, n)]
+missing += [n for n in ("gpipe", "split_microbatches", "stack_stage_params",
+                        "stage_shardings") if not hasattr(pp, n)]
+missing += [n for n in ("Placement", "groups", "pooled_axes")
+            if not hasattr(mesh, n)]
 missing += [n for n in ("ring_attention", "ulysses_attention",
                         "chained_ring_attention") if not hasattr(ring, n)]
 missing += [n for n in ("MeshSpec", "build_mesh", "batch_sharding",
@@ -253,7 +262,8 @@ sys.exit(1 if bad or missing or len(names) < 25 else 0)
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every port module (the copied
     cluster layer, the serving tier, the ResNets, ``ops.augment``,
-    ``data`` and the mesh, FSDP and ring modules among them),
+    ``data`` and the mesh, FSDP, ring, tensor-, expert- and
+    pipeline-parallel modules among them),
     chip_smoke.py, the port's MNIST, ResNet and LM examples and
     scripts/analyze_profile_torch.py has no jax,
     flax, optax, orbax or JAX-package module."""
@@ -275,6 +285,9 @@ def test_port_sources_name_no_jax():
     for root, _, files in os.walk(os.path.join(REPO,
                                                "tensorflowonspark_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for name in ("tp", "ep", "pp", "comm"):
+        assert os.path.join(REPO, "tensorflowonspark_torch", "parallel",
+                            name + ".py") in paths, name
     offenders = []
     for path in paths:
         with open(path) as f:

@@ -116,13 +116,13 @@ class _Mesh(object):
 
 
 # ring and Ulysses attention are ported; without a mesh they refuse as the
-# JAX model asserts ("ring attention needs a mesh"), and a mesh with a
-# tensor axis waits for ROADMAP.md's item J2
+# JAX model asserts ("ring attention needs a mesh"); a tensor axis splits
+# the heads, so it must divide them (tests/test_torch_tp.py runs it)
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"attention": "ring"}, ValueError, "ring attention needs a mesh"),
     ({"attention": "ulysses"}, ValueError, "ulysses attention needs a mesh"),
-    ({"attention": "ring", "mesh": _Mesh(data=1, tensor=2)},
-     NotImplementedError, "J2"),
+    ({"attention": "ring", "mesh": _Mesh(data=1, tensor=3)},
+     ValueError, "not divisible by the tensor axis"),
 ])
 def test_unported_options_raise(kwargs, error, match):
     with pytest.raises(error, match=match):
