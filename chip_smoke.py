@@ -70,8 +70,8 @@ weights from a seed) along both paths:
   execute;
 - gateway: the serving tier in this process.  A ``ModelServer(batch_size=8)``
   behind a ``gateway.GatewayServer(max_wait_ms=5)`` (rungs 1, 2, 4 and 8
-  warmed) answers 4 concurrent ``GatewayChannel`` clients, each sending
-  requests of 1, 2, 3 and 4 rows; once half of them have replies, the
+  warmed) answers 3 concurrent ``GatewayChannel`` clients, each sending
+  three requests of one row; once half of them have replies, the
   ``serving_load_version`` knob swaps the weights in place to a second
   export (another seed), then a swap to an export of another depth is
   refused.  Every reply matches a lone ``predict_feed`` of its rows on
@@ -142,17 +142,22 @@ weights from a seed) along both paths:
   the MoE LM;
 - parallel: ``Trainer(mesh=build_mesh(keep_trivial_axes=True),
   param_sharding="fsdp")`` (a one-process NCCL world, every axis of size
-  1) trains the flash LM 30 steps at K = 1 and at K = 5 from the train
-  phase's init and stream: its losses at steps 10, 20 and 30 within 1e-3
-  nats of the train phase's, its flash launches equal to layers x steps
+  1) trains the flash LM 10 steps at K = 1 and at K = 5 from the train
+  phase's init and stream: its loss at step 10 within 1e-3 nats of the
+  train phase's, its flash launches equal to layers x steps
   and to the kernels the profiler saw run; ``ring_attention`` and
   ``ulysses_attention(impl="flash")`` forward and backward at [8, 1024,
   16, 64] bf16 causal against ``reference_attention`` and the flash op,
   and the ring recurrence chained over 4 sequence chunks against full
   attention, each within 2e-2 of the largest value or gradient.  The
   four-card cases of the slice are ``tests/test_torch_nccl_cuda.py``'s.
+- parallel_j2: the tensor-parallel LM and the ``shard_map`` MoE LM on a
+  mesh whose every axis is 1, 10 steps at K = 1 and K = 5 each, their
+  step-10 losses against the train and moe_train phases'; ``moe_ffn`` and
+  one-stage ``gpipe``.
 - observability: the flagship LM in one SPARK-mode executor under
-  ``cluster.run(observatory=True, telemetry=True, profiler=True)``, from
+  ``cluster.run(observatory=True, telemetry=True, profiler=True)`` (the
+  watchtower on, as ``watchtower=None`` follows the observatory), from
   rows a driver thread streams until the phase is done: a K = 1 stretch
   until the driver's switch, then K = 5 (graph replays) to the end of the
   feed.  ``/metrics`` is scraped mid-run at heartbeat cadence: every line
@@ -175,8 +180,30 @@ weights from a seed) along both paths:
   graph capture, which waits for it and then sees the replays); a loss
   with one implicit host-to-device copy raising under ``"disallow"`` and
   logged under ``"log"``; and the guard's cost a step at K = 1.
+- control: the alerting and control planes behind ``cluster.run(...,
+  telemetry=True, observatory=True, watchtower={...})`` on the flagship
+  LM, SPARK-mode ``LocalBackend`` executors on this card, one leg a loop:
+  control_rollback (``remediator=``): ``fit_supervised`` at K = 1 with a
+  checkpoint every 5 steps, the fault injector's NaN batch at step 12, the
+  watchtower's ``nonfinite`` crit -> ``rollback_poison`` ->
+  ``train_rollback`` -> ``PoisonRollback`` -> ``restore_latest_valid``
+  (the poisoned steps quarantined as ``<step>.corrupt``): the run reaches
+  its 25 steps and its params equal an uninterrupted run's over the same
+  steps and batches to the bit; control_evict (two executors,
+  ``remediator=`` with one eviction): executor 1 sleeps before every step,
+  the watchtower names it alone, ``evict_straggler`` goes proposed ->
+  applied -> effect, the node drains through its SIGTERM path (BYE
+  preempted, no death) and one replacement executor trains in its slot at
+  its peer's step; control_autopilot (``autopilot=``, only
+  ``train_steps_per_call`` free): fed by ``TPUCluster.train`` at K = 1,
+  the dispatch gap a step raises K, the feed regroups and the Trainer
+  captures a graph mid-run, the action is judged kept or reverted, the
+  heartbeat gauge shows the pushed K and the losses across the switch
+  equal a K = 1 run's on this card within 1e-3 nats.  Each leg's seconds
+  from its fault to the alert, to the action and to recovery are printed.
 
-A last line before the kernels line gives the script's wall time.
+A line before the kernels line gives the script's wall time and each
+phase's seconds.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.  It needs
@@ -213,7 +240,7 @@ STEADY_STEPS = 10    # warm steps timed after the checks
 PROFILE_STEPS = 3    # warm steps under torch.profiler
 # the steady K = 1 step with capturable Adam (the Trainer's default on the
 # card) and with capturable=False, runs of STEADY_STEPS interleaved
-AB_ROUNDS = 5
+AB_ROUNDS = 3
 
 # kernel vs plain, same inputs.  O: fp32 sums in another order (1e-4 at
 # |O| <= 4); bf16 O rounds to 8 mantissa bits (2e-2 is one bf16 step below
@@ -301,6 +328,9 @@ ACCUM_STEPS = 2
 ACCUM_LOSS_TOL = 1e-3
 REMAT_LOSS_TOL = RESUME_TOL
 SUPERVISED_STEADY_GROUPS = 2
+# steps of the plain, accum_steps=2 and remat runs at each K: the window
+# loss at step 10 held against the train phases' and K = 5 against K = 1
+VARIANT_STEPS = 10
 # evaluate: 20 held-out rows in batches of 8; the mean token loss and top-1
 # accuracy through the flash forward against full attention on the same
 # params.  LOGIT_TOL bounds a logit's difference relative to max|logit|;
@@ -420,24 +450,53 @@ def counted_on_device(torch, fn, with_busy=False):
     return result, counts
 
 
+# the kernels that pad a device_ms window's edges: of a name no timed
+# function launches, and left out of the sum by that name; and the pause
+# after each edge (a window holds one function's calls, shorter than the
+# counting profiles' steps)
+DEVICE_MS_PAD = "bitwise_not"
+DEVICE_MS_PAD_SECS = 0.05
+
+
 def device_ms(torch, fn, iters=10, warmup=2, match=None):
     """Mean device milliseconds per call of ``fn``: the time of the kernels
     it launches, summed from a ``torch.profiler`` trace, so the host's time
     between launches is left out.  ``match`` keeps the kernels whose
-    lowercased name holds it.  None where the trace holds no device time."""
+    lowercased name holds it.  The window's edges run kernels of another
+    name and a pause (as :func:`counted_on_device` does: a trace can miss
+    the records of its first and last kernels), which the sum leaves out;
+    a window that still holds no device time is run once more, and a
+    second empty one raises."""
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        other = torch.zeros(1, dtype=torch.int32, device="cuda")
+        for _ in range(TRACE_TAIL_KERNELS):
+            other.bitwise_not_()
+        torch.cuda.synchronize()
+        time.sleep(DEVICE_MS_PAD_SECS)
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in device_kernels(prof)
-                if match is None or match in e.key.lower())
-    return total / 1e3 / iters if total else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pad()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            pad()
+        total = sum(e.self_device_time_total for e in device_kernels(prof)
+                    if DEVICE_MS_PAD not in e.key.lower()
+                    and (match is None or match in e.key.lower()))
+        if total:
+            return total / 1e3 / iters
+    raise AssertionError("two profiler windows of {} calls of {} held no "
+                         "device time{}".format(
+                             iters, getattr(fn, "__name__", fn),
+                             "" if match is None else
+                             " of kernels named *{}*".format(match)))
 
 
 def warm_clocks(torch, seconds=1.0):
@@ -1456,7 +1515,8 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
     model.init_weights(torch.Generator().manual_seed(0))
     init = dict(model.state_dict())
     flash_flops = 7 * SEQ * SEQ * head_dim * TRAIN_BATCH * heads * layers
-    checked = [LOG_STEPS * (i + 1) for i in range(TRAIN_STEPS // LOG_STEPS)]
+    checked = [LOG_STEPS * (i + 1)
+               for i in range(VARIANT_STEPS // LOG_STEPS)]
 
     def new_trainer(loss_fn=None, **kwargs):
         return train.Trainer(loss_fn or transformer.loss_fn(model), init,
@@ -1474,9 +1534,11 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
         return max((trainer.state.params[k].detach().cpu() - t).abs().max()
                    .item() for k, t in uninterrupted.items())
 
-    def supervised(trainer, directory, max_steps=TRAIN_STEPS, **feed_kwargs):
+    def supervised(trainer, directory, max_steps=TRAIN_STEPS, counted=True,
+                   **feed_kwargs):
         """fit_supervised at K = 5 from fresh SupervisedFeeds, under the
-        profiler; returns what it measured."""
+        profiler when ``counted`` (the run whose launches are held to the
+        kernels the card executed); returns what it measured."""
         ckpt = checkpoint.CheckpointManager(
             directory, save_interval_steps=SUPERVISED_SAVE_STEPS,
             max_to_keep=2, async_save=True)
@@ -1493,10 +1555,14 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
                                    extra_retryable=["injected"])
         fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
         t0 = time.perf_counter()                  # the main path starts
-        stats, executed = counted_on_device(torch, lambda: (
-            train.fit_supervised(trainer, factory, ckpt, retry_policy=policy,
-                                 max_steps=max_steps,
-                                 steps_per_call=MEGA_K)))
+        def run():
+            return train.fit_supervised(trainer, factory, ckpt,
+                                        retry_policy=policy,
+                                        max_steps=max_steps,
+                                        steps_per_call=MEGA_K)
+
+        stats, executed = (counted_on_device(torch, run) if counted
+                           else (run(), None))
         wall_s = time.perf_counter() - t0
         launches = launches_of(fa)                # ... and ends
         snap = trainer.counters_snapshot()
@@ -1510,8 +1576,8 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
         return out
 
     def plain_fit(trainer, k):
-        """fit_feed of the phase stream, 30 steps at K = ``k``, under the
-        profiler: the losses at steps 10, 20 and 30, peak memory and
+        """fit_feed of the phase stream, ``VARIANT_STEPS`` at K = ``k``,
+        under the profiler: the loss at step 10, peak memory and
         launches."""
         curve, window = LossCurve(), {}
         trainer.summary_writer = curve   # read at the first step
@@ -1524,7 +1590,7 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
         torch.cuda.reset_peak_memory_stats()
         fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
         _, executed = counted_on_device(torch, lambda: trainer.fit_feed(
-            NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab), max_steps=TRAIN_STEPS,
+            NgramFeed(np, 0, TRAIN_BATCH, SEQ, vocab), max_steps=VARIANT_STEPS,
             steps_per_call=k, on_steps=on_steps))
         launches = launches_of(fa)
         peak = torch.cuda.max_memory_allocated()
@@ -1610,13 +1676,13 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
         # (b) the newest checkpoint corrupt -> quarantined
         trainer = new_trainer()
         first = supervised(trainer, os.path.join(tmp, "b"),
-                           max_steps=SUPERVISED_SAVE_STEPS)
+                           max_steps=SUPERVISED_SAVE_STEPS, counted=False)
         os.environ[fault.FAULT_SPEC_ENV] = json.dumps(
             {"corrupt_checkpoint": True})
         try:
             # the manager resolves its fault injector once, when made
             b = supervised(trainer, os.path.join(tmp, "b"),
-                           crash_at=CORRUPT_CRASH_STEP)
+                           crash_at=CORRUPT_CRASH_STEP, counted=False)
         finally:
             os.environ.pop(fault.FAULT_SPEC_ENV, None)
         b["first_run_checkpoints"] = first["checkpoints"]
@@ -1637,7 +1703,7 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
             {"nan_batch_at_step": NAN_STEP})
         try:
             c = supervised(trainer, os.path.join(tmp, "c"), row_weight=True,
-                           rollback="poison-1")
+                           rollback="poison-1", counted=False)
         finally:
             os.environ.pop(fault.FAULT_SPEC_ENV, None)
         c["param_max_diff_vs_uninterrupted"] = param_diff(trainer)
@@ -1744,16 +1810,16 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
     expected = {
         "crash_resume": dict.fromkeys(launches_of(fa), steps_a),
         "accum2_k1": dict.fromkeys(launches_of(fa),
-                                   ACCUM_STEPS * layers * TRAIN_STEPS),
-        "remat_k1": {"flash_fwd": 2 * layers * TRAIN_STEPS,
-                     "flash_bwd_dq": layers * TRAIN_STEPS,
-                     "flash_bwd_dkv": layers * TRAIN_STEPS},
+                                   ACCUM_STEPS * layers * VARIANT_STEPS),
+        "remat_k1": {"flash_fwd": 2 * layers * VARIANT_STEPS,
+                     "flash_bwd_dq": layers * VARIANT_STEPS,
+                     "flash_bwd_dkv": layers * VARIANT_STEPS},
         "evaluate": {"flash_fwd": layers * 3, "flash_bwd_dq": 0,
                      "flash_bwd_dkv": 0}}
     expected["accum2_k5"] = expected["accum2_k1"]
     expected["remat_k5"] = expected["remat_k1"]
     expected["plain_k1"] = expected["plain_k5"] = dict.fromkeys(
-        launches_of(fa), layers * TRAIN_STEPS)
+        launches_of(fa), layers * VARIANT_STEPS)
     counted = {"crash_resume": row["crash_resume"],
                "evaluate": row["evaluate"]}
     counted.update(variants)
@@ -2154,13 +2220,14 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None,
 # ---------------------------------------------------------------------------
 
 # the gateway: a ModelServer(batch_size=8) warmed over rungs 1, 2, 4, 8;
-# 4 concurrent clients, each sending requests of 1, 2, 3 and 4 rows in
-# turn (40 rows in all); the serving_load_version push once half of the
-# 16 requests have their replies
+# 3 concurrent clients, each sending three one-row requests in turn (each
+# row's reply is 131 MB of fp32 logits that the gateway compresses,
+# seconds a row); the serving_load_version push once half of the 9
+# requests have their replies, so the third round goes out after it
 GATEWAY_BATCH = 8
 GATEWAY_WAIT_MS = 5.0
-GATEWAY_CLIENTS = 4
-GATEWAY_REQUESTS = (1, 2, 3, 4)
+GATEWAY_CLIENTS = 3
+GATEWAY_REQUESTS = (1, 1, 1)
 SWAP_AFTER = GATEWAY_CLIENTS * len(GATEWAY_REQUESTS) // 2
 GATEWAY_TIMEOUT_SECS = 600
 # the --serve replica: ladder 1, 2, 4; seconds to its ready line (torch,
@@ -2786,7 +2853,7 @@ RESNET_STEPS = 30
 RESNET_LOG_STEPS = 10
 RESNET_K = 5
 RESNET_LR = 0.1
-RESNET_TIMED_RUNS = 5     # timed runs after the checked steps, at each K
+RESNET_TIMED_RUNS = 3     # timed runs after the checked steps, at each K
 RESNET_TIMED_STEPS = 5    # steps a timed run (one group at K = 5)
 RESNET_PROFILE_STEPS = 5
 # K = 5 replays the K = 1 step's kernels on the same batch from the same
@@ -3875,6 +3942,11 @@ PARALLEL_SHAPE = (TRAIN_BATCH, SEQ, LM_CONFIG["num_heads"],
 PARALLEL_TOL = 2e-2
 PARALLEL_LOSS_TOL = 1e-3
 RING_CHUNKS = 4
+# steps of each Trainer run of the parallel and parallel_j2 phases: the
+# window loss at step 10 held against the train
+# phases', and at K = 5 two groups (two eager warm-ups, the capture, and
+# replays after it)
+PARALLEL_STEPS = 10
 
 
 def attention_check(torch, fn, want_fn, inputs, cotangent):
@@ -3900,9 +3972,9 @@ def attention_check(torch, fn, want_fn, inputs, cotangent):
 def phase_parallel(torch, np, fa, k1, k5):
     """The parallelism slice on one card: ``Trainer(mesh=build_mesh(
     keep_trivial_axes=True), param_sharding="fsdp")`` trains the flash LM
-    30 steps at K = 1 and at K = 5 from the train phase's init and stream
+    10 steps at K = 1 and at K = 5 from the train phase's init and stream
     (the mesh is a one-process world, every axis of size 1, so every leaf
-    replicates), its losses at steps 10, 20 and 30 against the dense runs'
+    replicates), its loss at step 10 against the dense runs'
     and its flash launches against the kernels the card executed; then
     ``ring_attention`` and ``ulysses_attention(impl="flash")`` forward and
     backward on the flagship's attention shape against the plain
@@ -3939,11 +4011,11 @@ def phase_parallel(torch, np, fa, k1, k5):
             fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
             t0 = time.perf_counter()                  # the path starts
             _, executed = counted_on_device(torch, lambda: trainer.fit_feed(
-                feed, max_steps=TRAIN_STEPS, steps_per_call=k))
+                feed, max_steps=PARALLEL_STEPS, steps_per_call=k))
             fit_s = time.perf_counter() - t0
             launches = launches_of(fa)                # ... and ends
             checked = [LOG_STEPS * (i + 1)
-                       for i in range(TRAIN_STEPS // LOG_STEPS)]
+                       for i in range(PARALLEL_STEPS // LOG_STEPS)]
             losses = [curve.losses.get(step) for step in checked]
             runs["k%d" % k] = {
                 "steps": trainer.state.step, "fit_feed_s": fit_s,
@@ -4008,7 +4080,7 @@ def phase_parallel(torch, np, fa, k1, k5):
     finally:
         dist.destroy_process_group()
 
-    expected = layers * TRAIN_STEPS
+    expected = layers * PARALLEL_STEPS
     row = {"phase": "parallel", "mesh": dict(zip(mesh.mesh_dim_names,
                                                  mesh.shape)),
            "param_sharding": "fsdp", "runs": runs,
@@ -4023,10 +4095,10 @@ def phase_parallel(torch, np, fa, k1, k5):
            "forward_ms": times, "seconds": time.perf_counter() - t_start}
     emit(row)
     for name, run in runs.items():
-        if run["steps"] != TRAIN_STEPS:
+        if run["steps"] != PARALLEL_STEPS:
             raise AssertionError("the fsdp trainer ({}) took {} steps, "
                                  "expected {}".format(name, run["steps"],
-                                                      TRAIN_STEPS))
+                                                      PARALLEL_STEPS))
         if any(n != expected for n in list(run["launches"].values())
                + list(run["device_launches"].values())):
             raise AssertionError(
@@ -4073,7 +4145,7 @@ def _max_rel(torch, got, want):
 
 def _j2_train(torch, np, fa, model, init, tree, mesh, config, k, feed_seed):
     """``Trainer(mesh=mesh, param_sharding=tree)`` on ``model`` from
-    ``init``: ``TRAIN_STEPS`` of the train phases' stream through
+    ``init``: ``PARALLEL_STEPS`` of the train phases' stream through
     ``fit_feed`` at ``k`` steps a dispatch, under the launch-counting
     profiler; the per-step losses, the counters and the kernels the card
     executed, peak memory and the K-step dispatch's graphs."""
@@ -4098,13 +4170,13 @@ def _j2_train(torch, np, fa, model, init, tree, mesh, config, k, feed_seed):
     fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
     t0 = time.perf_counter()                          # the path starts
     _, executed = counted_on_device(torch, lambda: trainer.fit_feed(
-        feed, max_steps=TRAIN_STEPS, steps_per_call=k))
+        feed, max_steps=PARALLEL_STEPS, steps_per_call=k))
     fit_s = time.perf_counter() - t0
     launches = launches_of(fa)                        # ... and ends
     run = {"steps": trainer.state.step, "fit_feed_s": fit_s,
            "launches": launches, "device_launches": executed,
            "losses": [curve.losses.get(step)
-                      for step in range(1, TRAIN_STEPS + 1)],
+                      for step in range(1, PARALLEL_STEPS + 1)],
            "graphs": len(trainer._graphs),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "sharded_leaves": (0 if trainer.state.sharding is None
@@ -4121,9 +4193,9 @@ def phase_parallel_j2(torch, np, fa, k1, moe):
     flagship flash LM under ``Trainer(mesh=build_mesh(MeshSpec(tensor=1,
     pipe=1), keep_trivial_axes=True), param_sharding=tp_param_shardings(
     ...))`` (its heads- and MLP-split path) and the MoE flash LM with
-    ``ep_mode="shard_map"`` under ``merge_ep_shardings``, each 30 steps at
+    ``ep_mode="shard_map"`` under ``merge_ep_shardings``, each 10 steps at
     K = 1 and K = 5 from the train phases' inits and stream, their losses at
-    steps 10, 20 and 30 against the train and ``moe_train`` phases' and
+    step 10 against the train and ``moe_train`` phases' and
     their flash launches against the kernels the card executed; then
     ``moe_ffn`` forward and backward at the flagship MoE layer's shape
     against ``MoEMlp`` (gspmd) and its fp32 products, and ``gpipe`` with
@@ -4137,7 +4209,7 @@ def phase_parallel_j2(torch, np, fa, k1, moe):
     t_start = time.perf_counter()
     mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec(tensor=1, pipe=1),
                                keep_trivial_axes=True)
-    checked = [LOG_STEPS * (i + 1) for i in range(TRAIN_STEPS // LOG_STEPS)]
+    checked = [LOG_STEPS * (i + 1) for i in range(PARALLEL_STEPS // LOG_STEPS)]
     moe_ref = [moe["k1"]["losses"][step - 1] for step in checked]
     try:
         runs = {}
@@ -4277,8 +4349,8 @@ def phase_parallel_j2(torch, np, fa, k1, moe):
     finally:
         dist.destroy_process_group()
 
-    expected = {"tp": LM_CONFIG["num_layers"] * TRAIN_STEPS,
-                "ep": MOE_CONFIG["num_layers"] * TRAIN_STEPS}
+    expected = {"tp": LM_CONFIG["num_layers"] * PARALLEL_STEPS,
+                "ep": MOE_CONFIG["num_layers"] * PARALLEL_STEPS}
     gpipe_expected = LM_CONFIG["num_layers"] * GPIPE_MICRO
     # K = 1 writes the loss at window ends, K = 5 every step: the steps
     # both wrote
@@ -4306,10 +4378,10 @@ def phase_parallel_j2(torch, np, fa, k1, moe):
     emit(row)
     for name, run in runs.items():
         want = expected[name[:2]]
-        if run["steps"] != TRAIN_STEPS:
+        if run["steps"] != PARALLEL_STEPS:
             raise AssertionError("parallel_j2 {} took {} steps, expected "
                                  "{}".format(name, run["steps"],
-                                             TRAIN_STEPS))
+                                             PARALLEL_STEPS))
         if any(n != want for n in list(run["launches"].values())
                + list(run["device_launches"].values())):
             raise AssertionError(
@@ -4387,14 +4459,14 @@ STEP_PROFILE_STEPS = 15
 # then, late in this long-lived process, more step-profiler windows of
 # three eager steps each, alternately with the profiler's edge kernels (as
 # shipped, every one held exact) and with its idle edges alone (counted)
-EDGE_WINDOWS = 5
+EDGE_WINDOWS = 1
 EDGE_WINDOW = "1,3"
 # the guarded train path at K = 1 and K = 5 on device-resident batches,
 # against the same path unguarded: the same kernels on the same data, so
 # the losses and params are held bit for bit
-GUARD_STEPS = 20
+GUARD_STEPS = 10
 GUARD_TIMED_STEPS = 10
-GUARD_ROUNDS = 3
+GUARD_ROUNDS = 2
 
 
 # text exposition 0.0.4: metric names and one sample line
@@ -4546,11 +4618,39 @@ def observe_main(args, ctx):
         os.replace(args["report"] + ".tmp", args["report"])
 
 
+#: the GETs that failed and were tried again (see http_get); the wall line
+#: reports them
+HTTP_RETRIES = []
+HTTP_TRIES = 3
+
+
 def http_get(url, timeout=60):
+    """``(body, headers)`` of one GET.  A connection the server dropped
+    unanswered, or a 5xx answer, is printed with its body, kept in
+    ``HTTP_RETRIES`` and tried again, ``HTTP_TRIES`` times in all; a
+    ``/profile`` trigger, which starts a capture, is tried once."""
+    import urllib.error
     import urllib.request
 
-    with urllib.request.urlopen(url, timeout=timeout) as r:
-        return r.read(), dict(r.headers)
+    tries = 1 if "/profile?" in url else HTTP_TRIES
+    for attempt in range(1, tries + 1):
+        try:
+            with urllib.request.urlopen(url, timeout=timeout) as r:
+                return r.read(), dict(r.headers)
+        except urllib.error.HTTPError as e:
+            if e.code < 500:
+                raise
+            error = "HTTP {}: {}".format(e.code, e.read()[:2000].decode(
+                "utf-8", "replace"))
+            last = e
+        except ConnectionResetError as e:   # RemoteDisconnected too
+            error, last = repr(e), e
+        print("chip_smoke: GET {} failed on try {} of {}: {}".format(
+            url, attempt, tries, error), file=sys.stderr, flush=True)
+        if attempt == tries:
+            raise last
+        HTTP_RETRIES.append({"url": url, "try": attempt, "error": error})
+        time.sleep(0.5)
 
 
 def node_metrics(base):
@@ -5122,6 +5222,782 @@ def phase_observability(torch, np, fa, metrics, clustered, mega_cluster,
     return cluster_row, row
 
 
+# the control phase: the alerting and control planes (watchtower,
+# guardrails, autopilot, remediator) behind cluster.run, each closing its
+# detect -> act loop on the flagship LM
+CONTROL_HEARTBEAT_SECS = 0.5
+# beats a node may miss before it is declared dead: a node's child pauses
+# its beats while it brings CUDA up (as in the observability phase)
+CONTROL_HEARTBEAT_MISSES = 60
+# the driver's waits: to each loop's close after its fault, and for a
+# node's report after its run
+CONTROL_LOOP_SECS = 180
+CONTROL_REPORT_SECS = 300
+# the rule engine's tick and window, as the JAX remediator gate runs it
+CONTROL_WATCHTOWER = {"interval_secs": 0.5, "window_secs": 8.0,
+                      "cooldown_secs": 1.0, "journal_snapshot_secs": 1.0}
+# control_rollback: fit_supervised at K = 1 with a checkpoint every 5
+# steps (all kept, so the last clean one survives however late the
+# rollback lands); the batch dispatched at step 12 is NaN'd (saves 5 and
+# 10 clean); windows of 2 steps, so the nonfinite tally reaches a beat
+# within two steps; the feed paced on the host so the alert lands before
+# the run's end (on one H100 the halt came 4 steps after the NaN)
+ROLLBACK_STEPS = 25
+ROLLBACK_SAVE_STEPS = 5
+ROLLBACK_NAN_STEP = 12
+ROLLBACK_LOG_STEPS = 2
+ROLLBACK_PACE_SECS = 0.25
+CONTROL_REMEDIATOR_ROLLBACK = {
+    "interval_secs": 0.25, "confirm_windows": {"rollback_poison": 1},
+    "settle_ticks": 2, "cooldown_secs": 5.0, "max_rollbacks": 1,
+    "max_evictions": 0, "journal_snapshot_secs": 1.0}
+# control_evict: two nodes train their own LM on device-resident batches
+# until the driver's stop file; executor 1 sleeps before every dispatch,
+# several times the step of two nodes sharing the card (about 88 ms each
+# there, twice the lone step), so its windows of 5 steps are 2.5 s and
+# more.  A straggler must stand at 5x its peer's step, not the default 2x
+# (straggler_rel_floor 1.0): the replacement's first windows share the
+# card with a peer whose recent windows ran alone (147 ms against 43.6 on
+# one H100), and they must not read as a second straggler
+EVICT_LOG_STEPS = 5
+EVICT_STRAGGLER_SECS = 0.5
+EVICT_WATCHTOWER = dict(CONTROL_WATCHTOWER, straggler_rel_floor=1.0)
+EVICT_BATCHES = 4
+# windows the replacement trains before the stop, and how far its step
+# may stray from its healthy peer's over the same time
+EVICT_REPLACEMENT_WINDOWS = 2
+EVICT_PEER_RATIO = 1.5
+CONTROL_REMEDIATOR_EVICT = {
+    "interval_secs": 0.25, "window_secs": 6.0, "settle_ticks": 4,
+    "cooldown_secs": 3.0, "confirm_windows": {"evict_straggler": 2},
+    "max_evictions": 1, "max_rollbacks": 0,
+    "replacement_grace_secs": 120.0, "alert_ttl_secs": 10.0,
+    "journal_snapshot_secs": 1.0}
+# control_autopilot: the LM fed by TPUCluster.train at K = 1 (eager) until
+# the autopilot's train_steps_per_call push regroups the node's feed; only
+# that knob can move (infeed_prefetch pinned at its depth), and one action
+# a leg (the cooldown outlasts it)
+AUTOPILOT_LOG_STEPS = 10
+AUTOPILOT_PART_ROWS = 64
+AUTOPILOT_GAP_HI_US = 1500.0   # the autopilot's default threshold
+# steps after the switch before the driver stops the feed, so the
+# judged effect and the losses across the switch are both there
+AUTOPILOT_STEPS_AFTER = 20
+
+
+class PacedFeed(SupervisedFeed):
+    """The supervised phase's stream from the step ``trainer`` resumes at
+    (each batch a function of its step, with a float ``row_weight`` leaf
+    for the NaN batch to poison), one batch at a time, ``pace`` seconds
+    before each; ``pulls`` records each batch's step, when it was asked
+    for (the previous dispatch's end) and when it was handed over (its
+    dispatch's start)."""
+
+    def __init__(self, np, trainer, pace, pulls):
+        super().__init__(np, trainer, row_weight=True)
+        self.step, self.pace, self.pulls = trainer.state.step, pace, pulls
+
+    def batches(self):
+        while not self.terminated:
+            asked = time.time()
+            if self.pace:
+                time.sleep(self.pace)
+            self.pulls.append((self.step, asked, time.time()))
+            yield self.next_batch()
+            self.step += 1
+
+
+def control_lm(torch, config, device):
+    """The control legs' LM, its random weights drawn from seed 0 on
+    ``device`` (on the card in a fraction of a second; the host takes about
+    10 s for the flagship's 168M params)."""
+    from tensorflowonspark_torch.models import get_model
+
+    with torch.device(device):
+        model = get_model("transformer_lm", **config)
+    return model.init_weights(torch.Generator(device=device).manual_seed(0))
+
+
+def control_node(args, ctx):
+    """What each control leg's user fn starts with, in the child the node
+    forked: CUDA up (in a one-node world; ``args["independent"]``: no
+    world, as the eviction leg's nodes share no collective and an evicted
+    node must not break its peer's), the kernels loaded, the LM."""
+    import torch
+
+    from tensorflowonspark_torch.ops import _build
+
+    if args.get("independent"):
+        device = torch.device(args["device"] or "cuda")
+    else:
+        device = ctx.initialize_distributed(device=args["device"])
+    if device.type == "cuda":
+        for name in _build.build():     # the parent built them: loads
+            _build.load(name)
+    return device, control_lm(torch, args["config"], device)
+
+
+def control_trainer(args, loss, init, device, log_steps, **kwargs):
+    import functools
+
+    import torch
+
+    from tensorflowonspark_torch import train
+
+    return train.Trainer(loss, init,
+                         functools.partial(torch.optim.Adam, lr=args["lr"]),
+                         compute_dtype=getattr(torch,
+                                               args["config"]["dtype"]),
+                         batch_size=TRAIN_BATCH, log_steps=log_steps,
+                         device=device, **kwargs)
+
+
+def write_report(path, report):
+    with open(path + ".tmp", "w") as f:
+        json.dump(report, f)
+    os.replace(path + ".tmp", path)
+
+
+def control_rollback_main(args, ctx):
+    """The rollback leg's user fn: ``fit_supervised`` at K = 1 with a
+    checkpoint every 5 steps over batches that are a function of their
+    step, paced on the host; the executor's fault spec NaNs one batch, and
+    the remediator's ``train_rollback`` push halts the run, which restores
+    the last clean checkpoint and replays.  Then a fresh trainer runs the
+    same steps and batches uninterrupted, and the two runs' params are
+    compared to the bit.  Reports to ``args["report"]``."""
+    import importlib
+    import traceback
+
+    report = {}
+    try:
+        import numpy as np
+        import torch
+
+        from tensorflowonspark_torch import checkpoint, fault, train
+        from tensorflowonspark_torch.models import transformer
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device, model = control_node(args, ctx)
+        init = dict(model.state_dict())
+        lm_loss = transformer.loss_fn(model)
+
+        def weighted_loss(params, batch, mask):
+            return lm_loss(params, {"tokens": batch["tokens"]},
+                           mask * batch["row_weight"])
+
+        trainer = control_trainer(args, weighted_loss, init, device,
+                                  ROLLBACK_LOG_STEPS)
+        ckpt = checkpoint.CheckpointManager(
+            args["ckpt_dir"], save_interval_steps=ROLLBACK_SAVE_STEPS,
+            max_to_keep=ROLLBACK_STEPS // ROLLBACK_SAVE_STEPS,
+            async_save=True)
+        attempts = []
+
+        def factory():
+            if attempts:
+                # the poison was in the data: the replay reads clean
+                # batches (the spec would arm the next attempt's injector)
+                os.environ.pop(fault.FAULT_SPEC_ENV, None)
+            pulls = []
+            attempts.append({"start": trainer.state.step, "pulls": pulls})
+            return PacedFeed(np, trainer, ROLLBACK_PACE_SECS, pulls)
+
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        stats = train.fit_supervised(trainer, factory, ckpt,   # path starts
+                                     max_steps=ROLLBACK_STEPS)
+        report["launches"] = launches_of(fa)                 # ... and ends
+        snap = trainer.counters_snapshot()
+        report.update({
+            "steps": trainer.state.step, "attempts": attempts,
+            "dispatches": snap["dispatch_count"],
+            "final_loss": stats.get("loss"),
+            "rollbacks": snap.get("train_rollbacks_total", 0),
+            "nonfinite_loss": snap.get("train_nonfinite_loss", 0),
+            "recovery_us": snap.get("goodput_recovery_us", 0),
+            "checkpoints": sorted(os.listdir(ckpt.directory))})
+        ckpt.close()
+        # the same steps and batches, uninterrupted
+        plain = control_trainer(args, weighted_loss, init, device,
+                                ROLLBACK_LOG_STEPS)
+        plain.fit_feed(PacedFeed(np, plain, 0, []), max_steps=ROLLBACK_STEPS)
+        differ = [n for n, t in trainer.state.params.items()
+                  if not torch.equal(t, plain.state.params[n])]
+        report.update({
+            "uninterrupted_steps": plain.state.step,
+            "params_equal_bitwise": not differ,
+            "params_differing": differ[:8],
+            "param_max_abs_diff": max(
+                (trainer.state.params[n].float()
+                 - plain.state.params[n].float()).abs().max().item()
+                for n in trainer.state.params)})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        write_report(args["report"], report)
+
+
+class UntilStopped(object):
+    """Device-resident batches, cycled until the driver's stop file."""
+
+    def __init__(self, batches, stop):
+        self.items, self.stop = batches, stop
+
+    def batches(self):
+        i = 0
+        while not os.path.exists(self.stop):
+            yield self.items[i % len(self.items)]
+            i += 1
+
+
+def control_evict_main(args, ctx):
+    """The eviction leg's user fn, on each node and on the replacement:
+    the LM trained on device-resident batches until the driver's stop
+    file, no collective across nodes (a warm-up forward and backward first,
+    outside the loop, so that the windows the watchtower scores hold
+    steady steps).  An evicted node ends in the SIGTERM drain's
+    ``SystemExit``; the report is written on every way out."""
+    import importlib
+    import traceback
+
+    from tensorflowonspark_torch import node
+
+    report = {"executor": ctx.executor_id, "started": time.time()}
+    path = args["report"] + str(ctx.executor_id)
+    trainer = None
+    try:
+        import numpy as np
+        import torch
+
+        from tensorflowonspark_torch.models import transformer
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device, model = control_node(args, ctx)
+        trainer = control_trainer(args, transformer.loss_fn(model),
+                                  dict(model.state_dict()), device,
+                                  EVICT_LOG_STEPS)
+        batches = device_batches(
+            torch, NgramFeed(np, 10 + ctx.executor_id, TRAIN_BATCH,
+                                      args["seq"],
+                                      args["config"]["vocab_size"]),
+            EVICT_BATCHES, device)
+        trainer._grads(*trainer._prepare(*batches[0]))      # warm-up
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        ends = report["ends"] = []
+        report["ready"] = time.time()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        try:
+            trainer.fit_feed(UntilStopped(batches, args["stop"]),
+                             on_steps=lambda s: ends.append((time.time(), s)))
+        finally:
+            report["launches"] = launches_of(fa)
+    except BaseException as e:
+        if not isinstance(e, SystemExit):
+            report["error"] = traceback.format_exc()
+        raise
+    finally:
+        report["preempted"] = node.preempted()
+        if trainer is not None:
+            report["steps"] = trainer.state.step
+            if trainer.history is not None:
+                report["windows"] = trainer.history.timestamp_log
+        write_report(path, report)
+
+
+class Regrouped(object):
+    """One ShardedFeed's grouped items for two ``fit_feed`` calls:
+    :meth:`batches` hands on K = 1 groups as single eager steps until the
+    feed regroups (an autopilot ``train_steps_per_call`` push lands at a
+    group boundary); :meth:`grouped_batches` then hands on that group and
+    the rest.  One prefetch thread, one consumer: nothing is dropped."""
+
+    def __init__(self, sharded):
+        self.groups = sharded.grouped_batches(1)
+        self.held, self.k, self.switched = None, 1, None
+
+    def batches(self):
+        for kind, batch, mask in self.groups:
+            if kind == "multi" and mask.shape[0] > 1:
+                self.held, self.k = (kind, batch, mask), int(mask.shape[0])
+                self.switched = time.time()
+                return
+            if kind == "multi":
+                yield {n: t[0] for n, t in batch.items()}, mask[0]
+            else:
+                yield batch, mask
+
+    def grouped_batches(self, k):
+        if self.held is not None:
+            held, self.held = self.held, None
+            yield held
+        yield from self.groups
+
+
+def control_autopilot_main(args, ctx):
+    """The autopilot leg's user fn: the LM from the node's feed at K = 1
+    (eager) until the autopilot's push regroups the feed, then at the
+    pushed K (a CUDA graph captured mid-run) to the end of the feed; every
+    step's loss of the K > 1 stretch and each window's at K = 1 reported
+    with the launches."""
+    import importlib
+    import traceback
+
+    report = {}
+    try:
+        from tensorflowonspark_torch.models import transformer
+        from tensorflowonspark_torch.parallel import infeed
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device, model = control_node(args, ctx)
+        curve = LossCurve()
+        trainer = control_trainer(args, transformer.loss_fn(model),
+                                  dict(model.state_dict()), device,
+                                  AUTOPILOT_LOG_STEPS, summary_writer=curve)
+        feed = Regrouped(infeed.ShardedFeed(
+            ctx.get_data_feed(), TRAIN_BATCH,
+            transform=lambda t: {"tokens": t}, device=device))
+        ends = []
+
+        def on_steps(step):
+            ends.append((time.time(), step))
+
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        trainer.fit_feed(feed, on_steps=on_steps)          # the path starts
+        k1_steps = trainer.state.step
+        k1 = trainer.counters_snapshot()
+        report["k1_gap_us_per_step"] = (k1.get("dispatch_gap_us", 0)
+                                        / max(k1.get("train_steps_total", 0),
+                                              1))
+        stats = None
+        if feed.k > 1:
+            stats = trainer.fit_feed(feed, steps_per_call=feed.k,
+                                     on_steps=on_steps)
+        report.update({"launches": launches_of(fa),        # ... and ends
+                       "k1_steps": k1_steps, "k": feed.k,
+                       "switched": feed.switched,
+                       "steps": trainer.state.step,
+                       "losses": curve.losses, "dispatch_ends": ends,
+                       "megastep": stats and stats["megastep"],
+                       "graphs": len(trainer._graphs),
+                       "counters": trainer.counters_snapshot()})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        write_report(args["report"], report)
+
+
+def journal(log_dir, plane):
+    from tensorflowonspark_torch import watchtower
+
+    path = os.path.join(log_dir, plane, "journal.jsonl")
+    return watchtower.read_journal(path) if os.path.exists(path) else []
+
+
+def first_time(records, **match):
+    """The time of the first journal record whose fields hold ``match``."""
+    for r in records:
+        if all(str(r.get(k)) == str(v) for k, v in match.items()):
+            return r.get("time")
+    return None
+
+
+def stages_of(records, action):
+    return sorted({r.get("stage") for r in records
+                   if r.get("kind") == "action"
+                   and r.get("action", r.get("knob")) == action})
+
+
+def since(t0, t):
+    return None if t is None or t0 is None else t - t0
+
+
+def control_cluster(backend_mod, cluster_mod, n, fn, args, log_dir, env=None,
+                    **planes):
+    b = backend_mod.LocalBackend(n, env_per_executor=env)
+    t0 = time.time()
+    c = cluster_mod.run(b, fn, args, num_executors=n,
+                        input_mode=cluster_mod.InputMode.SPARK,
+                        log_dir=log_dir, telemetry=True, observatory=True,
+                        heartbeat_interval=CONTROL_HEARTBEAT_SECS,
+                        heartbeat_misses=CONTROL_HEARTBEAT_MISSES, **planes)
+    return b, c, time.time() - t0
+
+
+def control_rollback(torch, np, config, device, tmp):
+    """The rollback leg: one executor under ``remediator=``; the
+    watchtower's ``nonfinite`` crit -> ``rollback_poison`` ->
+    ``train_rollback`` -> ``PoisonRollback`` -> ``restore_latest_valid``."""
+    from tensorflowonspark_torch import backend, cluster, fault
+
+    log_dir = os.path.join(tmp, "rollback")
+    args = {"config": config, "device": device, "lr": LR,
+            "ckpt_dir": os.path.join(tmp, "rollback_ckpt"),
+            "report": os.path.join(tmp, "rollback.json")}
+    spec = json.dumps({"nan_batch_at_step": ROLLBACK_NAN_STEP})
+    b, c, run_s = control_cluster(
+        backend, cluster, 1, control_rollback_main, args, log_dir,
+        env=[{fault.FAULT_SPEC_ENV: spec}], watchtower=CONTROL_WATCHTOWER,
+        remediator=CONTROL_REMEDIATOR_ROLLBACK)
+    try:
+        report = wait_for_report(args["report"], CONTROL_REPORT_SECS)
+        c.shutdown(grace_secs=1)
+    finally:
+        b.stop()
+    alerts, actions = journal(log_dir, "watchtower"), journal(
+        log_dir, "remediator")
+    first = report["attempts"][0]["pulls"]
+    # the NaN batch's dispatch starts when it is handed over
+    nan_t = next((t for s, _, t in first if s == ROLLBACK_NAN_STEP), None)
+    replay = report["attempts"][-1]["pulls"]
+    # the replay's first dispatch ends when its second batch is asked for
+    restored_t = replay[1][1] if len(replay) > 1 else None
+    layers = config["num_layers"]
+    row = {"steps": report["steps"], "rollbacks": report["rollbacks"],
+           "feed_starts": [a["start"] for a in report["attempts"]],
+           "halted_at_step": (first[-1][0] if len(report["attempts"]) > 1
+                              else None),
+           "dispatches": report["dispatches"],
+           "checkpoints": report["checkpoints"],
+           "corrupt": [e for e in report["checkpoints"]
+                       if e.endswith(".corrupt")],
+           "nonfinite_loss_windows": report["nonfinite_loss"],
+           "recovery_us": report["recovery_us"],
+           "final_loss": report["final_loss"],
+           "params_equal_bitwise": report["params_equal_bitwise"],
+           "params_differing": report["params_differing"],
+           "param_max_abs_diff": report["param_max_abs_diff"],
+           "uninterrupted_steps": report["uninterrupted_steps"],
+           "rollback_stages": stages_of(actions, "rollback_poison"),
+           "alerts": sorted({(r.get("rule"), str(r.get("executor")))
+                             for r in alerts if r.get("kind") == "alert"}),
+           "s_nan_to_alert": since(nan_t, first_time(
+               alerts, kind="alert", rule="nonfinite")),
+           "s_nan_to_applied": since(nan_t, first_time(
+               actions, kind="action", action="rollback_poison",
+               stage="applied")),
+           "s_nan_to_first_step_after_restore": since(nan_t, restored_t),
+           "tf_status": {k: c.tf_status.get(k) for k in (
+               "alerts", "remediations", "dead_nodes", "error")},
+           "cluster_run_s": run_s, "launches": report["launches"]}
+    if not ("applied" in row["rollback_stages"] and row["corrupt"]
+            and report["steps"] == ROLLBACK_STEPS
+            and report["rollbacks"] == 1
+            and report["params_equal_bitwise"]
+            and report["uninterrupted_steps"] == ROLLBACK_STEPS
+            and (device == "cpu" or all(
+                n == layers * report["dispatches"]
+                for n in report["launches"].values()))):
+        raise AssertionError("control_rollback: the loop did not close: "
+                             "{}".format(row))
+    return row
+
+
+def control_evict(torch, np, config, device, tmp):
+    """The eviction leg: two executors under ``remediator=`` with
+    ``max_evictions: 1``; executor 1 straggles (``sleep_per_step_secs``),
+    the watchtower's ``straggler_step_time`` names it, the remediator's
+    ``evict_straggler`` drains it through its SIGTERM path and a
+    replacement executor trains in its slot."""
+    from tensorflowonspark_torch import backend, cluster, fault
+
+    log_dir = os.path.join(tmp, "evict")
+    args = {"config": config, "device": device, "lr": LR,
+            "seq": SEQ if device is None else config["max_seq_len"],
+            "stop": os.path.join(tmp, "evict_stop"), "independent": True,
+            "report": os.path.join(tmp, "evict-")}
+    slow = json.dumps({"sleep_per_step_secs": EVICT_STRAGGLER_SECS})
+    b, c, run_s = control_cluster(
+        backend, cluster, 2, control_evict_main, args, log_dir,
+        env=[{}, {fault.FAULT_SPEC_ENV: slow}],
+        watchtower=EVICT_WATCHTOWER, remediator=CONTROL_REMEDIATOR_EVICT)
+    base = "http://127.0.0.1:%d" % c.observatory.addr[1]
+    try:
+        try:
+            def evicted():
+                doc = json.loads(http_get(base + "/remediations?limit=100")[0])
+                got = stages_of(doc.get("actions") or [], "evict_straggler")
+                return got if {"proposed", "applied", "effect"} <= set(
+                    got) else None
+
+            wait_until("evict_straggler to close its loop", evicted,
+                       CONTROL_LOOP_SECS, 0.3)
+            applied = [a for a in json.loads(http_get(
+                base + "/remediations?limit=100")[0])["actions"]
+                if a["action"] == "evict_straggler"
+                and a["stage"] == "applied"]
+            wait_until("the replacement", lambda: c.tf_status.get(
+                "replacements"), CONTROL_LOOP_SECS, 0.2)
+
+            def replacement_windows():
+                nodes = c.metrics_snapshot().get("nodes") or {}
+                got = [n for n in nodes if n not in ("0", "1")]
+                return got if got and nodes[got[0]].get(
+                    "step_ms_count", 0) >= (EVICT_REPLACEMENT_WINDOWS
+                                            * EVICT_LOG_STEPS) else None
+
+            new = wait_until("the replacement's steps", replacement_windows,
+                             CONTROL_REPORT_SECS, 0.2)[0]
+        finally:
+            open(args["stop"], "w").close()
+        reports = {e: wait_for_report(args["report"] + e,
+                                      CONTROL_REPORT_SECS)
+                   for e in ("0", "1", new)}
+        c.shutdown(grace_secs=1)
+    finally:
+        if not os.path.exists(args["stop"]):
+            open(args["stop"], "w").close()
+        b.stop()
+    alerts, actions = journal(log_dir, "watchtower"), journal(
+        log_dir, "remediator")
+    stragglers = sorted({str(r.get("executor")) for r in alerts
+                         if r.get("kind") == "alert"
+                         and str(r.get("rule")).startswith("straggler")})
+
+    def window_ms(report, lo=None, hi=None):
+        """Median ms a step of a node's windows (its first left out),
+        those inside ``[lo, hi]`` when given."""
+        log = report.get("windows") or []
+        ms = [1e3 * (t1 - t0) / (s1 - s0)
+              for (s0, t0), (s1, t1) in list(zip(log, log[1:]))[1:]
+              if s1 > s0 and (lo is None or t0 >= lo)
+              and (hi is None or t1 <= hi)]
+        return median(ms) if ms else None
+
+    layers = config["num_layers"]
+    rep = reports[new]
+    rep_span = ((rep.get("windows") or [[0, None]])[0][1],
+                (rep.get("windows") or [[0, None]])[-1][1])
+    new_ms = window_ms(rep)
+    peer_ms = window_ms(reports["0"], *rep_span)
+    onset = (reports["1"].get("ends") or [[None]])[0][0]
+    first_new = (rep.get("ends") or [[None]])[0][0]
+    launches = {name: sum(r.get("launches", {}).get(name, 0)
+                          for r in reports.values())
+                for name in FLASH_KERNELS}
+    row = {"straggler_secs": EVICT_STRAGGLER_SECS,
+           "evict_stages": stages_of(actions, "evict_straggler"),
+           "evicted": [str(a.get("executor")) for a in applied],
+           "replaced": [a.get("detail", {}).get("replaced")
+                        for a in applied],
+           "straggler_alert_executors": stragglers,
+           "alerts": sorted({(r.get("rule"), str(r.get("executor")))
+                             for r in alerts if r.get("kind") == "alert"}),
+           "replacements": c.tf_status.get("replacements"),
+           "byes": c.tf_status.get("byes"),
+           "dead_nodes": c.tf_status.get("dead_nodes"),
+           "replacement_executor": new,
+           "straggler_ms_per_step": window_ms(reports["1"]),
+           "peer_ms_per_step_before": window_ms(reports["0"], None,
+                                                rep_span[0]),
+           "replacement_ms_per_step": new_ms,
+           "peer_ms_per_step_beside_replacement": peer_ms,
+           "steps": {e: r.get("steps") for e, r in reports.items()},
+           "preempted": {e: r.get("preempted") for e, r in reports.items()},
+           "first_straggler_rule": next(
+               (r.get("rule") for r in alerts if r.get("kind") == "alert"
+                and str(r.get("rule")).startswith("straggler")), None),
+           "s_onset_to_alert": since(onset, next(
+               (r.get("time") for r in alerts if r.get("kind") == "alert"
+                and str(r.get("rule")).startswith("straggler")
+                and str(r.get("executor")) == "1"), None)),
+           "s_onset_to_step_time_alert": since(onset, first_time(
+               alerts, kind="alert", rule="straggler_step_time",
+               executor="1")),
+           "s_onset_to_applied": since(onset, first_time(
+               actions, kind="action", action="evict_straggler",
+               stage="applied")),
+           "s_onset_to_replacement_first_step": since(onset, first_new),
+           "launches_by_node": {e: r.get("launches")
+                                for e, r in reports.items()},
+           "cluster_run_s": run_s, "launches": launches}
+    if not ({"proposed", "applied", "effect"} <= set(row["evict_stages"])
+            and row["evicted"] == ["1"] and all(row["replaced"])
+            and stragglers == ["1"]
+            and len(row["replacements"] or []) == 1
+            and (row["byes"] or {}).get("1") == "preempted"
+            and not row["dead_nodes"] and reports["1"]["preempted"]
+            and new_ms and peer_ms and new_ms <= EVICT_PEER_RATIO * peer_ms
+            and (device == "cpu" or all(
+                reports[e]["launches"][n] == layers * reports[e]["steps"]
+                for e in ("0", new) for n in FLASH_KERNELS))):
+        raise AssertionError("control_evict: the loop did not close: "
+                             "{}".format(row))
+    return row
+
+
+def control_autopilot(torch, np, config, device, tmp, gap_hi_us):
+    """The autopilot leg: one executor fed by ``TPUCluster.train`` under
+    ``autopilot=`` with only ``train_steps_per_call`` free to move; the
+    dispatch gap per step at K = 1 raises K, the node's feed regroups and
+    the Trainer captures a graph for the new K mid-run; the losses across
+    the switch against a K = 1 run on this card over the same rows."""
+    import threading
+
+    from tensorflowonspark_torch import backend, cluster
+    from tensorflowonspark_torch.models import transformer
+
+    vocab = config["vocab_size"]
+    seq = SEQ if device is None else config["max_seq_len"]
+    log_dir = os.path.join(tmp, "autopilot")
+    args = {"config": config, "device": device, "lr": LR,
+            "report": os.path.join(tmp, "autopilot.json")}
+    planes = {"watchtower": CONTROL_WATCHTOWER, "autopilot": {
+        "interval_secs": 0.5, "window_secs": 4.0, "confirm_ticks": 2,
+        "settle_ticks": 3, "cooldown_secs": 600.0, "min_events": 5,
+        "journal_snapshot_secs": 1.0,
+        "steps_per_call_gap_hi_us": gap_hi_us,
+        "knobs": {"train_steps_per_call": {"initial": 1, "max": MEGA_K},
+                  "infeed_prefetch": {"initial": 2, "min": 2, "max": 2}}}}
+    parts = []
+    stop_feed = threading.Event()
+
+    def partitions():
+        seed = 300
+        while not stop_feed.is_set():
+            seed += 1
+            parts.append(seed)
+            yield list(lm_rows(np, seed, AUTOPILOT_PART_ROWS, seq, vocab))
+
+    b, c, run_s = control_cluster(backend, cluster, 1,
+                                  control_autopilot_main, args, log_dir,
+                                  **planes)
+    base = "http://127.0.0.1:%d" % c.observatory.addr[1]
+    try:
+        feed_errors = []
+
+        def feed():
+            try:
+                c.train(partitions())
+            except Exception as e:
+                feed_errors.append(repr(e))
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        try:
+            def judged():
+                doc = json.loads(http_get(base + "/autopilot")[0])
+                got = stages_of(doc.get("actions") or [],
+                                "train_steps_per_call")
+                return got if {"applied", "effect"} <= set(got) and (
+                    {"kept", "reverted"} & set(got)) else None
+
+            wait_until("the train_steps_per_call action to be judged",
+                       judged, CONTROL_LOOP_SECS, 0.3)
+            dispatches = 'tfos_dispatch_count_total{executor="0"}'
+            at = node_metrics(base)[2].get(dispatches, 0)
+            wait_until("steps after the switch", lambda: node_metrics(
+                base)[2].get(dispatches, 0) >= at + AUTOPILOT_STEPS_AFTER
+                // MEGA_K, CONTROL_LOOP_SECS)
+            gauge = node_metrics(base)[2].get(
+                'tfos_train_steps_per_call_max{executor="0"}')
+            pilot = json.loads(http_get(base + "/autopilot")[0])
+        finally:
+            stop_feed.set()
+            feeder.join(timeout=120)
+        c.shutdown(grace_secs=1)
+        report = wait_for_report(args["report"], CONTROL_REPORT_SECS)
+    finally:
+        b.stop()
+    actions = journal(log_dir, "autopilot")
+    applied = [r for r in actions if r.get("kind") == "action"
+               and r.get("stage") == "applied"]
+    # the same rows, in the order the node trained them, at K = 1 here
+    dev = torch.device(device or "cuda")
+    model = control_lm(torch, config, dev)
+    ref = control_trainer({"lr": LR, "config": config},
+                          transformer.loss_fn(model),
+                          dict(model.state_dict()), dev, AUTOPILOT_LOG_STEPS)
+    rows = np.concatenate([lm_rows(np, s, AUTOPILOT_PART_ROWS, seq, vocab)
+                           for s in parts])
+    losses = {int(s): v for s, v in report["losses"].items()}
+    diffs = {}
+    for i in range(report["steps"]):
+        tokens = rows[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+        if len(tokens) < TRAIN_BATCH:
+            break
+        loss, _ = ref.step({"tokens": torch.from_numpy(tokens)},
+                           np.ones(TRAIN_BATCH, np.float32))
+        if i + 1 in losses:
+            diffs[i + 1] = abs(float(loss) - losses[i + 1])
+    del ref, model
+    ends = report["dispatch_ends"]
+    gaps = [t1 - t0 for (t0, _), (t1, _) in zip(ends, ends[1:])]
+    k_changed = report["switched"]
+    row = {"gap_hi_us": gap_hi_us,
+           "k1_gap_us_per_step": report["k1_gap_us_per_step"],
+           "k": report["k"],
+           "k1_steps": report["k1_steps"], "steps": report["steps"],
+           "graphs": report["graphs"], "megastep": report["megastep"],
+           "stages": stages_of(actions, "train_steps_per_call"),
+           "applied": [{k: a.get(k) for k in ("knob", "frm", "to", "sensed",
+                                               "objective_before")}
+                       for a in applied],
+           "live_actions": len(pilot.get("actions") or []),
+           "train_steps_per_call_max_gauge": gauge,
+           "loss_diff_vs_k1": {str(s): d for s, d in sorted(diffs.items())},
+           "loss_tol": MEGA_LOSS_TOL, "feed_errors": feed_errors,
+           "s_applied_to_k_changed": since(first_time(
+               actions, kind="action", knob="train_steps_per_call",
+               stage="applied"), k_changed),
+           "max_dispatch_interval_s": max(gaps) if gaps else None,
+           "cluster_run_s": run_s, "launches": report["launches"]}
+    pushed = [a.get("to") for a in applied]
+    if not (pushed and report["k"] == pushed[0]
+            and (device == "cpu" or report["graphs"])
+            and gauge == max(pushed) and diffs
+            and all(d <= MEGA_LOSS_TOL for d in diffs.values())
+            and not feed_errors
+            and len([s for s in diffs if s > report["k1_steps"]])
+            and (device == "cpu" or all(
+                n == config["num_layers"] * report["steps"]
+                for n in report["launches"].values()))):
+        raise AssertionError("control_autopilot: the loop did not close: "
+                             "{}".format(row))
+    return row
+
+
+def phase_control(torch, np, clustered, config=LM_CONFIG, device=None):
+    """The alerting and control planes behind ``cluster.run`` on the
+    flagship LM, one leg each: the remediator's poison rollback, its
+    straggler eviction with a replacement, and the autopilot's
+    ``train_steps_per_call``."""
+    t_start = time.perf_counter()
+    if device is None:
+        torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    # the autopilot's threshold: its default, or below the K = 1 cluster
+    # run's dispatch gap a step when that is under the default
+    overlap = clustered.get("overlap") or {}
+    steps = overlap.get("train_steps_total") or clustered.get("steps") or 1
+    gap_us = overlap.get("dispatch_gap_us", 0) / steps
+    gap_hi_us = (AUTOPILOT_GAP_HI_US if gap_us >= AUTOPILOT_GAP_HI_US
+                 else gap_us / 4)
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, leg in (("control_rollback", lambda: control_rollback(
+                               torch, np, config, device, tmp)),
+                          ("control_evict", lambda: control_evict(
+                               torch, np, config, device, tmp)),
+                          ("control_autopilot", lambda: control_autopilot(
+                              torch, np, config, device, tmp, gap_hi_us))):
+            t0 = time.perf_counter()
+            legs[name] = leg()
+            legs[name]["leg_s"] = time.perf_counter() - t0
+            emit(dict({"phase": name}, **legs[name]))
+    row = {"phase": "control", "config": config,
+           "cluster_k1_gap_us_per_step": gap_us,
+           "autopilot_gap_hi_us": gap_hi_us,
+           "autopilot_default_gap_hi_us": AUTOPILOT_GAP_HI_US,
+           "launches": {n: legs[n]["launches"] for n in legs},
+           "phase_s": time.perf_counter() - t_start}
+    emit(row)
+    return legs
+
+
 def main():
     import torch
 
@@ -5145,50 +6021,62 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     started = time.perf_counter()
-    device = phase_device(torch, device_mod)
-    usage = phase_build(build)
-    warm_clocks(torch)
-    fwd_rows = [flash_case(torch, F, fa, metrics, device["kind"], usage, *case)
-                for case in FLASH_CASES]
-    bwd_rows = [bwd_case(torch, F, fa, metrics, device["kind"], usage, *case)
-                for case in BWD_CASES]
-    serve = phase_serve(torch, np, fa)
+    phase_seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            phase_seconds[name] = time.perf_counter() - t0
+
+    device = timed("device", phase_device, torch, device_mod)
+    usage = timed("build", phase_build, build)
+    timed("warm_clocks", warm_clocks, torch)
+    fwd_rows = timed("kernel_fwd", lambda: [
+        flash_case(torch, F, fa, metrics, device["kind"], usage, *case)
+        for case in FLASH_CASES])
+    bwd_rows = timed("kernel_bwd", lambda: [
+        bwd_case(torch, F, fa, metrics, device["kind"], usage, *case)
+        for case in BWD_CASES])
+    serve = timed("serve", phase_serve, torch, np, fa)
     # the training shape: FLASH_CASES[1] and BWD_CASES[0]
     at_train = {"flash_fwd": fwd_rows[1], "flash_bwd_dq": bwd_rows[0][0],
                 "flash_bwd_dkv": bwd_rows[0][1]}
-    trained = phase_train(torch, np, fa, metrics, device["kind"],
-                          {n: r["kernel_ms"] for n, r in at_train.items()})
-    mega, mega_params = phase_train_megastep(torch, np, fa, metrics, trained)
-    supervised = phase_supervised(torch, np, fa, trained, mega, mega_params)
+    trained = timed("train", phase_train, torch, np, fa, metrics,
+                    device["kind"],
+                    {n: r["kernel_ms"] for n, r in at_train.items()})
+    mega, mega_params = timed("train_megastep", phase_train_megastep, torch,
+                              np, fa, metrics, trained)
+    supervised = timed("supervised", phase_supervised, torch, np, fa,
+                       trained, mega, mega_params)
     del mega_params
-    clustered = phase_cluster(torch, np, trained)
-    mega_cluster = phase_cluster(torch, np, trained, steps_per_call=MEGA_K,
-                                 k1_cluster=clustered)
-    gatewayed = phase_gateway(torch, np, fa)
-    served_cli = phase_serve_cli(torch, np)
-    piped = phase_pipeline(torch, np)
-    resnet_trained = phase_resnet_train(torch, np, fa)
-    phase_resnet_card_vs_cpu(torch, np)
-    phase_resnet_files(torch, np, fa, resnet_trained)
-    earlier_s = time.perf_counter() - started
-    moe, moe_model, moe_params = phase_moe_train(torch, np, fa, metrics,
-                                                 mega)
-    phase_moe_card_vs_cpu(torch, np)
-    moe_served = phase_moe_serve(torch, np, fa, moe_model, moe_params)
+    clustered = timed("cluster", phase_cluster, torch, np, trained)
+    mega_cluster = timed("cluster_k5", phase_cluster, torch, np, trained,
+                         steps_per_call=MEGA_K, k1_cluster=clustered)
+    gatewayed = timed("gateway", phase_gateway, torch, np, fa)
+    served_cli = timed("serve_cli", phase_serve_cli, torch, np)
+    piped = timed("pipeline", phase_pipeline, torch, np)
+    resnet_trained = timed("resnet_train", phase_resnet_train, torch, np, fa)
+    timed("resnet_card_vs_cpu", phase_resnet_card_vs_cpu, torch, np)
+    timed("resnet_files", phase_resnet_files, torch, np, fa, resnet_trained)
+    moe, moe_model, moe_params = timed("moe_train", phase_moe_train, torch,
+                                       np, fa, metrics, mega)
+    timed("moe_card_vs_cpu", phase_moe_card_vs_cpu, torch, np)
+    moe_served = timed("moe_serve", phase_moe_serve, torch, np, fa,
+                       moe_model, moe_params)
     del moe_model, moe_params
-    example = phase_lm_example(torch, np, moe)
-    before_parallel_s = time.perf_counter() - started
-    parallel = phase_parallel(torch, np, fa, trained, mega)
-    before_j2_s = time.perf_counter() - started
-    j2 = phase_parallel_j2(torch, np, fa, trained, moe)
-    before_observability_s = time.perf_counter() - started
-    observed, observed_card = phase_observability(
-        torch, np, fa, metrics, clustered, mega_cluster)
+    example = timed("lm_example", phase_lm_example, torch, np, moe)
+    parallel = timed("parallel", phase_parallel, torch, np, fa, trained,
+                     mega)
+    j2 = timed("parallel_j2", phase_parallel_j2, torch, np, fa, trained, moe)
+    observed, observed_card = timed("observability", phase_observability,
+                                    torch, np, fa, metrics, clustered,
+                                    mega_cluster)
+    control = timed("control", phase_control, torch, np, clustered)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
-          "before_moe_phases_s": earlier_s,
-          "before_parallel_phase_s": before_parallel_s,
-          "before_parallel_j2_phase_s": before_j2_s,
-          "before_observability_phase_s": before_observability_s})
+          "phase_seconds": phase_seconds, "http_retries": HTTP_RETRIES})
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -5211,11 +6099,13 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the flash LM trained in the observed
-            # SPARK-mode cluster node, a K = 1 stretch then a K = 5 one,
-            # under the observatory's scrapes and captures; the node's
-            # counters, zeroed before and read after both stretches
-            "launches": observed["launches"][name],
+            # this slice's main path: the flash LM trained in the control
+            # phase's SPARK-mode cluster nodes under the watchtower, the
+            # remediator and the autopilot; each node's counters, zeroed
+            # before and read after its run, summed over the three legs
+            "launches": sum(control[leg]["launches"][name]
+                            for leg in ("control_rollback", "control_evict",
+                                        "control_autopilot")),
             "device_launches_by_path": dict(
                 {"parallel_fsdp": parallel["runs"]["k1"][
                     "device_launches"][name],
@@ -5248,6 +6138,11 @@ def main():
                      "runs"]["k1"]["launches"][name],
                  "observability_guard_k5": observed_card["transfer_guard"][
                      "runs"]["k%d" % MEGA_K]["launches"][name],
+                 "control_rollback": control["control_rollback"][
+                     "launches"][name],
+                 "control_evict": control["control_evict"]["launches"][name],
+                 "control_autopilot": control["control_autopilot"][
+                     "launches"][name],
                  "parallel_fsdp": parallel["runs"]["k1"]["launches"][name],
                  "parallel_fsdp_k5": parallel["runs"]["k5"]["launches"][
                      name],

@@ -17,10 +17,11 @@ Input modes (reference ``TFCluster.py:41-44``):
 The driver never initializes CUDA for the cluster: the executors are
 spawned processes, and each node's first CUDA call is in its user fn.  The
 observatory (``observatory=True``: ``/metrics``, ``/status``, ``/profile``,
-``/slow``) and the per-node profiler capture endpoints (``profiler=True``)
-are ported.  Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item when asked for: ``watchtower``, ``autopilot``,
-``remediator``, ``data_service`` and ``compile_cache_dir``.
+``/slow``, ``/alerts``, ``/autopilot``, ``/remediations``), the per-node
+profiler capture endpoints (``profiler=True``) and the alerting and control
+planes (``watchtower``, ``autopilot``, ``remediator``) are ported.  Not
+ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md item
+when asked for: ``data_service`` and ``compile_cache_dir``.
 """
 
 import logging
@@ -45,11 +46,8 @@ COMPILE_CACHE_DIR_ENV = "TFOS_COMPILE_CACHE_DIR"
 # cluster.run options whose planes are not ported: (value that leaves them
 # off, the ROADMAP.md item that ports them)
 _UNPORTED = {
-    "watchtower": "Queue 1, the observability planes (watchtower)",
-    "autopilot": "Queue 1, the observability planes (autopilot)",
-    "remediator": "Queue 1, the observability planes (remediator)",
-    "data_service": "Queue 1, the module queue: the data service",
-    "compile_cache_dir": "Queue 1, item 16 (compile plane)",
+    "data_service": "Queue 1, item E, the data service",
+    "compile_cache_dir": "Queue 1, item H, the compile plane",
 }
 
 
@@ -67,7 +65,8 @@ class TPUCluster(object):
 
     def __init__(self, backend, cluster_meta, cluster_info, input_mode,
                  server, start_job, tf_status, queues, observatory=None,
-                 profiling=None):
+                 profiling=None, watchtower=None, autopilot=None,
+                 remediator=None):
         self.backend = backend
         self.cluster_meta = cluster_meta
         self.cluster_info = cluster_info
@@ -84,6 +83,22 @@ class TPUCluster(object):
         # flag): .trigger() captures traces from the driver without going
         # through HTTP; artifacts land under <log_dir>/profiles
         self.profiling = profiling
+        # optional watchtower.Watchtower (rides the observatory flag):
+        # streaming straggler/anomaly detection over the sample ring;
+        # stopped before the observatory so the final journal flush and
+        # alert-count latch land in tf_status (see _latch_telemetry)
+        self.watchtower = watchtower
+        # optional autopilot.Autopilot (cluster.run(autopilot=True)): the
+        # closed-loop performance controller; stopped before the
+        # watchtower so its final journal snapshot and action tallies
+        # precede the watchtower/observatory teardown
+        self.autopilot = autopilot
+        # optional remediator.Remediator (cluster.run(remediator=True)):
+        # the topology action plane over admitted watchtower alerts;
+        # stopped before everything else on shutdown — its subprocess
+        # pools (scale-out workers/replicas) must die before the roster
+        # they talk to (see _latch_telemetry)
+        self.remediator = remediator
 
     # -- data plane -------------------------------------------------------
 
@@ -303,6 +318,43 @@ class TPUCluster(object):
                     self.tf_status.setdefault("serving_slow", slow)
         except Exception:
             logger.debug("telemetry latch failed", exc_info=True)
+        if self.remediator is not None:
+            # stop the action plane before every other controller: its
+            # spawned subprocesses must drain while the roster they talk
+            # to still exists, and the action tallies belong in tf_status
+            # next to the telemetry latch
+            try:
+                self.remediator.stop()
+                counts = self.remediator.action_counts()
+                if counts:
+                    self.tf_status.setdefault("remediations", counts)
+            except Exception:
+                logger.debug("remediator stop failed", exc_info=True)
+            telemetry_mod.unregister_flight_source("remediations")
+        if self.autopilot is not None:
+            # stop the controller before the rule engine that feeds it
+            # hints: the final journal snapshot and the action tallies
+            # belong in tf_status next to the telemetry latch
+            try:
+                self.autopilot.stop()
+                counts = self.autopilot.action_counts()
+                if counts:
+                    self.tf_status.setdefault("autopilot", counts)
+            except Exception:
+                logger.debug("autopilot stop failed", exc_info=True)
+        if self.watchtower is not None:
+            # stop the rule engine first: its final tick + journal flush
+            # must see the closing metrics, and the alert tallies belong in
+            # tf_status next to the telemetry latch
+            try:
+                self.watchtower.stop()
+                counts = self.watchtower.alert_counts()
+                if counts:
+                    self.tf_status.setdefault("alerts", counts)
+            except Exception:
+                logger.debug("watchtower stop failed", exc_info=True)
+            telemetry_mod.unregister_flight_source("sample_ring_tail")
+            telemetry_mod.unregister_flight_source("alerts")
         if self.observatory is not None:
             # exporter outlives the nodes (scrapes tolerate node death) but
             # not the cluster handle; stop is idempotent across the several
@@ -614,25 +666,53 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         ``cluster.observatory.addr``.  With telemetry off, nodes send bare
         beats and the exporter mostly shows ``tfos_nodes``: enable both.
       observatory_port: TCP port for the observatory (0 = ephemeral).
-      data_service, watchtower, autopilot, remediator, compile_cache_dir:
-        the JAX package's data-service, alerting, control and compile
-        planes.  Not ported yet: any value that would turn one on raises
-        ``NotImplementedError`` naming its ROADMAP.md item.  In the JAX
-        package ``watchtower=None`` (the default) follows ``observatory``;
-        here it stays off until the watchtower is ported (one log line
-        says so).
+      watchtower: streaming straggler/anomaly detection over the
+        observatory's sample ring (see
+        :mod:`~tensorflowonspark_torch.watchtower`): ``None`` (default)
+        enables it whenever the observatory is on, ``False`` disables it,
+        a dict overrides rule thresholds key-wise (see
+        ``watchtower.DEFAULT_CONFIG``).  Alerts surface on ``GET
+        /alerts``, as ``tfos_alerts_total`` on ``/metrics``, as
+        ``watchtower/alert`` trace instants, and in the append-only JSONL
+        journal at ``<log_dir>/watchtower/journal.jsonl`` (replayable
+        offline via ``scripts/metrics_replay_torch.py``).  Suspect-node
+        verdicts land in ``tf_status["suspects"]``.
+      autopilot: closed-loop performance controller over the observatory's
+        sample ring (see :mod:`~tensorflowonspark_torch.autopilot`;
+        requires ``observatory=True``): ``False`` (default) off, ``True``
+        on with defaults, a dict overrides controller/knob settings
+        key-wise (see ``autopilot.DEFAULT_CONFIG``; ``{"dry_run": True}``
+        journals proposals without actuating).  Actuation rides the
+        heartbeat-reply channel into per-node live setters (infeed
+        prefetch depth, K steps a dispatch, gateway batching).  Every
+        action is journaled to ``<log_dir>/autopilot/journal.jsonl`` and
+        surfaces on ``GET /autopilot`` plus ``tfos_autopilot_*`` counters
+        on ``/metrics``.
+      remediator: topology action plane over admitted watchtower alerts
+        (see :mod:`~tensorflowonspark_torch.remediator`; requires
+        ``observatory=True`` and the watchtower): ``False`` (default) off,
+        ``True`` on with defaults, a dict overrides key-wise (see
+        ``remediator.DEFAULT_CONFIG``; ``{"dry_run": True}`` journals
+        proposals without actuating).  Persistent stragglers are fenced
+        and replaced (graceful node-side SIGTERM drain + elastic slot
+        re-admission; SPARK mode), ``nonfinite`` crits roll training back
+        to the last finite checkpoint (poisoned steps quarantined as
+        ``<step>.corrupt``); the scale-out families stay unarmed unless
+        their spawn argv is given.  Every action is journaled to
+        ``<log_dir>/remediator/journal.jsonl`` and surfaces on ``GET
+        /remediations`` plus ``tfos_remediation_actions_total`` on
+        ``/metrics``; final tallies latch into
+        ``tf_status["remediations"]``.
+      data_service, compile_cache_dir: the JAX package's data-service and
+        compile planes.  Not ported yet: a value that would turn one on
+        raises ``NotImplementedError`` naming its ROADMAP.md item.
     """
-    for name, value in (("watchtower", watchtower), ("autopilot", autopilot),
-                        ("remediator", remediator),
-                        ("data_service", data_service),
+    for name, value in (("data_service", data_service),
                         ("compile_cache_dir", compile_cache_dir)):
         if value:
             raise NotImplementedError(
                 "cluster.run({}=...) is not ported yet (ROADMAP.md, "
                 "{})".format(name, _UNPORTED[name]))
-    if observatory and watchtower is None:
-        logger.info("watchtower=None: off, as the watchtower is not ported "
-                    "yet (ROADMAP.md, %s)", _UNPORTED["watchtower"])
     if hasattr(cluster_backend, "parallelize"):  # raw SparkContext
         cluster_backend = backend_mod.SparkBackend(cluster_backend)
     num_executors = num_executors or cluster_backend.num_executors
@@ -765,6 +845,18 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
 
     obs = None
     profiling_coord = None
+    wt = None
+    pilot = None
+    rem = None
+    if autopilot and not observatory:
+        raise ValueError("autopilot= requires observatory=True: the "
+                         "controller reads the observatory's sample ring")
+    if remediator and not observatory:
+        raise ValueError("remediator= requires observatory=True: the action "
+                         "plane consumes the watchtower's admitted alerts")
+    if remediator and watchtower is False:
+        raise ValueError("remediator= requires the watchtower: its admitted "
+                         "alerts ARE the detect half of the detect→act loop")
     if observatory:
         from tensorflowonspark_torch import observatory as observatory_mod
         from tensorflowonspark_torch import profiling as profiling_mod
@@ -783,6 +875,103 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
                 os.path.join(log_dir or ".", "profiles")))
         server.profile_coordinator = profiling_coord
 
+        if autopilot:
+            from tensorflowonspark_torch import autopilot as autopilot_mod
+
+            # Actuation plane: knob pushes fan out through the
+            # heartbeat-reply channel — each node drains its unseen pushes
+            # exactly once per beat and applies the namespaced knobs its
+            # registered feeds claim (node.apply_knobs); unclaimed names
+            # are ignored, so one broadcast serves trainers, feeds and
+            # gateways alike.  A journal-armed server may already have
+            # rebuilt the coordinator during recovery — reuse it so the
+            # fleet's standing knob state survives the coordinator death.
+            if server.knob_coordinator is None:
+                server.knob_coordinator = reservation.KnobCoordinator()
+            ap_config = dict(autopilot) if isinstance(autopilot, dict) else {}
+            ap_knobs = {k: dict(v)
+                        for k, v in (ap_config.get("knobs") or {}).items()}
+            ap_knobs.setdefault("infeed_prefetch", {})
+            if "initial" not in ap_knobs["infeed_prefetch"]:
+                # seed the controller with the fleet's actual starting depth
+                # so the first retune doubles from reality, not a guess
+                try:
+                    ap_knobs["infeed_prefetch"]["initial"] = max(
+                        int(os.environ.get("TFOS_INFEED_PREFETCH", "2")), 1)
+                except ValueError:
+                    ap_knobs["infeed_prefetch"]["initial"] = 2
+            ap_config["knobs"] = ap_knobs
+            # push_knobs (not the bare KnobCoordinator.push) journals each
+            # retune when the server is journal-armed; resume_values
+            # re-seeds the controller from the recovered push history.
+            pilot = autopilot_mod.Autopilot(
+                ring, actuator=server.push_knobs,
+                snapshot_fn=server.metrics_snapshot,
+                config=ap_config,
+                journal_path=os.path.abspath(os.path.join(
+                    log_dir or ".", "autopilot", "journal.jsonl")),
+                resume_values=server.knob_coordinator.current())
+            pilot.start()
+            logger.info("autopilot engaged (dry_run=%s), journal at %s",
+                        pilot.config["dry_run"], pilot.journal_path)
+
+        if remediator:
+            from tensorflowonspark_torch import remediator as remediator_mod
+
+            def _evict_straggler(executor, alert):
+                # Fence + replace, in dependency order: the evict command
+                # is queued FIRST (the node drains it from its next beat
+                # reply and SIGTERMs itself — graceful feed drain, chief
+                # emergency checkpoint, BYE), then the driver releases the
+                # roster slot, excludes the executor backend-side, and
+                # dispatches a replacement into the freed slot.  The
+                # released node keeps beating until its drain completes
+                # (only *dead* executors are fenced from the beat
+                # channel), so the command always reaches it; its BYE
+                # later pops the beat entry, so no death is declared and
+                # no second replacement fires.
+                try:
+                    eid = int(executor)
+                except (TypeError, ValueError):
+                    eid = executor
+                meta = server.reservations.find(eid)
+                if meta is None:
+                    raise RuntimeError(
+                        "executor {} holds no reservation".format(executor))
+                token = "evict-{}-{}".format(eid, int(time.time() * 1000))
+                server.push_knobs({"remediator_evict": token},
+                                  executor_id=eid)
+                if hasattr(cluster_backend, "exclude"):
+                    cluster_backend.exclude(eid)
+                replaced = _request_replacement(meta)
+                return {"executor": eid, "token": token,
+                        "replaced": bool(replaced),
+                        "job_name": meta.get("job_name"),
+                        "task_index": meta.get("task_index")}
+
+            def _rollback_poison(executor, alert):
+                # Broadcast, not targeted: every trainer honours the
+                # rollback — the chief's restore quarantines the poisoned
+                # step(s); workers re-restore the same validated step.
+                token = "rollback-{}".format(int(time.time() * 1000))
+                server.push_knobs({"train_rollback": token})
+                ev = (alert or {}).get("evidence") or {}
+                return {"token": token,
+                        "train_steps_total": ev.get("train_steps_total")}
+
+            rem = remediator_mod.Remediator(
+                ring,
+                actions={"evict": _evict_straggler,
+                         "rollback": _rollback_poison},
+                snapshot_fn=server.metrics_snapshot,
+                config=(dict(remediator) if isinstance(remediator, dict)
+                        else None),
+                journal_path=os.path.abspath(os.path.join(
+                    log_dir or ".", "remediator", "journal.jsonl")))
+            rem.start()
+            logger.info("remediator engaged (dry_run=%s), journal at %s",
+                        rem.dry_run, rem.journal_path)
+
         def _profiler_addresses():
             # lazy: the observatory starts before the roster exists, and the
             # roster can change on replacement admission
@@ -790,17 +979,61 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
                     for m in server.reservations.get()
                     if isinstance(m, dict) and m.get("profiler_port")]
 
+        if watchtower is not False:
+            from tensorflowonspark_torch import watchtower as watchtower_mod
+
+            def _on_suspect(executor, alert):
+                # the elastic-recovery plane's consumption point: verdicts
+                # accumulate here next to dead_nodes/replacements
+                tf_status.setdefault("suspects", {})[str(executor)] = (
+                    alert.get("rule"))
+
+            # Admitted alerts fan out to every consumer plane: the
+            # autopilot treats them as retune hints, the remediator as
+            # triggers for topology actions.
+            _alert_sinks = [s for s in (
+                pilot.observe_alert if pilot is not None else None,
+                rem.observe_alert if rem is not None else None)
+                if s is not None]
+
+            def _fan_alert(alert):
+                for sink in _alert_sinks:
+                    try:
+                        sink(alert)
+                    except Exception:
+                        logger.warning("alert sink failed", exc_info=True)
+
+            wt = watchtower_mod.Watchtower(
+                ring=ring, snapshot_fn=server.metrics_snapshot,
+                heartbeat_interval=heartbeat_interval,
+                config=watchtower if isinstance(watchtower, dict) else None,
+                journal_path=os.path.abspath(os.path.join(
+                    log_dir or ".", "watchtower", "journal.jsonl")),
+                on_suspect=_on_suspect, beat_ages_fn=server.beat_ages,
+                coordinator_fn=server.ha_status,
+                on_alert=(_fan_alert if _alert_sinks else None))
+            wt.start()
+            # Flight records (SIGUSR1 / stall dumps) now carry the metric
+            # trajectory and alert log leading into the stall.
+            telemetry_mod.register_flight_source("sample_ring_tail",
+                                                 wt.ring_tail)
+            telemetry_mod.register_flight_source("alerts", wt.alerts)
+            if rem is not None:
+                telemetry_mod.register_flight_source("remediations",
+                                                     rem.actions)
+
         obs = observatory_mod.ObservatoryServer(
             server.metrics_snapshot, ring=ring,
             status_fn=lambda: tf_status, port=observatory_port,
             profile_fn=profiling_coord.trigger,
             profiler_addresses_fn=_profiler_addresses,
             capture_status_fn=profiling_coord.status,
+            watchtower=wt, autopilot=pilot, remediator=rem,
             coordinator_fn=server.ha_status,
             beat_ages_fn=server.beat_ages)
         addr = obs.start()
-        logger.info("observatory serving /metrics, /status, /profile and "
-                    "/slow at http://%s:%d", addr[0], addr[1])
+        logger.info("observatory serving /metrics, /status, /profile, "
+                    "/slow and /alerts at http://%s:%d", addr[0], addr[1])
 
     # Reservation-coordinator endpoint list for the nodes: the live
     # primary first, then any warm standbys at pre-agreed pinned ports
@@ -911,4 +1144,5 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
 
     return TPUCluster(cluster_backend, cluster_meta, cluster_info, input_mode,
                       server, start_job, tf_status, tuple(queues),
-                      observatory=obs, profiling=profiling_coord)
+                      observatory=obs, profiling=profiling_coord,
+                      watchtower=wt, autopilot=pilot, remediator=rem)

@@ -476,7 +476,7 @@ class TPUNodeContext(object):
         """The disaggregated data service's feed: not ported yet."""
         raise NotImplementedError(
             "get_service_feed: the data service is not ported yet "
-            "(ROADMAP.md, Queue 1, the module queue: the data service)")
+            "(ROADMAP.md, Queue 1, item E, the data service)")
 
     def absolute_path(self, path):
         """Normalize a user path against CWD/default_fs (reference ``TFNode.py:23-58``)."""
@@ -791,7 +791,7 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             if cluster_meta.get("compile_cache_dir"):
                 raise NotImplementedError(
                     "compile_cache_dir: the compile plane is not ported yet "
-                    "(ROADMAP.md, Queue 1, item 16)")
+                    "(ROADMAP.md, Queue 1, item H, the compile plane)")
             if isinstance(args, list):
                 sys.argv = args
             fn(args, context)

@@ -885,6 +885,25 @@ class ObservatoryServer(object):
 
         class _Handler(BaseHTTPRequestHandler):
             def do_GET(self):
+                try:
+                    answer = self._answer()
+                except Exception as e:
+                    # a body that failed to render is answered 500 with its
+                    # error: the connection is never dropped unanswered
+                    logger.exception("observatory: GET %s failed", self.path)
+                    answer = (500, json.dumps({"error": repr(e)}).encode(
+                        "utf-8"), "application/json")
+                if answer is None:
+                    self.send_error(404)
+                    return
+                code, body, ctype = answer
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _answer(self):
                 parts = self.path.split("?", 1)
                 path = parts[0]
                 query = parts[1] if len(parts) > 1 else ""
@@ -925,13 +944,8 @@ class ObservatoryServer(object):
                             b"/fleet /slow\n")
                     ctype = "text/plain; charset=utf-8"
                 else:
-                    self.send_error(404)
-                    return
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                    return None
+                return code, body, ctype
 
             def log_message(self, fmt, *args):  # quiet: no stderr per scrape
                 logger.debug("observatory: " + fmt, *args)

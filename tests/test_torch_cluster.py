@@ -268,19 +268,64 @@ def test_files_mode_node(tmp_path):
 
 
 @pytest.mark.parametrize("unported", [
-    {"observatory": True, "watchtower": True},
-    {"watchtower": {"interval_secs": 1}},
-    {"autopilot": True},
-    {"remediator": True}, {"data_service": "localhost:1"},
-    {"observatory": True, "remediator": True},
+    {"data_service": "localhost:1"},
     {"compile_cache_dir": "/nonexistent"},
 ])
 def test_unported_planes_raise(unported):
-    """The planes still to port raise, naming their item, even beside the
-    ported observatory (whose ``observatory`` and ``profiler`` options are
-    tested in tests/test_torch_profiler.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The planes still to port raise, naming their item (E, the data
+    service; H, the compile plane)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item [EH]"):
         cluster.run(object(), _raise_fun, None, num_executors=1, **unported)
+
+
+def _noop_fun(args, ctx):
+    pass
+
+
+def _planes(pkg, options, log_dir):
+    """``cluster.run`` of ``pkg`` (the port's or the JAX package's cluster
+    and backend modules) on one FILES-mode executor with ``options``:
+    which of the watchtower, autopilot and remediator engaged, or the
+    ``ValueError`` it raised."""
+    cluster_mod, backend_mod = pkg
+    b = backend_mod.LocalBackend(1)
+    try:
+        try:
+            c = cluster_mod.run(b, _noop_fun, None, num_executors=1,
+                                input_mode=cluster_mod.InputMode.FILES,
+                                log_dir=log_dir,
+                                **options)
+        except ValueError as e:
+            return "ValueError: {}".format(e)
+        engaged = {name: getattr(c, name) is not None
+                   for name in ("watchtower", "autopilot", "remediator")}
+        c.shutdown()
+        return engaged
+    finally:
+        b.stop()
+
+
+@pytest.mark.parametrize("options", [
+    {"observatory": True, "watchtower": True},
+    {"watchtower": {"interval_secs": 1}},
+    {"autopilot": True},
+    {"remediator": True},
+    {"observatory": True, "remediator": True},
+])
+def test_control_plane_options_match_jax(options, tmp_path):
+    """The alerting and control planes engage, or raise the same
+    ``ValueError``, exactly as the JAX package's ``cluster.run`` does for
+    the same options: the watchtower follows the observatory, and the
+    autopilot and the remediator need it."""
+    from tensorflowonspark_tpu import backend as jax_backend
+    from tensorflowonspark_tpu import cluster as jax_cluster
+
+    got = _planes((cluster, backend), options, str(tmp_path / "port"))
+    want = _planes((jax_cluster, jax_backend), options,
+                   str(tmp_path / "jax"))
+    assert got == want
+    assert got != {"watchtower": False, "autopilot": False,
+                   "remediator": False} or "observatory" not in options
 
 
 def _example(*argv, env=None):

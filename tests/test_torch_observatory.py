@@ -214,6 +214,63 @@ class TestScrapeDuringNodeDeath:
         assert "tfos_nodes 0" in text
 
 
+    def test_status_while_planes_write_tf_status(self):
+        """``/status`` renders the cluster's live ``tf_status`` (as
+        ``cluster.run`` hands it over) while the watchtower's suspect hook
+        and the roster write into it: every request is answered whole."""
+        tf_status = {}
+        srv = observatory.ObservatoryServer(
+            lambda: SNAPSHOT, host="127.0.0.1",
+            status_fn=lambda: tf_status)
+        host, port = srv.start()
+        stop = threading.Event()
+
+        def write():
+            n = 0
+            while not stop.is_set():
+                n += 1
+                tf_status.setdefault("suspects", {})[str(n)] = "straggler"
+                tf_status.setdefault("byes", {})[str(n)] = "preempted"
+                tf_status.setdefault("replacements", []).append({"n": n})
+                tf_status["key%d" % (n % 64)] = n
+                if n % 500 == 0:
+                    for key in ("suspects", "byes", "replacements"):
+                        tf_status.pop(key, None)
+
+        writer = threading.Thread(target=write, daemon=True)
+        writer.start()
+        try:
+            base = "http://%s:%d" % (host, port)
+            for _ in range(40):
+                status = json.loads(urllib.request.urlopen(
+                    base + "/status", timeout=5).read().decode())
+                assert isinstance(status["tf_status"], dict)
+        finally:
+            stop.set()
+            writer.join(timeout=2)
+            srv.stop()
+        assert not writer.is_alive()
+
+    def test_a_body_that_fails_to_render_answers_500(self):
+        """A status that cannot be encoded is answered 500 with the error,
+        and the server goes on answering."""
+        srv = observatory.ObservatoryServer(
+            lambda: SNAPSHOT, host="127.0.0.1",
+            status_fn=lambda: {("not", "a", "str"): 1})
+        host, port = srv.start()
+        try:
+            base = "http://%s:%d" % (host, port)
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(base + "/status", timeout=5)
+            assert err.value.code == 500
+            assert "TypeError" in json.loads(err.value.read())["error"]
+            text = urllib.request.urlopen(
+                base + "/metrics", timeout=5).read().decode()
+        finally:
+            srv.stop()
+        _parse_exposition(text)
+
+
 def test_planes_still_to_port_answer_503():
     """``/alerts``, ``/autopilot``, ``/remediations`` and ``/fleet`` answer
     as the JAX observatory does for a plane that is not attached, and

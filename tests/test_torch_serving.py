@@ -187,7 +187,8 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("examples", "resnet", "resnet_imagenet_torch.py"),
              os.path.join("examples", "transformer",
                           "transformer_lm_torch.py"),
-             os.path.join("scripts", "analyze_profile_torch.py"))
+             os.path.join("scripts", "analyze_profile_torch.py"),
+             os.path.join("scripts", "metrics_replay_torch.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -208,7 +209,7 @@ missing = sorted(set(pkg.__name__ + "." + m for m in (
     "models.resnet", "ops.augment", "data", "parallel.mesh",
     "parallel.fsdp", "parallel.ring", "parallel.tp", "parallel.ep",
     "parallel.pp", "parallel.comm", "observatory", "profiling",
-    "profiler"))
+    "profiler", "watchtower", "guardrails", "autopilot", "remediator"))
     - set(names))
 from tensorflowonspark_torch.parallel import ep, fsdp, mesh, pp, ring, tp
 missing += [n for n in ("tp_param_shardings", "shard_params")
@@ -252,6 +253,17 @@ missing += [n for n in ("StepProfiler", "start_server", "server_counters",
                         "parse_profile_steps") if not hasattr(profiler, n)]
 missing += [n for n in ("evaluate", "apply_knob")
             if not hasattr(train.Trainer, n)]
+from tensorflowonspark_torch import autopilot, guardrails, remediator
+from tensorflowonspark_torch import watchtower
+missing += [n for n in ("RuleEngine", "Watchtower", "AlertDeduper",
+                        "replay_journal", "read_journal")
+            if not hasattr(watchtower, n)]
+missing += [n for n in ("Guardrails", "JsonlJournal", "STAGES")
+            if not hasattr(guardrails, n)]
+missing += [n for n in ("Autopilot", "replay_journal")
+            if not hasattr(autopilot, n)]
+missing += [n for n in ("Remediator", "replay_journal")
+            if not hasattr(remediator, n)]
 missing += [n for n in ("restore_latest_valid", "_quarantine")
             if not hasattr(checkpoint.CheckpointManager, n)]
 print(len(names), bad, missing)
@@ -264,9 +276,11 @@ def test_port_imports_no_jax():
     cluster layer, the serving tier, the ResNets, ``ops.augment``,
     ``data`` and the mesh, FSDP, ring, tensor-, expert- and
     pipeline-parallel modules among them),
-    chip_smoke.py, the port's MNIST, ResNet and LM examples and
-    scripts/analyze_profile_torch.py has no jax,
-    flax, optax, orbax or JAX-package module."""
+    chip_smoke.py, the port's MNIST, ResNet and LM examples,
+    scripts/analyze_profile_torch.py and scripts/metrics_replay_torch.py
+    has no jax, flax, optax, orbax or JAX-package module; the alerting and
+    control planes (watchtower, guardrails, autopilot, remediator) are
+    among the port modules."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -276,8 +290,9 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax():
     """No line of the port, of chip_smoke.py, of the port's MNIST, ResNet
-    and LM examples or of scripts/analyze_profile_torch.py imports a
-    forbidden package, not even inside a function."""
+    and LM examples or of scripts/analyze_profile_torch.py and
+    scripts/metrics_replay_torch.py imports a forbidden package, not even
+    inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
@@ -288,6 +303,12 @@ def test_port_sources_name_no_jax():
     for name in ("tp", "ep", "pp", "comm"):
         assert os.path.join(REPO, "tensorflowonspark_torch", "parallel",
                             name + ".py") in paths, name
+    for name in ("watchtower", "guardrails", "autopilot", "remediator",
+                 "cluster"):
+        assert os.path.join(REPO, "tensorflowonspark_torch",
+                            name + ".py") in paths, name
+    assert os.path.join(REPO, "scripts",
+                        "metrics_replay_torch.py") in paths
     offenders = []
     for path in paths:
         with open(path) as f:
