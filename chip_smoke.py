@@ -71,7 +71,7 @@ weights from a seed) along both paths:
 - gateway: the serving tier in this process.  A ``ModelServer(batch_size=8)``
   behind a ``gateway.GatewayServer(max_wait_ms=5)`` (rungs 1, 2, 4 and 8
   warmed) answers 3 concurrent ``GatewayChannel`` clients, each sending
-  three requests of one row; once half of them have replies, the
+  two requests of one row; once half of them have replies, the
   ``serving_load_version`` knob swaps the weights in place to a second
   export (another seed), then a swap to an export of another depth is
   refused.  Every reply matches a lone ``predict_feed`` of its rows on
@@ -88,7 +88,7 @@ weights from a seed) along both paths:
 - pipeline: ``pipeline.TFEstimator.fit`` trains the LM in SPARK mode on a
   one-executor ``LocalBackend`` (40 rows, 5 steps; the three kernels'
   launches counted and profiled in the node's child) and the chief
-  exports; ``TFModel.transform`` then serves 4 rows on that executor's
+  exports; ``TFModel.transform`` then serves 2 rows on that executor's
   card, in row order and equal to this process's ``ModelServer`` on the
   export; a ``fit`` after it on the same executor, which has initialized
   CUDA, is refused with the reason;
@@ -201,6 +201,27 @@ weights from a seed) along both paths:
   heartbeat gauge shows the pushed K and the losses across the switch
   equal a K = 1 run's on this card within 1e-3 nats.  Each leg's seconds
   from its fault to the alert, to the action and to recovery are printed.
+- fleet: the supervised phase's crash run publishes its final params
+  (``fit_supervised(publish=)``) into a registry; here a fresh
+  ``fleet.ModelRegistry`` holds version 1 (random weights from a seed,
+  live), two replicas ``python -m tensorflowonspark_torch.inference_cli
+  --serve --registry R --model transformer_lm --roster ...`` resolve it
+  and join the roster, a ``FleetRouter`` maps them, a
+  ``CanaryController`` and the observatory's ``/fleet`` run beside, and
+  two ``FleetClient``s send one-row requests.  A poisoned version 2 (the
+  final LayerNorm's scale 3e38: finite params, nonfinite logits) is
+  proposed on one replica, swapped in place, rolled back on its
+  ``serving_nonfinite`` delta and retired; the trained version, published
+  as staging, goes proposed -> swapped -> canary -> kept and then serves
+  on both replicas.  Every answer matches an in-process ``ModelServer``
+  on one version's export (the poisoned one's nonfinite, and none sent
+  after its rollback), each replica answers from the trained version
+  after the promote, no compile after warmup, ``/fleet`` shows the
+  default move, the journal replays to the same decisions, and each
+  replica's forward launches equal layers x (its warm rung + its
+  ``serving_batches``).  Printed: seconds from each publish to swapped,
+  canary and kept or rolled back, each replica's ready seconds, latency
+  p50/p99 by version, requests a replica.
 
 A line before the kernels line gives the script's wall time and each
 phase's seconds.
@@ -216,6 +237,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -352,6 +374,8 @@ FLASH_CASES = [
     ((2, 256, 4, 32), "float32", False, False),   # head_dim 32: padded to 64
     ((1, 96, 2, 64), "bfloat16", True, False),    # ragged last tile
     ((2, 256, 4, 64), "bfloat16", False, False),
+    # the fleet replicas' one-row requests (FLEET_BATCH rows)
+    ((1, SEQ, 16, 64), "bfloat16", True, True),
 ]
 # the backward kernels: the training shape first
 BWD_CASES = [
@@ -1493,14 +1517,16 @@ def launches_of(fa):
             "flash_bwd_dkv": fa.bwd_dkv_launches}
 
 
-def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
+def phase_supervised(torch, np, fa, k1, k5, uninterrupted, publish_root):
     """Supervised training at full width and depth (the train phases'
     config, init, stream and optimizer): ``fit_supervised`` at K = 5
     through a crash, a corrupt newest checkpoint and a poison rollback;
     ``accum_steps=2`` and ``remat=True`` at K = 1 and K = 5; and
     ``Trainer.evaluate`` of the trained params.  ``k1`` and ``k5`` are the
     train phases' rows, ``uninterrupted`` the params of the K = 5 run's 30
-    steps (on the host)."""
+    steps (on the host).  The crash run publishes its final params
+    (``fit_supervised(publish=)``) into a registry at ``publish_root``,
+    for the fleet phase."""
     import functools
     import gc
     import shutil
@@ -1535,10 +1561,11 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
                    .item() for k, t in uninterrupted.items())
 
     def supervised(trainer, directory, max_steps=TRAIN_STEPS, counted=True,
-                   **feed_kwargs):
+                   publish=None, **feed_kwargs):
         """fit_supervised at K = 5 from fresh SupervisedFeeds, under the
         profiler when ``counted`` (the run whose launches are held to the
-        kernels the card executed); returns what it measured."""
+        kernels the card executed), publishing to the fleet with
+        ``publish``; returns what it measured."""
         ckpt = checkpoint.CheckpointManager(
             directory, save_interval_steps=SUPERVISED_SAVE_STEPS,
             max_to_keep=2, async_save=True)
@@ -1559,7 +1586,8 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
             return train.fit_supervised(trainer, factory, ckpt,
                                         retry_policy=policy,
                                         max_steps=max_steps,
-                                        steps_per_call=MEGA_K)
+                                        steps_per_call=MEGA_K,
+                                        publish=publish)
 
         stats, executed = (counted_on_device(torch, run) if counted
                            else (run(), None))
@@ -1572,6 +1600,9 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
                "rollbacks": snap.get("train_rollbacks_total", 0),
                "checkpoints": sorted(os.listdir(ckpt.directory)),
                "launches": launches, "device_launches": executed}
+        if publish is not None:
+            out["published"] = stats.get("published")
+            out["publish_error"] = stats.get("publish_error")
         ckpt.close()
         return out
 
@@ -1665,7 +1696,8 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
     try:
         # (a) crash -> resume
         trainer = new_trainer()
-        a = supervised(trainer, os.path.join(tmp, "a"), crash_at=CRASH_STEP)
+        a = supervised(trainer, os.path.join(tmp, "a"), crash_at=CRASH_STEP,
+                       publish=fleet_publish_spec(publish_root))
         a["param_max_diff_vs_uninterrupted"] = param_diff(trainer)
         row["crash_resume"] = a
         final = {k: v.detach().cpu() for k, v in
@@ -1848,6 +1880,12 @@ def phase_supervised(torch, np, fa, k1, k5, uninterrupted):
             raise AssertionError(
                 "{}: the params differ from the uninterrupted run's by "
                 "{}".format(name, diff))
+    entry = row["crash_resume"]["published"]
+    if not (entry and entry["version"] == "step-%d" % TRAIN_STEPS
+            and entry["status"] == "staging"):
+        raise AssertionError("fit_supervised(publish=) published {} ({})"
+                             .format(entry,
+                                     row["crash_resume"]["publish_error"]))
     if "20.corrupt" not in row["corrupt_quarantine"]["checkpoints"]:
         raise AssertionError("the garbled step 20 was not quarantined: "
                              "{}".format(row["corrupt_quarantine"]))
@@ -2220,14 +2258,15 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None,
 # ---------------------------------------------------------------------------
 
 # the gateway: a ModelServer(batch_size=8) warmed over rungs 1, 2, 4, 8;
-# 3 concurrent clients, each sending three one-row requests in turn (each
+# 3 concurrent clients, each sending two one-row requests in turn (each
 # row's reply is 131 MB of fp32 logits that the gateway compresses,
-# seconds a row); the serving_load_version push once half of the 9
-# requests have their replies, so the third round goes out after it
+# seconds a row); the serving_load_version push once half of the 6
+# requests have their replies, so the last client's second request goes
+# out after it
 GATEWAY_BATCH = 8
 GATEWAY_WAIT_MS = 5.0
 GATEWAY_CLIENTS = 3
-GATEWAY_REQUESTS = (1, 1, 1)
+GATEWAY_REQUESTS = (1, 1)
 SWAP_AFTER = GATEWAY_CLIENTS * len(GATEWAY_REQUESTS) // 2
 GATEWAY_TIMEOUT_SECS = 600
 # the --serve replica: ladder 1, 2, 4; seconds to its ready line (torch,
@@ -2242,10 +2281,11 @@ MNIST_ROWS = 256
 MNIST_BATCH = 64
 MNIST_TOL = 1e-5
 # the pipeline: TFEstimator.fit on 40 rows of 1024 tokens, batch 8 (5
-# steps), then TFModel.transform of 4 rows on the executor's card
+# steps), then TFModel.transform of 2 rows on the executor's card (each
+# row's logits come back as Python values: seconds a row)
 PIPELINE_ROWS = 40
 PIPELINE_STEPS = PIPELINE_ROWS // TRAIN_BATCH
-TRANSFORM_ROWS = 4
+TRANSFORM_ROWS = 2
 PIPELINE_REPORT_SECS = 300
 
 # runs ``python -m tensorflowonspark_torch.inference_cli`` (the same
@@ -2260,6 +2300,11 @@ print(json.dumps({"fwd_launches": fa.fwd_launches}), flush=True)
 """
 
 
+def lm_signature(config):
+    return {"tokens": {"shape": [None, config["max_seq_len"]],
+                       "dtype": "int32"}}
+
+
 def export_lm(torch, path, seed, config=LM_CONFIG):
     """Export the LM at ``config`` with random weights from ``seed``."""
     from tensorflowonspark_torch import checkpoint
@@ -2267,10 +2312,9 @@ def export_lm(torch, path, seed, config=LM_CONFIG):
 
     model = get_model("transformer_lm", **config)
     model.init_weights(torch.Generator().manual_seed(seed))
-    checkpoint.export_model(
-        path, model, "transformer_lm", model_config=config,
-        input_signature={"tokens": {"shape": [None, config["max_seq_len"]],
-                                    "dtype": "int32"}})
+    checkpoint.export_model(path, model, "transformer_lm",
+                            model_config=config,
+                            input_signature=lm_signature(config))
     return path
 
 
@@ -2730,7 +2774,7 @@ def _executor_launches(zero):
 
 def phase_pipeline(torch, np, config=LM_CONFIG, device=None):
     """``TFEstimator.fit`` trains the LM in SPARK mode on a one-executor
-    LocalBackend, then ``TFModel.transform`` serves 4 rows on that
+    LocalBackend, then ``TFModel.transform`` serves 2 rows on that
     executor's card; a ``fit`` after it on the same executor is refused
     (on the card: on the CPU nothing initializes CUDA)."""
     from tensorflowonspark_torch import backend, pipeline, serving
@@ -5998,6 +6042,469 @@ def phase_control(torch, np, clustered, config=LM_CONFIG, device=None):
     return legs
 
 
+# -- fleet: registry, router, canary controller, replicas ---------------------
+
+# the fleet's model: its registry name is the export's descriptor name,
+# which each replica registers on the roster
+FLEET_MODEL = "transformer_lm"
+NONFINITE = "nonfinite"     # an answer's label until its window is checked
+FLEET_BATCH = 1            # one-row requests: each replica warms rung 1 only
+FLEET_CLIENTS = 2
+FLEET_ROWS = 2             # distinct request rows, each referenced by version
+FLEET_HEARTBEAT_SECS = 0.5
+FLEET_HEARTBEAT_MISSES = 60
+FLEET_READY_SECS = 300
+FLEET_LEG_SECS = 240
+FLEET_POLL_SECS = 0.1      # the walk's poll of the roster's metrics
+# the poisoned version: the final LayerNorm's scale set to this finite
+# value, so that every normalized activation above 1.13 overflows and the
+# logits go nonfinite while the params pass the finiteness validation
+FLEET_POISON_SCALE = 3.0e38
+# the canary, sized for one-row requests of about 5 s each (the gateway's
+# zlib of a row's fp32 logits): a window counts with one completed canary
+# request, two clean windows keep a version, a nonfinite delta reverts it
+# at once; all traffic goes to the canary while it is judged, so that the
+# walk needs two canary rows (at half the traffic a draw that left the
+# canary idle for a minute came up on the card)
+FLEET_CANARY = {"interval_secs": 0.5, "canary_weight": 1.0,
+                "min_requests": 1, "clean_windows": 2, "confirm_windows": 1,
+                "cooldown_secs": 1.0, "revert_cooldown_secs": 1.0,
+                "swap_timeout_secs": 120.0}
+
+
+def fleet_publish_spec(root, config=LM_CONFIG):
+    """``fit_supervised(publish=...)``'s spec: the trained LM, published
+    into the registry at ``root`` as ``transformer_lm@step-<N>``,
+    staging."""
+    return {"registry": root, "model": FLEET_MODEL,
+            "model_config": config, "input_signature": lm_signature(config)}
+
+
+def percentiles(xs):
+    """``{"n", "p50", "p99"}`` of ``xs`` (nearest rank)."""
+    xs = sorted(xs)
+    if not xs:
+        return {"n": 0, "p50": None, "p99": None}
+    return {"n": len(xs), "p50": xs[(len(xs) - 1) // 2],
+            "p99": xs[min(len(xs) - 1, int(math.ceil(0.99 * len(xs))) - 1)]}
+
+
+def read_ready_lines(procs, seconds, t0):
+    """Each process's ready line within ``seconds``, and its seconds from
+    ``t0``, read as they come."""
+    import select
+
+    lines, ready_s = {}, {}
+    deadline = time.monotonic() + seconds
+    while len(lines) < len(procs):
+        pending = {p.stdout: name for name, p in procs.items()
+                   if name not in lines}
+        left = deadline - time.monotonic()
+        ready, _, _ = select.select(list(pending), [], [], max(left, 0))
+        if not ready:
+            raise AssertionError("no ready line from {} in {} s".format(
+                sorted(pending.values()), seconds))
+        for stream in ready:
+            name = pending[stream]
+            lines[name] = stream.readline()
+            ready_s[name] = time.perf_counter() - t0
+            if "ready on" not in lines[name]:
+                raise AssertionError("{}: no ready line: {!r}".format(
+                    name, lines[name]))
+    return lines, ready_s
+
+
+def phase_fleet(torch, np, published, config=LM_CONFIG, device=None):
+    """The model fleet on the card: two ``inference_cli --serve --registry
+    --model transformer_lm`` replicas behind the roster, a
+    ``FleetRouter``, a live ``CanaryController`` and the observatory's
+    ``/fleet``, while
+    ``FleetClient``s send one-row requests.  A poisoned version ``2`` is rolled
+    back and retired; ``published`` (the supervised phase's
+    ``fit_supervised(publish=)`` entry) is published here as staging and
+    walked to live on both replicas.  ``device="cpu"`` rehearses it on the
+    CPU (no kernel launches there)."""
+    import shutil
+    import signal
+    import threading
+
+    from tensorflowonspark_torch import (checkpoint, fleet, gateway,
+                                         observatory, reservation, serving)
+
+    t_start = time.perf_counter()
+    layers, vocab = config["num_layers"], config["vocab_size"]
+    seq = config["max_seq_len"]
+    trained = published["version"]
+    on = [] if device is None else ["--device", device]
+    rows = np.random.default_rng(9).integers(0, vocab, (FLEET_ROWS, 1, seq),
+                                             dtype=np.int32)
+    if device is None:
+        torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    tmp = tempfile.mkdtemp()
+    procs, threads, logs = {}, [], []
+    stop_clients = threading.Event()
+    registry = resv = obs = ctl = None
+    try:
+        registry = fleet.ModelRegistry(os.path.join(tmp, "registry"),
+                                       publisher="chip-smoke")
+        v1 = export_lm(torch, os.path.join(tmp, "v1"), 7, config)
+        state, desc = checkpoint.load_model(v1)
+        state["ln_f.weight"] = torch.full_like(state["ln_f.weight"],
+                                               FLEET_POISON_SCALE)
+        v2 = os.path.join(tmp, "v2")
+        checkpoint.export_model(v2, state, desc["model_name"],
+                                model_config=desc["model_config"],
+                                input_signature=desc["input_signature"])
+        del state
+        registry.publish(FLEET_MODEL, "1", v1, model_config=config,
+                         status="live")
+
+        # in-process references: a ModelServer on each served export
+        refs = {}
+        for version, path in (("1", v1), (trained, published["export_dir"])):
+            server = serving.ModelServer(path, batch_size=FLEET_BATCH,
+                                         device=device)
+            refs[version] = [server.predict_feed({"tokens": r}, 1)["output"]
+                             for r in rows]
+            del server
+        if device is None:
+            torch.cuda.empty_cache()
+        scale = max(float(np.abs(r).max()) for rs in refs.values()
+                    for r in rs)
+        tol = LOGIT_TOL * scale
+
+        def classify(i, got):
+            """The version whose reference ``got`` matches, "nonfinite"
+            for nonfinite logits (held to the poisoned version's window
+            once the walk is over), None for no version."""
+            if not np.isfinite(got).all():
+                return NONFINITE
+            for version, outs in refs.items():
+                if float(np.abs(got - outs[i]).max()) <= tol:
+                    return version
+            return None
+
+        resv = reservation.Server(2, heartbeat_interval=FLEET_HEARTBEAT_SECS,
+                                  heartbeat_misses=FLEET_HEARTBEAT_MISSES)
+        roster = resv.start()
+        router = fleet.FleetRouter(registry=registry)
+        journal_path = os.path.join(tmp, "canary.jsonl")
+        ctl = fleet.CanaryController(
+            registry, router, metrics_fn=resv.metrics_snapshot,
+            push_knobs=resv.push_knobs, journal_path=journal_path,
+            config=FLEET_CANARY)
+        obs = observatory.ObservatoryServer(
+            resv.metrics_snapshot, host="127.0.0.1",
+            fleet={"registry": registry, "router": router, "canary": ctl})
+        obs.start()
+        base = "http://127.0.0.1:%d" % obs.addr[1]
+
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        for i in range(2):
+            rid = "lm-%d" % i
+            logs.append(open(os.path.join(tmp, rid + ".log"), "w"))
+            procs[rid] = subprocess.Popen(
+                [sys.executable, "-c", CLI_WRAPPER, "--serve",
+                 "--registry", registry.root, "--model", FLEET_MODEL,
+                 "--roster", "%s:%d" % tuple(roster[:2]),
+                 "--replica-id", rid, "--task-index", str(i),
+                 "--max-batch", str(FLEET_BATCH),
+                 "--heartbeat", str(FLEET_HEARTBEAT_SECS), "--port", "0"]
+                + on, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=logs[-1], text=True)
+        ready_lines, ready_s = read_ready_lines(procs, FLEET_READY_SECS, t0)
+        rc = reservation.Client(roster)
+        try:
+            info = rc.await_reservations(timeout=FLEET_READY_SECS)
+        finally:
+            rc.close()
+        router.sync_roster(info)
+        rids = sorted(router.replicas(FLEET_MODEL))
+        if rids != sorted(procs):
+            raise AssertionError("the router mapped {} to lm: {}".format(
+                rids, router.status()))
+
+        def metrics():
+            return resv.metrics_snapshot()["nodes"]
+
+        nodes0 = wait_until("the replicas' first metric beats", lambda: (
+            lambda n: n if all("serving_compiles" in n.get(r, {})
+                               for r in rids) else None)(metrics()),
+            FLEET_READY_SECS, FLEET_POLL_SECS)
+        compiles0 = {r: nodes0[r]["serving_compiles"] for r in rids}
+        fleet_before = json.loads(http_get(base + "/fleet")[0])
+
+        results, errors, lock = [], [], threading.Lock()
+
+        def drive(ci):
+            client = fleet.FleetClient(router, timeout=FLEET_LEG_SECS,
+                                       client_id="chip-c%d" % ci)
+            n = 0
+            try:
+                while not stop_clients.is_set():
+                    i = (ci + n) % FLEET_ROWS
+                    n += 1
+                    sent = time.time()
+                    got = client.predict(FLEET_MODEL, {"tokens": rows[i]}, 1)[
+                        "output"]
+                    done = time.time()
+                    version = classify(i, got)
+                    with lock:
+                        results.append({"row": i, "version": version,
+                                        "sent": sent, "done": done,
+                                        "latency_s": done - sent})
+            except Exception as e:
+                with lock:
+                    errors.append("client {}: {!r}".format(ci, e))
+            finally:
+                client.close()
+
+        threads = [threading.Thread(target=drive, args=(ci,), daemon=True)
+                   for ci in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        ctl.start()
+
+        current = {r: str(nodes0[r].get("serving_model_version"))
+                   for r in rids}
+        flips = []   # (time, replica, version) as the metrics showed them
+
+        def walk_until(what, pred):
+            deadline = time.monotonic() + FLEET_LEG_SECS
+            while not pred():
+                if errors:
+                    raise AssertionError("{} during {}".format(errors, what))
+                if time.monotonic() > deadline:
+                    raise AssertionError("waited {} s for {}: {}".format(
+                        FLEET_LEG_SECS, what, json.dumps(ctl.status())))
+                time.sleep(FLEET_POLL_SECS)
+                now, nodes = time.time(), metrics()
+                for r in rids:
+                    v = str(nodes.get(r, {}).get("serving_model_version"))
+                    if v != current[r]:
+                        current[r] = v
+                        flips.append((now, r, v))
+            return time.time()
+
+        # the rollback leg: a poisoned version 2
+        t_poison = time.time()
+        registry.publish(FLEET_MODEL, "2", v2, model_config=config,
+                         status="staging")
+        walk_until("the poisoned version's rollback",
+                   lambda: ("reverted", FLEET_MODEL, "2") in ctl.decisions)
+        t_back = walk_until("the canary replica back on version 1",
+                            lambda: all(v == "1" for v in current.values()))
+        # the promotion leg: the trained version, published by
+        # fit_supervised(publish=), published here as staging
+        t_publish = time.time()
+        registry.publish(FLEET_MODEL, trained, published["export_dir"],
+                         model_config=config, status="staging")
+        walk_until("the trained version kept",
+                   lambda: ("kept", FLEET_MODEL, trained) in ctl.decisions)
+        t_live = walk_until("both replicas on the trained version",
+                            lambda: all(v == trained
+                                        for v in current.values()))
+        fleet_after = json.loads(http_get(base + "/fleet")[0])
+        stop_clients.set()
+        for t in threads:
+            t.join(FLEET_LEG_SECS)
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError("clients: {}".format(errors or "hung"))
+        ctl.stop()
+
+        # each replica answers on its own, from the trained version
+        direct = {}
+
+        def ask(i, rid):
+            ch = gateway.GatewayChannel(router.replicas()[rid]["addr"],
+                                        timeout=FLEET_LEG_SECS)
+            try:
+                got = ch.predict({"tokens": rows[i]}, 1)["output"]
+            finally:
+                ch.close()
+            direct[rid] = {"row": i, "version": classify(i, got),
+                           "max_abs_diff": float(np.abs(
+                               got - refs[trained][i]).max())}
+
+        askers = [threading.Thread(target=ask, args=(i, rid))
+                  for i, rid in enumerate(rids)]
+        for t in askers:
+            t.start()
+        for t in askers:
+            t.join(FLEET_LEG_SECS)
+        served = len(results) + len(direct)
+        nodes = wait_until("the replicas' last beats", lambda: (
+            lambda n: n if sum(n[r].get("serving_requests", 0)
+                               for r in rids) >= served else None)(metrics()),
+            FLEET_LEG_SECS, FLEET_POLL_SECS)
+        launches, exit_codes = {}, {}
+        for rid, proc in procs.items():
+            proc.send_signal(signal.SIGTERM)
+        for rid, proc in procs.items():
+            exit_codes[rid] = proc.wait(CLI_EXIT_SECS)
+            tail = proc.stdout.read().strip().splitlines()
+            launches[rid] = json.loads(tail[-1])["fwd_launches"]
+        statuses = {v: registry.resolve(FLEET_MODEL, v)["status"]
+                    for v in ("1", "2", trained)}
+        replay = fleet.replay_journal(journal_path)
+        with open(journal_path) as f:
+            stages = [r for r in map(json.loads, f)
+                      if r.get("kind") == "stage"]
+    finally:
+        stop_clients.set()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+        if ctl is not None:
+            ctl.stop()
+        if obs is not None:
+            obs.stop()
+        if resv is not None:
+            resv.stop()
+        if registry is not None:
+            registry.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def stage_time(stage, version):
+        return next((r["time"] for r in stages if r["stage"] == stage
+                     and r["version"] == version), None)
+
+    def since(t0, t):
+        return None if t is None else t - t0
+
+    def first_flip(version, after):
+        return next((t for t, _, v in flips if v == version and t >= after),
+                    None)
+
+    canary_replica = next(r["replica"] for r in stages
+                          if r["stage"] == "proposed"
+                          and r["version"] == trained)
+    # a nonfinite answer is version 2's only if it was answered after the
+    # controller proposed version 2 and asked for before the canary replica
+    # was seen back on version 1; any other stays NONFINITE and fails below
+    poison_replica = next((r["replica"] for r in stages
+                           if r["stage"] == "proposed"
+                           and r["version"] == "2"), None)
+    t_proposed = stage_time("proposed", "2")
+    for r in results:
+        if (r["version"] == NONFINITE and t_proposed is not None
+                and r["done"] >= t_proposed and r["sent"] < t_back):
+            r["version"] = "2"
+    rungs = len(serving.bucket_ladder(FLEET_BATCH))
+    batches = {r: nodes[r]["serving_batches"] for r in rids}
+    expected = {r: (layers * (rungs + batches[r]) if device is None else 0)
+                for r in rids}
+    by_version = {}
+    for r in results:
+        by_version.setdefault(str(r["version"]), []).append(r["latency_s"])
+    row = {"phase": "fleet", "config": config, "max_batch": FLEET_BATCH,
+           "clients": FLEET_CLIENTS, "canary": FLEET_CANARY,
+           "poison_ln_f_scale": FLEET_POISON_SCALE,
+           "trained_version": trained,
+           "replica_ready_s": ready_s,
+           "ready_lines": {r: line.strip() for r, line in ready_lines.items()},
+           "poisoned": {
+               "canary_replica": poison_replica,
+               "s_publish_to_swapped": since(t_poison, first_flip(
+                   "2", t_poison)),
+               "s_publish_to_proposed": since(t_poison, stage_time(
+                   "proposed", "2")),
+               "s_publish_to_canary": since(t_poison, stage_time(
+                   "applied", "2")),
+               "s_publish_to_rolled_back": since(t_poison, stage_time(
+                   "reverted", "2")),
+               "s_publish_to_replica_back_on_1": t_back - t_poison},
+           "registry_statuses": statuses,
+           "trained": {
+               "canary_replica": canary_replica,
+               "s_publish_to_swapped": since(t_publish, first_flip(
+                   trained, t_publish)),
+               "s_publish_to_canary": since(t_publish, stage_time(
+                   "applied", trained)),
+               "s_publish_to_kept": since(t_publish, stage_time(
+                   "kept", trained)),
+               "s_publish_to_live_on_both": t_live - t_publish},
+           "flips_s_after_poison_publish": [(t - t_poison, r, v)
+                                            for t, r, v in flips],
+           "requests": len(results),
+           "answers_by_version": {v: len(xs) for v, xs in by_version.items()},
+           "latency_s_by_version": {v: percentiles(xs)
+                                    for v, xs in by_version.items()},
+           "requests_served_by_replica": {
+               r: nodes[r].get("serving_requests") for r in rids},
+           "router_picks": dict(router.picks),
+           "serving_batches": batches,
+           "serving_nonfinite": {r: nodes[r].get("serving_nonfinite")
+                                 for r in rids},
+           "serving_swaps": {r: nodes[r].get("serving_swaps") for r in rids},
+           "serving_compiles": {r: (compiles0[r],
+                                    nodes[r].get("serving_compiles"))
+                                for r in rids},
+           "direct_after_promote": direct, "tol": tol,
+           "fwd_launches": launches, "expected_launches": expected,
+           "exit_codes": exit_codes,
+           "fleet_default": (fleet_before["registry"][FLEET_MODEL]["default"],
+                             fleet_after["registry"][FLEET_MODEL]["default"]),
+           "decisions": [list(d) for d in replay["journaled"]],
+           "replay_matches": replay["matches"],
+           "phase_s": time.perf_counter() - t_start}
+    emit(row)
+
+    if replay["journaled"] != [("reverted", FLEET_MODEL, "2"),
+                               ("kept", FLEET_MODEL, trained)] \
+            or not replay["matches"]:
+        raise AssertionError("canary decisions {} (replayed {})".format(
+            replay["journaled"], replay["decisions"]))
+    unmatched = [r for r in results if r["version"] is None]
+    if unmatched:
+        raise AssertionError("{} answers match no version's reference "
+                             "within {}: {}".format(len(unmatched), tol,
+                                                    unmatched[:3]))
+    stray = [r for r in results if r["version"] == NONFINITE]
+    if stray:
+        raise AssertionError("{} nonfinite answers outside version 2's "
+                             "canary window: {}".format(len(stray),
+                                                        stray[:3]))
+    # only the replica that held version 2 may have served nonfinite rows
+    if not row["serving_nonfinite"].get(poison_replica) or any(
+            n for r, n in row["serving_nonfinite"].items()
+            if r != poison_replica):
+        raise AssertionError("nonfinite rows by replica {} (version 2 on "
+                             "{})".format(row["serving_nonfinite"],
+                                          poison_replica))
+    late_poison = [r for r in results if r["version"] == "2"
+                   and r["sent"] >= t_back]
+    if late_poison:
+        raise AssertionError("version 2 answered after its rollback: "
+                             "{}".format(late_poison[:3]))
+    stale = [r for r in results if r["sent"] >= t_live
+             and r["version"] != trained]
+    if stale or not all(d["version"] == trained
+                        and d["max_abs_diff"] <= tol
+                        for d in direct.values()) or len(direct) != 2:
+        raise AssertionError("after the promote: {} {}".format(stale[:3],
+                                                               direct))
+    if row["fleet_default"] != ("1", trained) or statuses != {
+            "1": "retired", "2": "retired", trained: "live"}:
+        raise AssertionError("/fleet showed the default {}; statuses "
+                             "{}".format(row["fleet_default"], statuses))
+    if any(c[0] != c[1] for c in row["serving_compiles"].values()):
+        raise AssertionError("a replica compiled through the swaps: "
+                             "{}".format(row["serving_compiles"]))
+    if launches != expected:
+        raise AssertionError("replica flash_fwd launches {}, expected "
+                             "layers x (warm rungs + serving_batches) "
+                             "{}".format(launches, expected))
+    if any(c != 0 for c in exit_codes.values()):
+        raise AssertionError("replica exit codes {}".format(exit_codes))
+    return row
+
+
 def main():
     import torch
 
@@ -6049,8 +6556,9 @@ def main():
                     {n: r["kernel_ms"] for n, r in at_train.items()})
     mega, mega_params = timed("train_megastep", phase_train_megastep, torch,
                               np, fa, metrics, trained)
+    fleet_root = tempfile.mkdtemp(prefix="chip-fleet-")
     supervised = timed("supervised", phase_supervised, torch, np, fa,
-                       trained, mega, mega_params)
+                       trained, mega, mega_params, fleet_root)
     del mega_params
     clustered = timed("cluster", phase_cluster, torch, np, trained)
     mega_cluster = timed("cluster_k5", phase_cluster, torch, np, trained,
@@ -6075,6 +6583,11 @@ def main():
                                     torch, np, fa, metrics, clustered,
                                     mega_cluster)
     control = timed("control", phase_control, torch, np, clustered)
+    try:
+        fleet_row = timed("fleet", phase_fleet, torch, np,
+                          supervised["crash_resume"]["published"])
+    finally:
+        shutil.rmtree(fleet_root, ignore_errors=True)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
           "phase_seconds": phase_seconds, "http_retries": HTTP_RETRIES})
 
@@ -6099,13 +6612,14 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the flash LM trained in the control
-            # phase's SPARK-mode cluster nodes under the watchtower, the
-            # remediator and the autopilot; each node's counters, zeroed
-            # before and read after its run, summed over the three legs
-            "launches": sum(control[leg]["launches"][name]
-                            for leg in ("control_rollback", "control_evict",
-                                        "control_autopilot")),
+            # this slice's main path: the flash LM trained by
+            # fit_supervised(publish=) (the supervised phase's crash run,
+            # its counters zeroed before and read after) and served by
+            # the fleet's two replicas (fresh processes: each counts from
+            # 0 and prints its count at exit)
+            "launches": (supervised["crash_resume"]["launches"][name]
+                         + (sum(fleet_row["fwd_launches"].values())
+                            if name == "flash_fwd" else 0)),
             "device_launches_by_path": dict(
                 {"parallel_fsdp": parallel["runs"]["k1"][
                     "device_launches"][name],
@@ -6182,6 +6696,7 @@ def main():
                                else len(bwd_rows))}
         if name == "flash_fwd":
             entry["launches_by_path"].update({
+                "fleet_replicas": sum(fleet_row["fwd_launches"].values()),
                 "serve": serve["fwd_launches"],
                 "gateway": gatewayed["fwd_launches"],
                 "serve_cli": served_cli["fwd_launches"],

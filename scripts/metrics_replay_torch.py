@@ -1,5 +1,5 @@
-"""Replay a watchtower, autopilot, or remediator journal of the port
-offline: re-derive the alert/action stream, render a per-node timeline
+"""Replay a watchtower, autopilot, remediator or fleet canary journal of
+the port offline: re-derive the alert/action stream, render a per-node timeline
 (the port's twin of ``scripts/metrics_replay.py``, on
 ``tensorflowonspark_torch``; it imports no jax).
 
@@ -30,8 +30,11 @@ journaled watchtower alerts re-feed the action plane's decision logic
 dry, the live proposed→applied→effect→kept/reverted topology-action
 stream is printed, and the live-vs-replay proposal divergence reported.
 
-A **fleet canary** journal is refused (exit 3): the port's fleet is the
-fleet half of ROADMAP item G, not ported yet.
+A **fleet canary** journal (the ``CanaryController``'s ``journal_path``)
+replays through :func:`tensorflowonspark_torch.fleet.replay_journal`: the
+same window judgement the live controller ran is re-run over the journaled
+per-tick samples, and the re-derived kept/reverted decisions are held
+against the journaled ones.  Either package's canary journal replays here.
 
 Usage:
   python scripts/metrics_replay_torch.py <journal.jsonl>            # human report
@@ -41,7 +44,9 @@ Usage:
   python scripts/metrics_replay_torch.py autopilot/journal.jsonl    # autodetected
 
 Exit status: 0 on a clean replay, 2 when the journal has no snapshot
-records (nothing to evaluate), 3 for a fleet canary journal.
+records (nothing to evaluate; for a fleet journal: no sample records), 1
+when a fleet journal's human report finds the re-derived decisions differ
+from the journaled ones (``--json`` reports it as ``matches``).
 """
 
 import argparse
@@ -239,12 +244,63 @@ def remediator_report(args, records, overrides):
 
 
 def fleet_report(args, records, overrides):
-    """The fleet canary's journal replays through the port's ``fleet``
-    module, which holds only ``SwapRefused`` so far: refused."""
-    print("a fleet canary journal: the port's fleet is not ported yet "
-          "(ROADMAP.md, the fleet half of ROADMAP item G); replay it with "
-          "the JAX package's scripts/metrics_replay.py", file=sys.stderr)
-    return 3
+    """The fleet canary's journal: the port's
+    :func:`~tensorflowonspark_torch.fleet.replay_journal` re-runs the window
+    judgement over the journaled samples; the live stage stream and the
+    live-vs-replay decision streams are printed."""
+    from tensorflowonspark_torch import fleet
+
+    result = fleet.replay_journal(records, config=overrides)
+    derived, journaled = result["decisions"], result["journaled"]
+    samples = sum(1 for r in records if r.get("kind") == "sample")
+    stages = [r for r in records if r.get("kind") == "stage"]
+
+    if args.json:
+        json.dump({"kind": "fleet", "journal": args.journal,
+                   "samples": samples, "config": result["config"],
+                   "journaled_decisions": [list(d) for d in journaled],
+                   "replayed_decisions": [list(d) for d in derived],
+                   "matches": result["matches"]}, sys.stdout, default=str)
+        print()
+        return 0 if samples else 2
+
+    print("journal: %s (fleet canary)" % args.journal)
+    print("sample records: %d, stage records: %d, journaled decisions: %d, "
+          "re-derived decisions: %d"
+          % (samples, len(stages), len(journaled), len(derived)))
+    t0 = min((r.get("time", 0.0) for r in records
+              if r.get("kind") in ("sample", "stage")), default=0.0)
+    if stages:
+        print("\nlive canary stream:")
+        for rec in stages:
+            extra = ""
+            if rec.get("stage") == "reverted":
+                extra = "  reason=%s -> %s" % (rec.get("reason"),
+                                               rec.get("rolled_back_to"))
+            elif rec.get("stage") == "applied":
+                extra = "  split=%s" % (rec.get("split"),)
+            print("  [t+%7.1fs] %-9s %s@%s replica=%s%s"
+                  % (rec.get("time", 0.0) - t0, rec.get("stage"),
+                     rec.get("model"), rec.get("version"),
+                     rec.get("replica", "-"), extra))
+    else:
+        print("\nno canary stages journaled by the live run")
+    if derived:
+        print("\nre-derived decisions (window judgement re-run over the "
+              "journaled samples):")
+        for stage, model, version in derived:
+            print("  %-9s %s@%s" % (stage, model, version))
+    else:
+        print("\nno decisions re-derived from the samples")
+    if result["matches"]:
+        print("\nlive and replay decision streams agree")
+    else:
+        print("\nDIVERGENCE: journaled %s vs re-derived %s"
+              % (journaled, derived))
+    if not samples:
+        print("no sample records: nothing to evaluate", file=sys.stderr)
+        return 2
+    return 0 if result["matches"] else 1
 
 
 def build_timeline(records, result, keys):

@@ -25,12 +25,21 @@ replica fleet behind the reservation server:
         --export_dir /path/to/export --serve --port 8500 \
         --max-batch 64 --max-wait-ms 5 --roster driver:41111
 
+A model-fleet replica resolves its export through the model registry
+(:class:`~tensorflowonspark_torch.fleet.ModelRegistry`) instead: ``--registry
+ROOT --model NAME[@VERSION]`` serves the pinned version, or the model's live
+default, and labels its metrics and roster meta with that version:
+
+    python -m tensorflowonspark_torch.inference_cli \
+        --registry /path/to/registry --model lm --serve --port 0 \
+        --roster driver:41111 --replica-id lm-0
+
 A response is one frame with a 4-byte length: its outputs must stay under
 4 GiB (33 rows of the flagship LM's fp32 logits do not fit).
 
-Not ported yet, and refused with ``NotImplementedError``: ``--registry`` /
-``--model`` (the fleet half of ROADMAP item G), ``--warm-cache-dir`` (item
-H, the compile plane) and ``--pjrt_plugin`` (item L, the C++ runner).
+Not ported yet, and refused with ``NotImplementedError``: ``--warm-cache-dir``
+and a registry entry's ``warm_dir`` (item H, the compile plane) and
+``--pjrt_plugin`` (item L, the C++ runner).
 """
 
 import argparse
@@ -74,9 +83,6 @@ def run_inference(export_dir, rows, input_mapping=None, output_name=None,
 
 def _refuse_unported(args):
     """Options of the JAX CLI that wait for another item of the port."""
-    if getattr(args, "registry", None) or getattr(args, "model", None):
-        raise NotImplementedError(
-            "--registry/--model wait for the fleet half of ROADMAP item G")
     if getattr(args, "warm_cache_dir", None):
         raise NotImplementedError(
             "--warm-cache-dir waits for the compile plane (ROADMAP item H)")
@@ -95,10 +101,31 @@ def serve_forever(args):
     from tensorflowonspark_torch import gateway, telemetry
 
     _refuse_unported(args)
-    if not args.export_dir:
-        raise SystemExit("--serve needs --export_dir")
     telemetry.configure_from_meta({})
     telemetry.install_sigusr1()
+    model_version = args.model_version
+    if args.registry:
+        # fleet mode: resolve --model NAME[@VERSION] through the model
+        # registry instead of pinning an export path; the registry entry
+        # also supplies the version label
+        from tensorflowonspark_torch import fleet
+
+        registry = fleet.ModelRegistry(args.registry)
+        name, _, pinned = (args.model or "").partition("@")
+        if not name:
+            raise SystemExit("--registry requires --model NAME[@VERSION]")
+        entry = registry.resolve(name, pinned or model_version or None)
+        if entry.get("warm_dir"):
+            raise NotImplementedError(
+                "registry entry {}@{} carries a warm_dir ({}): warm starts "
+                "wait for the compile plane (ROADMAP item H)".format(
+                    name, entry["version"], entry["warm_dir"]))
+        args.export_dir = entry["export_dir"]
+        model_version = entry["version"]
+        logger.info("registry %s resolved %s@%s -> %s", args.registry,
+                    name, model_version, args.export_dir)
+    elif not args.export_dir:
+        raise SystemExit("--serve needs --export_dir or --registry/--model")
     server = serving.ModelServer(args.export_dir, args.max_batch,
                                  device=args.device)
     gw = gateway.GatewayServer(
@@ -108,7 +135,7 @@ def serve_forever(args):
         replica_id=args.replica_id, task_index=args.task_index,
         heartbeat_interval=args.heartbeat,
         slo_latency_us=args.slo_latency_us,
-        model_version=args.model_version)
+        model_version=model_version)
     host, port = gw.start()
     print("serving replica {} ready on {}:{} (buckets {})".format(
         gw.replica_id, host, port, list(server.buckets)), flush=True)
@@ -128,7 +155,9 @@ def main(argv=None):
                     "port (reference Inference.scala); --serve runs an "
                     "online continuous-batching gateway replica instead")
     parser.add_argument("--export_dir", default=None,
-                        help="export directory (required)")
+                        help="export directory (required for batch mode; "
+                             "--serve can resolve one via --registry/--model "
+                             "instead)")
     parser.add_argument("--input", default=None,
                         help="TFRecord directory (required unless --serve)")
     parser.add_argument("--schema_hint", default=None,
@@ -174,14 +203,16 @@ def main(argv=None):
                             "it count as serving_slo_good (0 = latency "
                             "leg disarmed; sheds always burn budget)")
     serve.add_argument("--registry", default=None,
-                       help="model-fleet registry root; not ported yet "
-                            "(the fleet half of ROADMAP item G): refused")
+                       help="model-fleet registry root (fleet.ModelRegistry): "
+                            "resolve the export through the registry instead "
+                            "of --export_dir; an entry with a warm_dir is "
+                            "refused (the compile plane, ROADMAP item H)")
     serve.add_argument("--model", default=None,
-                       help="with --registry: model NAME or NAME@VERSION; "
-                            "not ported yet: refused")
+                       help="with --registry: model NAME or NAME@VERSION "
+                            "(default version = the model's live default)")
     serve.add_argument("--model-version", default=None, dest="model_version",
-                       help="version label for serving metrics / roster "
-                            "meta")
+                       help="version label override for serving metrics / "
+                            "roster meta (set automatically by --registry)")
     serve.add_argument("--warm-cache-dir", default=None,
                        dest="warm_cache_dir",
                        help="warm-start root; not ported yet (the compile "

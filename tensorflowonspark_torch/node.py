@@ -166,16 +166,59 @@ def _knob_reply_handler(reply):
         apply_knobs(reply["knobs"])
 
 
+#: set once this process's profiler preload has finished (or was not
+#: needed): the node's beats start before the preload, so a capture asked
+#: for on a beat reply meanwhile waits for it on the capture thread
+_preload_done = threading.Event()
+
+
 def _profile_handler(job_name):
     """The ``on_profile`` capture handler for this node's HeartbeatSender:
     the training roles run the trace captures fanned out on beat replies
-    (:func:`profiling.handle_capture_request`); other roles get None — the
-    driver never targets them."""
+    (:func:`profiling.handle_capture_request`) once the profiler preload
+    has finished (a first profiler start on the capture thread during the
+    preload's imports can deadlock them, see ``profiler.preload``); other
+    roles get None — the driver never targets them."""
     if job_name not in _DIST_JOBS:
         return None
     from tensorflowonspark_torch import profiling
 
-    return profiling.handle_capture_request
+    def _handle(request):
+        _preload_done.wait()
+        return profiling.handle_capture_request(request)
+
+    return _handle
+
+
+def _hold_captures():
+    """Hold this process's captures until :func:`_preload_profiler` has
+    run: called before the node starts its beats.  (The node's nested
+    functions are pickled by value, so they reach the event, which cannot
+    be pickled, through module functions.)"""
+    _preload_done.clear()
+
+
+def _preload_profiler(profiling_on, role):
+    """Where the driver can ask for captures (``profiling_on``), the process
+    that runs the user fn warms the profiler on its main thread (see
+    ``profiler.preload``).  Its beats already run; a capture that arrives
+    meanwhile waits for :data:`_preload_done`, set here in every case."""
+    try:
+        if profiling_on and role in _DIST_JOBS:
+            from tensorflowonspark_torch import profiler as prof_mod
+
+            prof_mod.preload()
+    finally:
+        _preload_done.set()
+
+
+def _imported(name):
+    """True when module ``name`` has finished importing: a module whose
+    import another thread is still running is in ``sys.modules`` already,
+    and importing it from here would wait for that import to end."""
+    module = sys.modules.get(name)
+    return module is not None and not getattr(
+        getattr(module, "__spec__", None), "_initializing", False)
 
 
 def _node_metrics_provider(mgr, qname="input"):
@@ -197,7 +240,10 @@ def _node_metrics_provider(mgr, qname="input"):
 
         # Telemetry off: beats stay bare and the driver latches nothing —
         # tf_status["telemetry"] is part of the opt-in plane, not a default.
-        if not telemetry.get_tracer().enabled:
+        # While the profiler warms, the beats only say the node is alive:
+        # counters of a node that cannot train yet would read as idle
+        # windows to the watchtower's rules.
+        if not telemetry.get_tracer().enabled or not _preload_done.is_set():
             return None
         parts = [shmring.counters_snapshot()]
         if _knob_counters["autopilot_knobs_applied"]:
@@ -230,8 +276,10 @@ def _node_metrics_provider(mgr, qname="input"):
             # card memory HWMs: device-plane health riding the same beat as
             # the host-side feed counters ({} until this process initialized
             # CUDA; reading them never initializes it).  Only where the user
-            # fn imported torch: importing it here would stall the beat.
-            if "torch" in sys.modules:
+            # fn imported torch: importing it here would stall the beat,
+            # and so would waiting out an import of torch still running
+            # on the main thread (the profiler preload's, for one).
+            if _imported("torch"):
                 from tensorflowonspark_torch import metrics as metrics_mod
 
                 parts.append(metrics_mod.device_memory_counters())
@@ -798,23 +846,12 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
 
         heartbeat_interval = cluster_meta.get("heartbeat_interval", 0)
 
-        def _preload_profiler(role):
-            # where the driver can ask for captures, the process that runs
-            # the user fn warms the profiler on its main thread first (see
-            # profiler.preload)
-            if cluster_meta.get("profiling") and role in _DIST_JOBS:
-                from tensorflowonspark_torch import profiler as prof_mod
-
-                prof_mod.preload()
-
         def wrapper_fn_background(args, context):
             """Background-process wrapper: route exceptions to the error queue
             (reference TFSparkNode.py:326-332)."""
             multiprocessing.current_process().authkey = authkey
             errq = context.mgr.get_queue("error")
-            _preload_profiler(context.job_name)
-            if prof_sock is not None:
-                profiler_mod.start_server(sock=prof_sock)
+            _hold_captures()
             # The heartbeat lives HERE, in the process executing the user fn:
             # a SIGKILL of training silences the beats even though the
             # executor shell and manager survive — that silence is what the
@@ -841,6 +878,12 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             tracer = telemetry.get_tracer()
             reason = None
             try:
+                # the beats run while the profiler warms (seconds: 7.8 s on
+                # an H100 host); the capture endpoint starts after it
+                _preload_profiler(cluster_meta.get("profiling"),
+                                  context.job_name)
+                if prof_sock is not None:
+                    profiler_mod.start_server(sock=prof_sock)
                 with tracer.span("node/user_fn", executor_id=executor_id,
                                  job_name=context.job_name,
                                  task_index=context.task_index):
@@ -907,7 +950,7 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             # the duration of training (reference TFSparkNode.py:362-366).
             errq = mgr.get_queue("error")
             mgr.set("node_pid", os.getpid())
-            _preload_profiler(job_name)
+            _hold_captures()
             hb = reservation.HeartbeatSender(
                 cluster_meta.get("server_addrs")
                 or cluster_meta["server_addr"], executor_id,
@@ -922,6 +965,7 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
             fault.from_env().arm_preempt_notice()
             reason = None
             try:
+                _preload_profiler(cluster_meta.get("profiling"), job_name)
                 with tracer.span("node/user_fn", executor_id=executor_id,
                                  job_name=job_name, task_index=task_index):
                     wrapper_fn(tf_args, ctx)

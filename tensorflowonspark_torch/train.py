@@ -1428,6 +1428,30 @@ class Trainer(object):
                 self._nonfinite_grad += 1
 
 
+def _publish(spec, trainer, ckpt_manager, stats, tracer):
+    """``fit_supervised``'s train-to-serve handoff: the chief publishes the
+    full params (gathered on every rank: a collective under a sharded
+    state) into ``stats["published"]``, or reports its failure in
+    ``stats["publish_error"]``."""
+    from tensorflowonspark_torch import fleet as fleet_mod
+
+    try:
+        params = trainer.state.full_params()
+        if not ckpt_manager.is_chief:
+            return
+        with tracer.span("train/publish"):
+            stats["published"] = fleet_mod.publish_trained(
+                spec, params, int(trainer.state.step))
+        logger.info("supervised fit: published %s@%s to registry",
+                    stats["published"]["model"],
+                    stats["published"]["version"])
+    except Exception as e:
+        # the training run succeeded; a handoff failure is reported, not
+        # raised
+        logger.warning("train-to-serve publish failed", exc_info=True)
+        stats["publish_error"] = repr(e)
+
+
 #: poison rollbacks one fit_supervised call takes before it re-raises (a
 #: bound on a pathological loop, e.g. every checkpoint quarantined and the
 #: state in memory poisoned too)
@@ -1463,8 +1487,17 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
         stepped once per dispatch and used as a context manager around
         every attempt, so an exception mid-capture stops the trace instead
         of leaking it into the retry's capture.
-      publish: the train-to-serve handoff to the fleet; not ported yet, it
-        raises ``NotImplementedError`` (ROADMAP.md, item G).
+      publish: optional train-to-serve handoff spec
+        (:func:`~tensorflowonspark_torch.fleet.publish_trained`): after the
+        final checkpoint lands, the run's finiteness-validated params are
+        exported and published to the model registry as a ``staging``
+        version, which a running canary controller walks to live with no
+        operator action.  The registry entry rides the stats dict as
+        ``stats["published"]``; a publish failure is logged and reported
+        as ``stats["publish_error"]`` without failing the (already
+        successful) training run.  The chief publishes, inside a
+        ``train/publish`` span; under a sharded state every rank first
+        joins the gather of the full params.
 
     Every attempt opens with ``trainer.restore_latest(validate=True)`` in a
     ``train/restore`` span and trains in a ``train/fit_attempt`` span.  The
@@ -1481,10 +1514,6 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
     Returns the final fit stats dict."""
     from tensorflowonspark_torch import node as node_mod
 
-    if publish is not None:
-        raise NotImplementedError(
-            "fit_supervised(publish=...) is not ported yet (ROADMAP.md, "
-            "item G, the train-to-serve handoff to the fleet)")
     policy = retry_policy or fault_mod.RetryPolicy()
     tracer = telemetry.get_tracer()
 
@@ -1536,6 +1565,8 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
                 ckpt_manager.maybe_save(int(trainer.state.step),
                                         trainer.state, force=True)
                 ckpt_manager.wait_until_finished()
+                if publish:
+                    _publish(publish, trainer, ckpt_manager, stats, tracer)
                 return stats
             except fault_mod.PoisonRollback as rb:
                 # a control-plane command, not a failure: no attempt used,

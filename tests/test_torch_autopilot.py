@@ -664,8 +664,7 @@ def test_e2e_knob_push_retunes_live_sharded_feed(tmp_path):
             tf_args={"ready_file": ready, "out_file": out,
                      "stop_file": stop_file},
             num_executors=2, input_mode=cluster.InputMode.FILES,
-            heartbeat_interval=0.5, heartbeat_misses=20,
-            log_dir=str(tmp_path),
+            heartbeat_interval=0.5, log_dir=str(tmp_path),
             telemetry=True, observatory=True,
             autopilot={"dry_run": True})   # coordinator up, controller passive
         assert c.autopilot is not None and c.autopilot.dry_run

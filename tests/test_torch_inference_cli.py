@@ -152,12 +152,22 @@ def test_serve_subprocess_answers_and_exits_on_sigterm(linear_exports):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--registry", "/r", "--model", "m"], "item G"),
+    (["--registry", "{registry}", "--model", "lin"], "item H"),
     (["--warm-cache-dir", "/w"], "item H"),
     (["--pjrt_plugin", "/p.so", "--input", "/in"], "item L"),
 ])
-def test_unported_options_raise(linear_exports, flags, item):
+def test_unported_options_raise(linear_exports, flags, item, tmp_path):
+    """``--warm-cache-dir``, a registry entry's ``warm_dir`` (the registry
+    itself is ported: ``tests/test_torch_fleet.py``) and ``--pjrt_plugin``
+    name the items that port them."""
+    from tensorflowonspark_torch import fleet
+
     _, torch_dir = linear_exports
+    registry = fleet.ModelRegistry(tmp_path / "registry")
+    registry.publish("lin", "1", torch_dir, status="live",
+                     warm_dir=str(tmp_path / "warm"))
+    registry.close()
+    flags = [f.format(registry=registry.root) for f in flags]
     serve = [] if "--input" in flags else ["--serve"]
     with pytest.raises(NotImplementedError, match=item):
         inference_cli.main(["--export_dir", torch_dir, "--device", "cpu"]

@@ -804,8 +804,8 @@ def test_metrics_replay_torch_rederives_the_live_streams(evict_run,
                                                          tmp_path):
     """``scripts/metrics_replay_torch.py --json`` autodetects the live
     run's watchtower and remediator journals and a port autopilot
-    journal, and re-derives each live stream; a fleet canary journal is
-    refused, naming the fleet half of ROADMAP item G."""
+    journal, and re-derives each live stream; a fleet canary journal
+    replays through the port's ``fleet.replay_journal``."""
     proc = _replay(os.path.join(evict_run["log_dir"], "watchtower",
                                 "journal.jsonl"), "--json")
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -838,8 +838,15 @@ def test_metrics_replay_torch_rederives_the_live_streams(evict_run,
     assert [(a["knob"], a["to"]) for a in doc["replayed_actions"]] == [
         ("infeed_prefetch", 4)]
 
-    fleet = tmp_path / "fleet.jsonl"
-    fleet.write_text(json.dumps({"kind": "meta", "canary": True}) + "\n")
-    proc = _replay(str(fleet), "--json")
-    assert proc.returncode != 0
-    assert "the fleet half of ROADMAP item G" in proc.stderr
+    from tensorflowonspark_torch import fleet
+    from test_torch_fleet_parity import _canary_walk
+
+    decisions, _, jpath, _ = _canary_walk(fleet, "port",
+                                          str(tmp_path / "fleet"))
+    for kind in ("auto", "fleet"):
+        proc = _replay(jpath, "--json", "--kind", kind)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        doc = json.loads(proc.stdout)
+        assert doc["kind"] == "fleet" and doc["matches"] is True
+    assert [tuple(d) for d in doc["replayed_decisions"]] == decisions
+    assert [tuple(d) for d in doc["journaled_decisions"]] == decisions

@@ -81,14 +81,11 @@ def test_e2e_files_mode_poison_rollback(tmp_path):
     b = backend.LocalBackend(1, env_per_executor=[
         {fault.FAULT_SPEC_ENV: json.dumps({"nan_batch_at_step": nan_at})}])
     try:
-        # heartbeat_misses=120: in FILES mode the node's heartbeat thread
-        # shares its process with the user fn, whose profiler preload holds
-        # the interpreter for seconds, more than 10 on a loaded host
         c = cluster.run(
             b, _rollback_node_fn,
             tf_args={"steps": steps, "hold_at": nan_at + 4},
             num_executors=1, input_mode=cluster.InputMode.FILES,
-            heartbeat_interval=0.5, heartbeat_misses=120,
+            heartbeat_interval=0.5,
             log_dir=str(tmp_path), telemetry=True,
             observatory=True,
             watchtower={"interval_secs": 0.5, "window_secs": 6.0,

@@ -188,7 +188,8 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("examples", "transformer",
                           "transformer_lm_torch.py"),
              os.path.join("scripts", "analyze_profile_torch.py"),
-             os.path.join("scripts", "metrics_replay_torch.py"))
+             os.path.join("scripts", "metrics_replay_torch.py"),
+             os.path.join("scripts", "ci_assert_torch_fleet.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -232,7 +233,11 @@ missing += [n for n in ("TFEstimator", "TFModel", "_run_model_fn")
             if not hasattr(pipeline, n)]
 missing += [n for n in ("GatewayServer", "GatewayChannel", "ServingClient")
             if not hasattr(gateway, n)]
-missing += [n for n in ("SwapRefused",) if not hasattr(fleet, n)]
+missing += [n for n in ("SwapRefused", "PublishConflict",
+                        "read_registry_journal", "ModelRegistry",
+                        "FleetRouter", "FleetClient", "DEFAULT_CANARY_CONFIG",
+                        "CanaryController", "judge_window", "publish_trained",
+                        "replay_journal") if not hasattr(fleet, n)]
 from tensorflowonspark_torch import checkpoint, data, train
 from tensorflowonspark_torch.models import resnet
 missing += [n for n in ("FileFeed", "ProcessPoolFeed", "shard_for_process")
@@ -277,10 +282,11 @@ def test_port_imports_no_jax():
     ``data`` and the mesh, FSDP, ring, tensor-, expert- and
     pipeline-parallel modules among them),
     chip_smoke.py, the port's MNIST, ResNet and LM examples,
-    scripts/analyze_profile_torch.py and scripts/metrics_replay_torch.py
-    has no jax, flax, optax, orbax or JAX-package module; the alerting and
-    control planes (watchtower, guardrails, autopilot, remediator) are
-    among the port modules."""
+    scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py and
+    scripts/ci_assert_torch_fleet.py has no jax, flax, optax, orbax or
+    JAX-package module; the alerting and control planes (watchtower,
+    guardrails, autopilot, remediator) and the model fleet (fleet, with
+    every public name of the JAX package's) are among the port modules."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -289,9 +295,10 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port, of chip_smoke.py, of the port's MNIST, ResNet
-    and LM examples or of scripts/analyze_profile_torch.py and
-    scripts/metrics_replay_torch.py imports a forbidden package, not even
+    """No line of the port (its fleet among it), of chip_smoke.py, of the
+    port's MNIST, ResNet and LM examples or of
+    scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py and
+    scripts/ci_assert_torch_fleet.py imports a forbidden package, not even
     inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
@@ -304,11 +311,11 @@ def test_port_sources_name_no_jax():
         assert os.path.join(REPO, "tensorflowonspark_torch", "parallel",
                             name + ".py") in paths, name
     for name in ("watchtower", "guardrails", "autopilot", "remediator",
-                 "cluster"):
+                 "cluster", "fleet"):
         assert os.path.join(REPO, "tensorflowonspark_torch",
                             name + ".py") in paths, name
-    assert os.path.join(REPO, "scripts",
-                        "metrics_replay_torch.py") in paths
+    for name in ("metrics_replay_torch.py", "ci_assert_torch_fleet.py"):
+        assert os.path.join(REPO, "scripts", name) in paths, name
     offenders = []
     for path in paths:
         with open(path) as f:

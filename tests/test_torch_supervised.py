@@ -376,10 +376,17 @@ def test_fit_supervised_fatal_error_raises_without_retry(tmp_path):
 
 @pytest.mark.parametrize("name", ["publish"])
 def test_fit_supervised_unported_options_raise(name, tmp_path):
+    """``publish=`` is ported (the train-to-serve handoff, exercised in
+    ``tests/test_torch_fleet_train.py``): a spec it cannot publish raises
+    nothing, the run ends and ``stats["publish_error"]`` says why."""
     mgr = checkpoint.CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.fit_supervised(_torch_trainer(), _Feed, mgr,
-                             **{name: object()})
+    make, _ = _factory("torch")
+    stats = train.fit_supervised(
+        _torch_trainer(), make, mgr,
+        **{name: {"registry": str(tmp_path / "registry"), "model": "a/b"}})
+    assert "published" not in stats
+    assert "invalid model name" in stats["publish_error"]
+    mgr.close()
 
 
 @pytest.mark.parametrize("name", ["profiler", "transfer_guard"])
