@@ -222,6 +222,24 @@ weights from a seed) along both paths:
   ``serving_batches``).  Printed: seconds from each publish to swapped,
   canary and kept or rolled back, each replica's ready seconds, latency
   p50/p99 by version, requests a replica.
+- warmstart: the warm-start compile plane.  Serving: ``inference_cli
+  --serve --max-batch 1 --warm-cache-dir W`` on a fresh ``W`` compiles
+  its rung with AOTInductor (verdict ``compiled``, one compile; the
+  package calls the flash forward kernel as the ``tfos::flash_fwd`` op)
+  and answers one row; a second replica through ``--registry R --model
+  transformer_lm``, whose entry carries ``warm_dir=W``, loads it
+  (``loaded``, no compile) and answers bit for bit as the first, both
+  within the serve tolerance of an eager ``ModelServer``.  Training:
+  ``cluster.run(compile_cache_dir=C)`` on a fresh ``C``, the flash LM
+  through ``fit_supervised`` at K = 5 for 10 steps with the Trainer's
+  store under ``C``: ``nvcc`` builds the kernels (misses, verdict
+  ``compiled``); a second cluster on ``C`` with a fresh checkpoint root
+  installs them (hits on a live ``/metrics``, no miss, no ``nvcc``,
+  ``loaded``) and trains to the first run's losses bit for bit.  Printed:
+  each replica's ready and warm-up seconds, each cluster's seconds from
+  ``cluster.run`` to its first dispatch's end and ``train_compile_us_max``.
+  The kernels line's ``launches`` is this phase's: both clusters and both
+  replicas.
 
 A line before the kernels line gives the script's wall time and each
 phase's seconds.
@@ -6505,6 +6523,400 @@ def phase_fleet(torch, np, published, config=LM_CONFIG, device=None):
     return row
 
 
+# -- the warm-start compile plane (compilecache): a served rung compiled by
+# AOTInductor then loaded, a cluster's kernels built then installed
+WARM_STEPS = 10               # two K = 5 dispatches a cluster
+WARM_LOG_STEPS = 5
+WARM_READY_SECS = 900         # the cold replica compiles its rung first
+WARM_REPORT_SECS = 300
+WARM_SCRAPE_SECS = 60
+WARM_HEARTBEAT_SECS = 0.5
+WARM_HEARTBEAT_MISSES = 60
+
+
+class WarmFeed(NgramFeed):
+    """The warm-start leg's stream in groups of K (the config's vocab and
+    sequence), each group's pull time kept: the second pull comes when the
+    first dispatch is over."""
+
+    def __init__(self, np, config, pulls):
+        super().__init__(np, 0, TRAIN_BATCH, config["max_seq_len"],
+                         config["vocab_size"])
+        self.pulls = pulls
+
+    def grouped_batches(self, k):
+        while not self.terminated:
+            self.pulls.append(time.time())
+            yield ("multi",) + self.next_group(k)
+
+
+def warmstart_main(args, ctx):
+    """The warm-start leg's user fn, in the child the node forked, which
+    configured the compile root from ``cluster_meta`` before this ran:
+    ``fit_supervised`` at K = 5 on a fresh checkpoint root, the Trainer's
+    store under the compile root.  Nothing here builds a kernel: the
+    store's resolution builds or installs them.  Reports the losses, the
+    verdicts, the compile plane's counters, the launches, the first
+    dispatch's end and ``train_compile_us_max``, then stays up (beating)
+    until the stop file appears."""
+    import importlib
+    import traceback
+
+    report = {"fn_start": time.time()}
+    try:
+        import numpy as np
+        import torch
+
+        from tensorflowonspark_torch import checkpoint, compilecache, train
+        from tensorflowonspark_torch.models import transformer
+        from tensorflowonspark_torch.ops import _build
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device = ctx.initialize_distributed(device=args["device"])
+        model = control_lm(torch, args["config"], device)
+        curve, pulls = LossCurve(), []
+        root = compilecache.configured_dir()
+        trainer = control_trainer(
+            args, transformer.loss_fn(model), dict(model.state_dict()),
+            device, WARM_LOG_STEPS, summary_writer=curve,
+            aot_cache=os.path.join(root, "aot"))
+        del model
+        ckpt = checkpoint.CheckpointManager(args["ckpt_dir"],
+                                            save_interval_steps=WARM_STEPS)
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        train.fit_supervised(trainer, lambda: WarmFeed(np, args["config"],
+                                                       pulls),
+                             ckpt, max_steps=WARM_STEPS,
+                             steps_per_call=MEGA_K)              # the path
+        report["launches"] = launches_of(fa)                    # its end
+        ckpt.close()
+        snap = trainer.counters_snapshot()
+        report.update({
+            "compile_root": root, "steps": trainer.state.step,
+            "losses": {str(k): v for k, v in sorted(curve.losses.items())},
+            "verdicts": dict(trainer._aot_verdicts),
+            "cache": compilecache.stats.counters_snapshot(),
+            "nvcc_runs": _build.nvcc_runs, "kernels_loaded": _build.loaded(),
+            "first_dispatch_end": pulls[1] if len(pulls) > 1 else None,
+            "train_compile_us_max": snap.get("train_compile_us_max")})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        write_report(args["report"], report)
+    deadline = time.monotonic() + WARM_REPORT_SECS
+    while not os.path.exists(args["stop"]) and time.monotonic() < deadline:
+        time.sleep(0.2)
+
+
+def warmstart_cluster(np, config, device, root, tmp, name):
+    """One SPARK cluster of one executor over the compile root ``root``:
+    ``warmstart_main``'s report, the seconds (this process's clock) from
+    ``cluster.run`` to the first dispatch's end, and
+    ``tfos_compile_cache_hit_total`` from a live ``/metrics`` scrape."""
+    from tensorflowonspark_torch import backend, cluster
+
+    args = {"config": config, "device": device, "lr": LR,
+            "ckpt_dir": os.path.join(tmp, name + "_ckpt"),
+            "report": os.path.join(tmp, name + ".json"),
+            "stop": os.path.join(tmp, name + ".stop")}
+    b = backend.LocalBackend(1)
+    try:
+        t0 = time.time()
+        c = cluster.run(b, warmstart_main, args, num_executors=1,
+                        input_mode=cluster.InputMode.SPARK,
+                        log_dir=os.path.join(tmp, name), telemetry=True,
+                        observatory=True, compile_cache_dir=root,
+                        heartbeat_interval=WARM_HEARTBEAT_SECS,
+                        heartbeat_misses=WARM_HEARTBEAT_MISSES)
+        try:
+            report = wait_for_report(args["report"], WARM_REPORT_SECS)
+            base = "http://127.0.0.1:%d" % c.observatory.addr[1]
+            hits = wait_until(
+                "tfos_compile_cache_hit_total on /metrics",
+                lambda: node_metrics(base)[2].get(
+                    'tfos_compile_cache_hit_total{executor="0"}'),
+                WARM_SCRAPE_SECS) if report["cache"][
+                    "compile_cache_hit"] else 0.0
+        finally:
+            with open(args["stop"], "w"):
+                pass
+        c.shutdown(grace_secs=1)
+    finally:
+        b.stop()
+    first = report["first_dispatch_end"]
+    report.update({"first_dispatch_s": None if first is None else first - t0,
+                   "metrics_hits": hits})
+    return report
+
+
+class Replica(object):
+    """One ``inference_cli --serve`` replica on the roster: started at
+    once; a thread reads its ready line as it comes, so its ready seconds
+    hold while this process does other work."""
+
+    def __init__(self, argv, rid, roster, env, log_path):
+        import threading
+
+        self.rid, self.log_path = rid, log_path
+        self.t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", CLI_WRAPPER, "--serve",
+                 "--max-batch", "1", "--port", "0", "--roster", roster,
+                 "--replica-id", rid, "--heartbeat",
+                 str(WARM_HEARTBEAT_SECS)] + argv,
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=log,
+                text=True)
+        self.ready, self.ready_s = None, None
+        self.reader = threading.Thread(target=self._read_ready, daemon=True)
+        self.reader.start()
+
+    def _read_ready(self):
+        self.ready = self.proc.stdout.readline()
+        self.ready_s = time.perf_counter() - self.t0
+
+    def finish(self, feed, resv):
+        """Its ready seconds, its roster registration's rung verdicts and
+        a beat's counters, its answer to the one-row ``feed``, and the
+        flash launches it printed at exit (SIGTERM)."""
+        import signal
+
+        from tensorflowonspark_torch import gateway
+
+        try:
+            self.reader.join(WARM_READY_SECS)
+            if not self.ready or "ready on" not in self.ready:
+                raise AssertionError("{}: no ready line: {!r}\n{}".format(
+                    self.rid, self.ready, open(self.log_path).read()[-4000:]))
+
+            def beat_of():
+                snap = resv.metrics_snapshot()["nodes"].get(self.rid, {})
+                return snap if "serving_compiles" in snap else None
+
+            beat = wait_until(self.rid + "'s counters in a beat", beat_of,
+                              WARM_SCRAPE_SECS)
+            report = next(r for r in resv.reservations.get()
+                          if r["executor_id"] == self.rid)["warmup"]
+            ch = gateway.GatewayChannel(
+                self.ready.split("ready on ")[1].split()[0],
+                timeout=WARM_READY_SECS)
+            try:
+                t1 = time.perf_counter()
+                got = ch.predict(feed, 1)["output"]
+                request_s = time.perf_counter() - t1
+            finally:
+                ch.close()
+            self.proc.send_signal(signal.SIGTERM)
+            code = self.proc.wait(CLI_EXIT_SECS)
+            tail = self.proc.stdout.read()
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        return {"ready_s": self.ready_s, "request_s": request_s,
+                "exit_code": code,
+                "verdicts": [b["verdict"] for b in report["buckets"]],
+                "warmup_s": report["buckets"][0]["micros"] / 1e6,
+                "compiles": beat.get("serving_compiles"),
+                "cache": {k: v for k, v in beat.items()
+                          if k.startswith("compile_cache_")},
+                "fwd_launches": json.loads(tail.strip().splitlines()[-1])[
+                    "fwd_launches"]}, got
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def start_warmstart(torch, np, config=LM_CONFIG, device=None):
+    """The warm-start phase's first step, taken before the fleet phase so
+    that the cold replica's AOTInductor compile runs beside it: the LM
+    export, a registry entry carrying ``warm_dir=W``, the roster, and
+    ``inference_cli --serve --warm-cache-dir W`` on a fresh ``W``.  Returns
+    what :func:`phase_warmstart` continues from (:func:`stop_warmstart`
+    ends it where that never runs)."""
+    from tensorflowonspark_torch import fleet, reservation
+
+    started = {"config": config, "device": device, "cold": None,
+               "resv": None, "tmp": tempfile.mkdtemp(prefix="chip-warm-")}
+    try:
+        tmp = started["tmp"]
+        started["on"] = [] if device is None else ["--device", device]
+        started["env"] = env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        env.pop("TFOS_COMPILE_CACHE_DIR", None)
+        started["lm"] = lm = export_lm(torch, os.path.join(tmp, "lm"), 0,
+                                       config)
+        started["warm_dir"] = warm_dir = os.path.join(tmp, "serve_root")
+        registry = fleet.ModelRegistry(os.path.join(tmp, "registry"),
+                                       publisher="chip-smoke")
+        registry.publish(FLEET_MODEL, "1", lm, model_config=config,
+                         warm_dir=warm_dir, status="live")
+        registry.close()
+        started["registry"] = registry.root
+        started["resv"] = resv = reservation.Server(
+            2, heartbeat_interval=WARM_HEARTBEAT_SECS,
+            heartbeat_misses=WARM_HEARTBEAT_MISSES)
+        started["roster"] = roster = "%s:%d" % resv.start()
+        started["cold"] = Replica(
+            ["--export_dir", lm, "--warm-cache-dir", warm_dir]
+            + started["on"], "warm-cold", roster, env,
+            os.path.join(tmp, "cold.log"))
+    except BaseException:
+        stop_warmstart(started)
+        raise
+    return started
+
+
+def stop_warmstart(started, replicas=()):
+    """Stop what :func:`start_warmstart` (and the phase) started."""
+    for replica in (started.get("cold"),) + tuple(replicas):
+        if replica is not None:
+            replica.stop()
+    if started.get("resv") is not None:
+        started["resv"].stop()
+        started["resv"] = None
+    shutil.rmtree(started["tmp"], ignore_errors=True)
+
+
+def phase_warmstart(torch, np, started):
+    """The warm-start compile plane on the card.  Serving: the cold
+    ``inference_cli --serve --warm-cache-dir W`` replica of
+    :func:`start_warmstart` compiled its rung with AOTInductor (verdict
+    ``compiled``, one compile); a second replica through ``--registry R
+    --model`` whose entry carries ``warm_dir=W`` loads it (``loaded``, no
+    compile) and answers bit for bit as the cold one, both within the
+    serve tolerance of an eager ``ModelServer``.  Training: a cluster on a
+    fresh compile root ``C`` builds the kernels (misses, ``nvcc``;
+    verdicts ``compiled``), a second cluster on ``C`` with a fresh
+    checkpoint root installs them (hits, no ``nvcc``; ``loaded``; the hits
+    on a live ``/metrics``) and trains to the cold run's losses bit for
+    bit.  The cold replica compiles while the fleet phase runs, and the
+    replicas' part runs on a thread beside the eager reference and the
+    clusters: their seconds are taken beside one another.
+    ``device="cpu"`` rehearses it on the CPU (no kernels there: no misses
+    or hits to hold)."""
+    from tensorflowonspark_torch import serving as serving_mod
+
+    config, device = started["config"], started["device"]
+    layers, seq = config["num_layers"], config["max_seq_len"]
+    feed = {"tokens": np.random.default_rng(11).integers(
+        0, config["vocab_size"], (1, seq), dtype=np.int32)}
+    if device is None:
+        torch.cuda.empty_cache()
+    tmp, cold, resv = started["tmp"], started["cold"], started["resv"]
+    replicas, serve, outs, failed = [], {}, {}, []
+
+    def serving():
+        """The replicas' part, beside the clusters: once the cold replica
+        is ready (its rung stored), the warm one starts; each answers one
+        row and exits."""
+        try:
+            cold.reader.join(WARM_READY_SECS)
+            replicas.append(Replica(
+                ["--registry", started["registry"], "--model",
+                 FLEET_MODEL] + started["on"], "warm-registry",
+                started["roster"], started["env"],
+                os.path.join(tmp, "warm.log")))
+            serve["cold"], outs["cold"] = cold.finish(feed, resv)
+            serve["warm"], outs["warm"] = replicas[0].finish(feed, resv)
+        except BaseException:
+            import traceback
+
+            failed.append(traceback.format_exc())
+
+    import threading
+
+    thread = threading.Thread(target=serving, daemon=True)
+    try:
+        thread.start()
+        server = serving_mod.ModelServer(started["lm"], batch_size=1,
+                                         device=device)
+        want = server.predict_feed(feed, 1)["output"]
+        del server
+        if device is None:
+            torch.cuda.empty_cache()
+        train_root = os.path.join(tmp, "train_root")
+        runs = {name: warmstart_cluster(np, config, device, train_root, tmp,
+                                        name)
+                for name in ("cold", "warm")}
+        thread.join(2 * WARM_READY_SECS)
+        if failed or thread.is_alive():
+            raise AssertionError("warmstart: the replicas failed: {}".format(
+                failed or "still running"))
+        diff_cold, scale = logit_diff(np, outs["cold"], want)
+        diff_warm, _ = logit_diff(np, outs["warm"], want)
+        serve.update({
+            "bit_equal": bool(np.array_equal(outs["cold"], outs["warm"])),
+            "vs_eager_max_abs_diff": {"cold": diff_cold, "warm": diff_warm},
+            "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
+            "artifact_bytes": os.path.getsize(os.path.join(
+                started["warm_dir"], "serving_b1.aotx"))})
+    finally:
+        stop_warmstart(started, tuple(replicas))
+        thread.join(CLI_EXIT_SECS)
+    cold, warm = runs["cold"], runs["warm"]
+    train = {name: {k: run.get(k) for k in (
+        "verdicts", "nvcc_runs", "kernels_loaded", "first_dispatch_s",
+        "train_compile_us_max", "metrics_hits", "launches", "steps")}
+        for name, run in runs.items()}
+    for name, run in runs.items():
+        train[name]["cache"] = {k: run["cache"][k] for k in (
+            "compile_cache_hit", "compile_cache_miss",
+            "compile_cache_saved_us", "compile_cache_retrieval_us",
+            "compile_cache_aot_load", "compile_cache_aot_save",
+            "compile_cache_aot_load_us", "compile_cache_aot_compile_us",
+            "compile_cache_fallback")}
+    train["losses_bit_equal"] = cold["losses"] == warm["losses"]
+    train["losses"] = cold["losses"]
+    row = {"phase": "warmstart", "config": config, "serve": serve,
+           "train": train}
+    emit(row)
+    steps = WARM_STEPS
+    failures = []
+    card = device is None
+    if serve["cold"]["verdicts"] != ["compiled"] or \
+            serve["cold"]["compiles"] != 1:
+        failures.append("the cold replica did not compile its rung")
+    if serve["warm"]["verdicts"] != ["loaded"] or \
+            serve["warm"]["compiles"] != 0:
+        failures.append("the warm replica did not load its rung")
+    if not serve["bit_equal"]:
+        failures.append("warm logits differ from the cold replica's")
+    if not max(serve["vs_eager_max_abs_diff"].values()) <= serve["tol"]:
+        failures.append("a replica is off the eager forward")
+    if any(serve[n]["exit_code"] != 0 for n in ("cold", "warm")):
+        failures.append("a replica did not exit 0 on SIGTERM")
+    if card and any(serve[n]["fwd_launches"] != layers
+                    for n in ("cold", "warm")):
+        failures.append("a replica did not launch flash_fwd once a layer")
+    program = "multi_%d" % MEGA_K
+    if cold["verdicts"] != {program: "compiled"} or \
+            warm["verdicts"] != {program: "loaded"}:
+        failures.append("train verdicts {} then {}".format(
+            cold["verdicts"], warm["verdicts"]))
+    if card and not (cold["cache"]["compile_cache_miss"] >= 2
+                     and cold["nvcc_runs"] >= 2):
+        failures.append("the cold cluster built no kernels")
+    if card and not (warm["cache"]["compile_cache_hit"] >= 2
+                     and warm["cache"]["compile_cache_miss"] == 0
+                     and warm["nvcc_runs"] == 0
+                     and warm["metrics_hits"] > 0):
+        failures.append("the warm cluster did not install its kernels")
+    if not train["losses_bit_equal"] or len(cold["losses"]) != steps:
+        failures.append("warm losses differ from the cold run's")
+    if card and any(n != layers * steps for run in (cold, warm)
+                    for n in run["launches"].values()):
+        failures.append("a cluster's launches are not layers x steps")
+    if failures:
+        raise AssertionError("warmstart: {}: {}".format(
+            "; ".join(failures), row))
+    return row
+
+
 def main():
     import torch
 
@@ -6583,11 +6995,17 @@ def main():
                                     torch, np, fa, metrics, clustered,
                                     mega_cluster)
     control = timed("control", phase_control, torch, np, clustered)
+    # the warm-start phase's cold replica compiles beside the fleet phase
+    warm_started = timed("warmstart_start", start_warmstart, torch, np)
     try:
         fleet_row = timed("fleet", phase_fleet, torch, np,
                           supervised["crash_resume"]["published"])
+    except BaseException:
+        stop_warmstart(warm_started)
+        raise
     finally:
         shutil.rmtree(fleet_root, ignore_errors=True)
+    warm = timed("warmstart", phase_warmstart, torch, np, warm_started)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
           "phase_seconds": phase_seconds, "http_retries": HTTP_RETRIES})
 
@@ -6612,13 +7030,15 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path: the flash LM trained by
-            # fit_supervised(publish=) (the supervised phase's crash run,
-            # its counters zeroed before and read after) and served by
-            # the fleet's two replicas (fresh processes: each counts from
-            # 0 and prints its count at exit)
-            "launches": (supervised["crash_resume"]["launches"][name]
-                         + (sum(fleet_row["fwd_launches"].values())
+            # this slice's main path, the warm-start compile plane: the
+            # flash LM trained by the cold and the warm cluster (each
+            # node's counters zeroed before fit_supervised and read after)
+            # and served by the cold and the warm replica (fresh
+            # processes: each counts from 0 and prints its count at exit)
+            "launches": (sum(warm["train"][run]["launches"][name]
+                             for run in ("cold", "warm"))
+                         + (sum(warm["serve"][run]["fwd_launches"]
+                                for run in ("cold", "warm"))
                             if name == "flash_fwd" else 0)),
             "device_launches_by_path": dict(
                 {"parallel_fsdp": parallel["runs"]["k1"][
@@ -6652,6 +7072,10 @@ def main():
                      "runs"]["k1"]["launches"][name],
                  "observability_guard_k5": observed_card["transfer_guard"][
                      "runs"]["k%d" % MEGA_K]["launches"][name],
+                 "warmstart_train_cold": warm["train"]["cold"][
+                     "launches"][name],
+                 "warmstart_train_warm": warm["train"]["warm"][
+                     "launches"][name],
                  "control_rollback": control["control_rollback"][
                      "launches"][name],
                  "control_evict": control["control_evict"]["launches"][name],
@@ -6696,6 +7120,8 @@ def main():
                                else len(bwd_rows))}
         if name == "flash_fwd":
             entry["launches_by_path"].update({
+                "warmstart_serve_cold": warm["serve"]["cold"]["fwd_launches"],
+                "warmstart_serve_warm": warm["serve"]["warm"]["fwd_launches"],
                 "fleet_replicas": sum(fleet_row["fwd_launches"].values()),
                 "serve": serve["fwd_launches"],
                 "gateway": gatewayed["fwd_launches"],

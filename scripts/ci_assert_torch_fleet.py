@@ -31,8 +31,11 @@ gate walks the whole story inside the budget:
    the canary journal.
 
 The JAX gate's ``--warm-cache-dir`` (each model's second replica warming
-from its first's serialized executables) is left out: warm starts wait for
-the compile plane (ROADMAP.md, item H), so all replicas start at once.
+from its first's stored rungs) is left out, so all replicas start at once:
+each rung's AOTInductor compile takes about 20 s on the CPU, three models'
+worth would triple this gate's time.  Replicas warming from a warm dir, by
+flag and by a registry entry's ``warm_dir``, are held by
+``tests/test_torch_compilecache_aoti.py``.
 
     python scripts/ci_assert_torch_fleet.py
 

@@ -50,6 +50,19 @@ def _fs_path(path):
     return os.path.abspath(path)
 
 
+def aot_root(directory):
+    """The AOT artifact store beside a checkpoint root.
+
+    Warm rejoin and restore share one directory tree: a replacement node
+    that can see the checkpoints can also see the stored artifacts
+    (:mod:`~tensorflowonspark_torch.compilecache`), so ``fit_supervised``
+    restores state AND installs the step's kernels without ``nvcc`` from
+    the same mount.  The subdirectory name is outside the checkpoint
+    namespace, so retention and quarantine never touch it.
+    """
+    return os.path.join(_fs_path(directory), "aot_executables")
+
+
 def _map_tensors(tree, fn):
     """``tree`` with ``fn`` applied to every tensor; dicts, lists and tuples
     are rebuilt, other leaves kept."""

@@ -19,9 +19,10 @@ spawned processes, and each node's first CUDA call is in its user fn.  The
 observatory (``observatory=True``: ``/metrics``, ``/status``, ``/profile``,
 ``/slow``, ``/alerts``, ``/autopilot``, ``/remediations``), the per-node
 profiler capture endpoints (``profiler=True``) and the alerting and control
-planes (``watchtower``, ``autopilot``, ``remediator``) are ported.  Not
-ported yet, each raising ``NotImplementedError`` naming its ROADMAP.md item
-when asked for: ``data_service`` and ``compile_cache_dir``.
+planes (``watchtower``, ``autopilot``, ``remediator``) and the warm-start
+compile plane (``compile_cache_dir``) are ported.  Not ported yet, raising
+``NotImplementedError`` naming its ROADMAP.md item when asked for:
+``data_service``.
 """
 
 import logging
@@ -39,15 +40,13 @@ from tensorflowonspark_torch import telemetry as telemetry_mod
 
 logger = logging.getLogger(__name__)
 
-#: env fallback of the compile cache dir (the JAX package's
-#: ``compilecache.CACHE_DIR_ENV``); nodes refuse a configured one
+#: env fallback of the compile cache dir (``compilecache.CACHE_DIR_ENV``)
 COMPILE_CACHE_DIR_ENV = "TFOS_COMPILE_CACHE_DIR"
 
 # cluster.run options whose planes are not ported: (value that leaves them
 # off, the ROADMAP.md item that ports them)
 _UNPORTED = {
     "data_service": "Queue 1, item E, the data service",
-    "compile_cache_dir": "Queue 1, item H, the compile plane",
 }
 
 
@@ -703,16 +702,23 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         /remediations`` plus ``tfos_remediation_actions_total`` on
         ``/metrics``; final tallies latch into
         ``tf_status["remediations"]``.
-      data_service, compile_cache_dir: the JAX package's data-service and
-        compile planes.  Not ported yet: a value that would turn one on
-        raises ``NotImplementedError`` naming its ROADMAP.md item.
+      data_service: the JAX package's data-service plane.  Not ported
+        yet: a value that would turn it on raises ``NotImplementedError``
+        naming its ROADMAP.md item.
+      compile_cache_dir: warm-start compile plane
+        (:mod:`~tensorflowonspark_torch.compilecache`): every node makes
+        this cluster-shared directory its compile root before its user fn
+        touches CUDA, so the kernel libraries build once into
+        ``<dir>/kernels`` and an elastic replacement node (which re-runs
+        the same start closure) loads them instead of running ``nvcc`` —
+        ``tfos_compile_cache_hit`` counts the saves on ``/metrics``.  Falls
+        back to the ``TFOS_COMPILE_CACHE_DIR`` env var; None with no env
+        leaves the compile plane off.
     """
-    for name, value in (("data_service", data_service),
-                        ("compile_cache_dir", compile_cache_dir)):
-        if value:
-            raise NotImplementedError(
-                "cluster.run({}=...) is not ported yet (ROADMAP.md, "
-                "{})".format(name, _UNPORTED[name]))
+    if data_service:
+        raise NotImplementedError(
+            "cluster.run(data_service=...) is not ported yet (ROADMAP.md, "
+            "{})".format(_UNPORTED["data_service"]))
     if hasattr(cluster_backend, "parallelize"):  # raw SparkContext
         cluster_backend = backend_mod.SparkBackend(cluster_backend)
     num_executors = num_executors or cluster_backend.num_executors
@@ -1063,9 +1069,13 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         "data_service": None,
         # the nodes warm their profiler where captures can come
         "profiling": bool(observatory or profiler),
-        # Resolved on the DRIVER, as in the JAX package, so a node refuses
-        # a cache dir that only the driver's environment names.
-        "compile_cache_dir": os.environ.get(COMPILE_CACHE_DIR_ENV),
+        # Resolved here, where cluster.run is called (env fallback
+        # included), so every node — and every future replacement — shares
+        # one cache root even when only this process's environment names
+        # it.
+        "compile_cache_dir": (os.path.abspath(compile_cache_dir)
+                              if compile_cache_dir
+                              else os.environ.get(COMPILE_CACHE_DIR_ENV)),
     }
     tracer.instant("cluster/start", num_executors=num_executors,
                    input_mode=str(input_mode),

@@ -39,8 +39,10 @@ gateway (:mod:`tensorflowonspark_torch.gateway`):
   controller walks to live with no operator in the loop.
 
 A registry entry's ``warm_dir`` is recorded and served back as the JAX
-package does; a replica that would use one (``inference_cli --registry``)
-refuses it until the compile plane is ported (ROADMAP.md, item H).
+package does; a replica that resolves the entry (``inference_cli
+--registry``) takes it as its warm-start root unless ``--warm-cache-dir``
+names one (:mod:`~tensorflowonspark_torch.compilecache`), and
+:func:`publish_trained` passes a spec's ``warm_dir`` through.
 """
 
 import json

@@ -2,8 +2,9 @@
 
 The port's copy of :mod:`tensorflowonspark_tpu.gateway`; the copy is the
 port's own.  It batches for the port's :class:`serving.ModelServer`, whose
-warmup dispatches every rung eagerly (eager PyTorch loads no serialized
-executable), and leaves out the compile plane's counters (not ported).
+warmup loads or compiles every rung's AOTInductor package under a warm
+cache (eagerly dispatched rungs without one), and its beats carry the
+compile plane's counters.
 The batcher thread is the one thread that runs the model: the kernel
 wrappers take the current stream of ``torch.cuda.device(tensor.device)``,
 ``predict_feed`` enters ``torch.inference_mode`` on that thread, and a
@@ -749,6 +750,13 @@ class GatewayServer(object):
         if report:
             out["serving_warm_loaded"] = report["loaded"]
             out["serving_warm_compiled"] = report["compiled"]
+        # Compile-plane tallies (kernel cache hits, AOT loads): gateway
+        # replicas run outside a node process, so they merge the snapshot
+        # here instead of via node._register_feed — the same counters, one
+        # channel per process, never both.
+        from tensorflowonspark_torch import compilecache
+
+        out.update(compilecache.stats.counters_snapshot())
         return out
 
     # -- network front ------------------------------------------------------

@@ -34,12 +34,18 @@ default, and labels its metrics and roster meta with that version:
         --registry /path/to/registry --model lm --serve --port 0 \
         --roster driver:41111 --replica-id lm-0
 
+``--warm-cache-dir W`` (or a registry entry's ``warm_dir``) makes ``W`` the
+replica's compile root and warm store
+(:mod:`~tensorflowonspark_torch.compilecache`): the kernels build under
+``W/kernels``, and each ladder rung's AOTInductor package is stored in ``W``,
+so a restarted replica loads its rungs and reaches its ready line with
+``compile_count == 0``.
+
 A response is one frame with a 4-byte length: its outputs must stay under
 4 GiB (33 rows of the flagship LM's fp32 logits do not fit).
 
-Not ported yet, and refused with ``NotImplementedError``: ``--warm-cache-dir``
-and a registry entry's ``warm_dir`` (item H, the compile plane) and
-``--pjrt_plugin`` (item L, the C++ runner).
+Not ported yet, and refused with ``NotImplementedError``: ``--pjrt_plugin``
+(item L, the C++ runner).
 """
 
 import argparse
@@ -83,12 +89,50 @@ def run_inference(export_dir, rows, input_mapping=None, output_name=None,
 
 def _refuse_unported(args):
     """Options of the JAX CLI that wait for another item of the port."""
-    if getattr(args, "warm_cache_dir", None):
-        raise NotImplementedError(
-            "--warm-cache-dir waits for the compile plane (ROADMAP item H)")
     if getattr(args, "pjrt_plugin", None):
         raise NotImplementedError(
             "--pjrt_plugin waits for the C++ runner (ROADMAP item L)")
+
+
+def open_replica(args):
+    """A ``--serve`` replica's model: ``(ModelServer, model version)``,
+    the export resolved through ``--registry/--model`` where given, and
+    the warm-start root (``--warm-cache-dir``, else the registry entry's
+    ``warm_dir``) configured and attached."""
+    model_version = args.model_version
+    if args.registry:
+        # fleet mode: resolve --model NAME[@VERSION] through the model
+        # registry instead of pinning an export path; the registry entry
+        # also supplies the version label and (absent an explicit flag)
+        # the shared warm dir
+        from tensorflowonspark_torch import fleet
+
+        registry = fleet.ModelRegistry(args.registry)
+        name, _, pinned = (args.model or "").partition("@")
+        if not name:
+            raise SystemExit("--registry requires --model NAME[@VERSION]")
+        entry = registry.resolve(name, pinned or model_version or None)
+        args.export_dir = entry["export_dir"]
+        model_version = entry["version"]
+        if entry.get("warm_dir") and not args.warm_cache_dir:
+            args.warm_cache_dir = entry["warm_dir"]
+        logger.info("registry %s resolved %s@%s -> %s", args.registry,
+                    name, model_version, args.export_dir)
+    elif not args.export_dir:
+        raise SystemExit("--serve needs --export_dir or --registry/--model")
+    if args.warm_cache_dir:
+        # Warm-start compile plane: the kernels' build cache and the
+        # rungs' AOTInductor packages under one root, so a restarted
+        # replica reaches first prediction with compile_count == 0.
+        # register_feed=False: gateway beats merge the counters themselves
+        # (heartbeat_metrics), there is no node heartbeat here.
+        from tensorflowonspark_torch import compilecache
+
+        compilecache.configure(args.warm_cache_dir, register_feed=False)
+    server = serving.ModelServer(args.export_dir, args.max_batch,
+                                 device=args.device,
+                                 warm_cache_dir=args.warm_cache_dir)
+    return server, model_version
 
 
 def serve_forever(args):
@@ -103,31 +147,7 @@ def serve_forever(args):
     _refuse_unported(args)
     telemetry.configure_from_meta({})
     telemetry.install_sigusr1()
-    model_version = args.model_version
-    if args.registry:
-        # fleet mode: resolve --model NAME[@VERSION] through the model
-        # registry instead of pinning an export path; the registry entry
-        # also supplies the version label
-        from tensorflowonspark_torch import fleet
-
-        registry = fleet.ModelRegistry(args.registry)
-        name, _, pinned = (args.model or "").partition("@")
-        if not name:
-            raise SystemExit("--registry requires --model NAME[@VERSION]")
-        entry = registry.resolve(name, pinned or model_version or None)
-        if entry.get("warm_dir"):
-            raise NotImplementedError(
-                "registry entry {}@{} carries a warm_dir ({}): warm starts "
-                "wait for the compile plane (ROADMAP item H)".format(
-                    name, entry["version"], entry["warm_dir"]))
-        args.export_dir = entry["export_dir"]
-        model_version = entry["version"]
-        logger.info("registry %s resolved %s@%s -> %s", args.registry,
-                    name, model_version, args.export_dir)
-    elif not args.export_dir:
-        raise SystemExit("--serve needs --export_dir or --registry/--model")
-    server = serving.ModelServer(args.export_dir, args.max_batch,
-                                 device=args.device)
+    server, model_version = open_replica(args)
     gw = gateway.GatewayServer(
         server, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
@@ -149,7 +169,8 @@ def serve_forever(args):
     telemetry.get_tracer().flush()
 
 
-def main(argv=None):
+def build_parser():
+    """The CLI's argument parser."""
     parser = argparse.ArgumentParser(
         description="Batch inference over TFRecords with an export of the "
                     "port (reference Inference.scala); --serve runs an "
@@ -205,8 +226,8 @@ def main(argv=None):
     serve.add_argument("--registry", default=None,
                        help="model-fleet registry root (fleet.ModelRegistry): "
                             "resolve the export through the registry instead "
-                            "of --export_dir; an entry with a warm_dir is "
-                            "refused (the compile plane, ROADMAP item H)")
+                            "of --export_dir; an entry's warm_dir is the "
+                            "replica's --warm-cache-dir unless one is given")
     serve.add_argument("--model", default=None,
                        help="with --registry: model NAME or NAME@VERSION "
                             "(default version = the model's live default)")
@@ -215,8 +236,15 @@ def main(argv=None):
                             "roster meta (set automatically by --registry)")
     serve.add_argument("--warm-cache-dir", default=None,
                        dest="warm_cache_dir",
-                       help="warm-start root; not ported yet (the compile "
-                            "plane, ROADMAP item H): refused")
+                       help="warm-start root: the kernels' build cache and "
+                            "each bucket rung's stored AOTInductor package; "
+                            "a replica restart then warms by loading "
+                            "instead of compiling")
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
     args = parser.parse_args(argv)
 
     if args.serve:

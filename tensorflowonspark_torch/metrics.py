@@ -10,6 +10,7 @@ computed from them is the least time, never a promise.  There is no CPU
 entry: on the CPU, MFU is None.
 """
 
+import importlib
 import json
 import logging
 import time
@@ -249,6 +250,21 @@ class _ByteCounter(TorchDispatchMode):
                               for t in tree_leaves((args, kwargs, out))
                               if isinstance(t, torch.Tensor))
         return out
+
+
+def _count_inside_kernel_ops():
+    """The flash kernels are opaque custom ops; both counters see inside
+    them, as they saw the plain versions and the kernel wrappers before."""
+    from torch.utils import flop_counter
+
+    fa = importlib.import_module(
+        "tensorflowonspark_torch.ops.flash_attention")
+    fa.see_inside(_ByteCounter)
+    fa.see_inside(getattr(flop_counter, "_FlopCounterMode",
+                          flop_counter.FlopCounterMode))
+
+
+_count_inside_kernel_ops()
 
 
 def estimate_step_cost(fn, *args, **kwargs):

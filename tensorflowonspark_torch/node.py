@@ -834,12 +834,15 @@ def run(fn, tf_args, cluster_meta, tensorboard=False, log_dir=None,
 
         def wrapper_fn(args, context):
             """Invoke the user fn with argv semantics (reference TFSparkNode.py:320-324)."""
-            # The warm-start compile plane is not ported: a configured
-            # cache dir is refused here, in the process that would compile.
-            if cluster_meta.get("compile_cache_dir"):
-                raise NotImplementedError(
-                    "compile_cache_dir: the compile plane is not ported yet "
-                    "(ROADMAP.md, Queue 1, item H, the compile plane)")
+            # Warm-start compile plane: runs in the process that actually
+            # compiles (the forked background child in SPARK mode, this
+            # process in FILES mode), BEFORE the user fn touches CUDA —
+            # replacement nodes re-enter through this same closure, which
+            # is what makes warm rejoin automatic.  No-op without a
+            # configured cache dir; sets paths only (no CUDA).
+            from tensorflowonspark_torch import compilecache
+
+            compilecache.configure_from_meta(cluster_meta)
             if isinstance(args, list):
                 sys.argv = args
             fn(args, context)

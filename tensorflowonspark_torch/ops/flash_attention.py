@@ -28,10 +28,20 @@ the tensor cores (``wgmma``, :func:`product_path`) and take head_dim 32,
 the wrapper zero-pads head_dim 32 to 64 for them (exact: zero columns add
 nothing to any product or to δ) and slices the result.
 Every CUDA input needs a 16-byte aligned base pointer and strides.
+
+The three launches are ``torch.library`` custom ops, ``tfos::flash_fwd``,
+``tfos::flash_bwd_dq`` and ``tfos::flash_bwd_dkv``: each with the CUDA
+kernel registered for ``cuda``, its plain version for ``cpu``, and a fake
+(output in the input dtype, the LSE and δ in fp32) for tracing.  So
+``torch.export`` and AOTInductor see each as one opaque call, and a
+compiled package (:mod:`~tensorflowonspark_torch.compilecache`) calls the
+same kernels, launch counters included.  Every op returns contiguous
+tensors, the strides its fake promises.
 """
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -340,29 +350,125 @@ def _check_device(q):
                          "{}".format(q.device))
 
 
-def _flash_fwd(q, k, v, scale, causal):
-    """``(O in q.dtype, L fp32 [batch * heads, seq])``: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    _check_device(q)
-    if q.device.type == "cuda":
-        return _flash_fwd_cuda(q, k, v, scale, causal)
+_Tensor = torch.Tensor
+
+
+def _fwd_plain(q, k, v, scale, causal):
     out, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    return out.to(q.dtype), lse
+    return out.to(q.dtype).contiguous(), lse.contiguous()
+
+
+def _fwd_kernel(q, k, v, scale, causal):
+    out, lse = _flash_fwd_cuda(q, k, v, scale, causal)
+    return out.contiguous(), lse
+
+
+def _bwd_dq_plain(q, k, v, out, lse, grad_out, scale, causal):
+    dq, delta = flash_bwd_dq_plain(q, k, v, out, lse, grad_out, causal,
+                                   scale)
+    return dq.to(q.dtype).contiguous(), delta.contiguous()
+
+
+def _bwd_dq_kernel(q, k, v, out, lse, grad_out, scale, causal):
+    dq, delta = _flash_bwd_dq_cuda(q, k, v, out, lse, grad_out, scale,
+                                   causal)
+    return dq.contiguous(), delta
+
+
+def _bwd_dkv_plain(q, k, v, grad_out, lse, delta, scale, causal):
+    dk, dv = flash_bwd_dkv_plain(q, k, v, grad_out, lse, delta, causal, scale)
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
+def _bwd_dkv_kernel(q, k, v, grad_out, lse, delta, scale, causal):
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale, causal)
+    return dk.contiguous(), dv.contiguous()
+
+
+@torch.library.custom_op("tfos::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: _Tensor, k: _Tensor, v: _Tensor, scale: float,
+                  causal: bool) -> Tuple[_Tensor, _Tensor]:
+    return _fwd_plain(q, k, v, scale, causal)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, causal):
+    batch, s_len, heads, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((batch * heads, s_len), dtype=torch.float32))
+
+
+@torch.library.custom_op("tfos::flash_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dq_op(q: _Tensor, k: _Tensor, v: _Tensor, out: _Tensor,
+                     lse: _Tensor, grad_out: _Tensor, scale: float,
+                     causal: bool) -> Tuple[_Tensor, _Tensor]:
+    return _bwd_dq_plain(q, k, v, out, lse, grad_out, scale, causal)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, out, lse, grad_out, scale, causal):
+    return q.new_empty(q.shape), lse.new_empty(lse.shape)
+
+
+@torch.library.custom_op("tfos::flash_bwd_dkv", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dkv_op(q: _Tensor, k: _Tensor, v: _Tensor, grad_out: _Tensor,
+                      lse: _Tensor, delta: _Tensor, scale: float,
+                      causal: bool) -> Tuple[_Tensor, _Tensor]:
+    return _bwd_dkv_plain(q, k, v, grad_out, lse, delta, scale, causal)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, grad_out, lse, delta, scale, causal):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+#: each op's implementation by device type
+_IMPLS = {
+    _flash_fwd_op: {"cpu": _fwd_plain, "cuda": _fwd_kernel},
+    _flash_bwd_dq_op: {"cpu": _bwd_dq_plain, "cuda": _bwd_dq_kernel},
+    _flash_bwd_dkv_op: {"cpu": _bwd_dkv_plain, "cuda": _bwd_dkv_kernel},
+}
+for _op, _impls in _IMPLS.items():
+    _op.register_kernel("cuda")(_impls["cuda"])
+
+
+def see_inside(mode_class):
+    """Let the dispatch modes of ``mode_class`` see inside the ops: under
+    such a mode each op runs its device's implementation with the mode
+    active, so the mode sees that implementation's aten ops (on the CPU the
+    plain version's products, on a card the wrapper's allocations) instead
+    of one opaque call.  The step-cost counters
+    (:func:`~tensorflowonspark_torch.metrics.estimate_step_cost`) count
+    through it."""
+    for op, impls in _IMPLS.items():
+        def rule(mode, func, types, args, kwargs, impls=impls):
+            with mode:
+                return impls[args[0].device.type](*args, **(kwargs or {}))
+        op.register_torch_dispatch(mode_class, rule)
+
+
+def _flash_fwd(q, k, v, scale, causal):
+    """``(O in q.dtype, L fp32 [batch * heads, seq])`` through
+    ``tfos::flash_fwd``: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_device(q)
+    return torch.ops.tfos.flash_fwd(q, k, v, float(scale), bool(causal))
 
 
 def _flash_bwd(q, k, v, out, lse, grad_out, scale, causal):
-    """``(dQ, dK, dV)`` in the inputs' dtypes: the two kernels for CUDA
-    tensors, the plain version for CPU tensors."""
+    """``(dQ, dK, dV)`` in the inputs' dtypes through ``tfos::flash_bwd_dq``
+    and ``tfos::flash_bwd_dkv``: the two kernels for CUDA tensors, the plain
+    versions for CPU tensors."""
     _check_device(q)
-    if q.device.type == "cuda":
-        dq, delta = _flash_bwd_dq_cuda(q, k, v, out, lse, grad_out, scale,
-                                       causal)
-        dk, dv = _flash_bwd_dkv_cuda(q, k, v, grad_out, lse, delta, scale,
-                                     causal)
-        return dq, dk, dv
-    dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, grad_out,
-                                           causal, scale)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    scale, causal = float(scale), bool(causal)
+    dq, delta = torch.ops.tfos.flash_bwd_dq(q, k, v, out, lse, grad_out,
+                                            scale, causal)
+    dk, dv = torch.ops.tfos.flash_bwd_dkv(q, k, v, grad_out, lse, delta,
+                                          scale, causal)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -397,7 +503,9 @@ def flash_attention(q, k, v, causal=True, block_q=128, block_k=128,
     clamped to the sequence length, which must divide by them.  On CUDA
     tensors the forward and backward are the hand-written kernels; on CPU
     tensors they are :func:`flash_attention_plain` and
-    :func:`flash_attention_bwd_plain`.
+    :func:`flash_attention_bwd_plain`.  Where no gradient is recorded (a
+    server, or ``torch.export`` under ``no_grad``) it is the forward op
+    alone.
     """
     s_len = q.shape[1]
     scale = _default_scale(q, scale)
@@ -406,4 +514,7 @@ def flash_attention(q, k, v, causal=True, block_q=128, block_k=128,
     assert s_len % block_q == 0 and s_len % block_k == 0, (
         "seq len {} must divide by blocks ({}, {})".format(
             s_len, block_q, block_k))
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _flash_fwd(q, k, v, scale, causal)[0]
     return _FlashAttention.apply(q, k, v, causal, scale)

@@ -16,8 +16,15 @@ package's:
 
 A live weight swap (:meth:`ModelServer.swap_export`) copies a compatible
 export's params in place into the served module: nothing is rebuilt or
-warmed again.  The exported StableHLO artifact and the warm executable
-cache of the JAX server have no counterpart yet: the port serves from the
+warmed again.
+
+``warm_cache_dir`` is the JAX server's warm executable cache
+(:mod:`~tensorflowonspark_torch.compilecache`): each ladder rung's forward
+is compiled ahead of time with AOTInductor at its zero feed, the params
+taken as inputs, and stored, so a restarted replica loads every rung with
+``compile_count == 0``, and a weight swap keeps the rungs.  Without it the
+rungs run the eager forward.  The exported StableHLO artifact of the JAX
+server has no counterpart yet (ROADMAP item G): the port serves from the
 registry.
 """
 
@@ -84,10 +91,6 @@ class ModelServer(object):
 
     def __init__(self, export_dir, batch_size=128, device=None,
                  warm_cache_dir=None):
-        if warm_cache_dir:
-            raise NotImplementedError(
-                "ModelServer(warm_cache_dir=) waits for the compile plane "
-                "(ROADMAP item H)")
         self.device = resolve_device(device)
         state, desc = checkpoint.load_model(export_dir)
         self.batch_size = batch_size
@@ -104,6 +107,15 @@ class ModelServer(object):
         self.warmup_report = None
         #: Completed live weight swaps (:meth:`swap_export`).
         self.swap_count = 0
+        # Warm-start artifact store (compilecache.AOTCache): each rung's
+        # AOTInductor package, stored across restarts.  _warm_exec holds
+        # the rungs' loaded programs, called with the served params.
+        self._aot = None
+        self._warm_exec = {}
+        if warm_cache_dir:
+            from tensorflowonspark_torch import compilecache
+
+            self._aot = compilecache.AOTCache(warm_cache_dir)
         self.descriptor = desc
         self.signature = _normalize_signature(desc.get("input_signature"))
         self.model = self._registry_model(state)
@@ -193,6 +205,25 @@ class ModelServer(object):
             return self.model(**inputs)
         (x,) = inputs.values()
         return self.model(x)
+
+    def _functional(self, params, inputs):
+        """:meth:`_apply` with ``params`` in place of the module's own (the
+        form a rung's AOTInductor program is compiled from)."""
+        if len(self.signature) > 1:
+            return torch.func.functional_call(self.model, params, (), inputs)
+        return torch.func.functional_call(self.model, params,
+                                          tuple(inputs.values()))
+
+    def _params(self):
+        """The served module's params and buffers by name: the tensors a
+        weight swap writes in place."""
+        params = {k: v.detach() for k, v in self.model.named_parameters()}
+        params.update((k, v.detach()) for k, v in self.model.named_buffers())
+        return params
+
+    def _inputs(self, feed):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in feed.items()}
 
     # -- input assembly ---------------------------------------------------
 
@@ -289,28 +320,73 @@ class ModelServer(object):
         return feed
 
     def warmup(self):
-        """Dispatch every ladder rung once, largest first, before traffic
-        arrives.  Returns the number of rungs warmed (0 when the signature
-        cannot shape a dummy feed).  Per-rung times land in
-        :attr:`warmup_report`; every verdict is ``"compiled"`` (eager
-        PyTorch loads no serialized executable)."""
+        """Warm every ladder rung before traffic arrives, largest first so
+        the full batch — the steady-state shape — is warm earliest.
+        Returns the number of rungs warmed (0 when the signature cannot
+        shape a dummy feed; those exports warm on first use instead).
+
+        Without a warm cache each rung is one zero-filled eager dispatch.
+        With ``warm_cache_dir`` each rung first tries to LOAD its stored
+        AOTInductor package (a restarted replica then reaches first
+        prediction with ``compile_count == 0``); cold rungs compile
+        explicitly and persist for the next restart.  Per-rung verdicts
+        land in :attr:`warmup_report`."""
         report = []
         for b in reversed(self.buckets):
             feed = self.zero_feed(b)
             if feed is None:
                 break
-            t0 = time.perf_counter()
-            self.predict_feed(feed, b)
-            report.append({"bucket": b, "verdict": "compiled",
-                           "micros": int((time.perf_counter() - t0) * 1e6)})
-        self.warmup_report = {"buckets": report, "loaded": 0,
-                              "compiled": len(report)}
+            verdict, micros = self._warm_bucket(b, feed)
+            report.append({"bucket": b, "verdict": verdict,
+                           "micros": micros})
+        self.warmup_report = {
+            "buckets": report,
+            "loaded": sum(1 for r in report if r["verdict"] == "loaded"),
+            "compiled": sum(1 for r in report if r["verdict"] != "loaded"),
+        }
         return len(report)
+
+    def _warm_bucket(self, bucket, feed):
+        """Warm one ladder rung; returns ``(verdict, micros)`` where the
+        verdict is ``"loaded"`` (a stored package, zero compiles) or
+        ``"compiled"``."""
+        t0 = time.perf_counter()
+        if self._aot is not None:
+            from tensorflowonspark_torch import compilecache
+
+            name = "serving_b%d" % bucket
+            params = self._params()
+            fp = compilecache.fingerprint(
+                avals=(params, feed),
+                extra={"program": name,
+                       "stablehlo": False,
+                       "model": self.descriptor.get("model_name"),
+                       "model_config": repr(sorted(
+                           (self.descriptor.get("model_config")
+                            or {}).items()))})
+            compiled, verdict, _ = compilecache.load_or_compile(
+                self._aot, name, fp, compilecache.aoti_compile,
+                (self._functional, params, self._inputs(feed)))
+            if compiled is not None:
+                self._warm_exec[bucket] = compiled
+                # loaded rungs never bump compile_count: predict_feed's
+                # unseen-rung accounting must not count a load as a
+                # compile
+                if bucket not in self._seen_buckets:
+                    self._seen_buckets.add(bucket)
+                    if verdict != "loaded":
+                        self.compile_count += 1
+                return verdict, int((time.perf_counter() - t0) * 1e6)
+            # the export or compile refused: warm by dispatch like the
+            # cache-less path
+        self.predict_feed(feed, bucket)
+        return "compiled", int((time.perf_counter() - t0) * 1e6)
 
     def predict_feed(self, feed, count):
         """Run one batch padded to its ladder rung on the device; returns
         the model outputs for the first ``count`` rows as a dict of numpy
-        arrays."""
+        arrays.  A rung with a warm program runs it; any rejection reverts
+        that rung to the eager forward for good."""
         bucket = bucket_for(count, self.buckets)
         if bucket > count:
             def pad(x):
@@ -325,10 +401,22 @@ class ModelServer(object):
             # mark it on the trace timeline next to the request flows
             telemetry.get_tracer().instant(
                 "serving/compile", bucket=int(bucket), model=self.model_name)
-        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                  for k, v in feed.items()}
+        inputs = self._inputs(feed)
         with torch.inference_mode():
-            out = self._apply(inputs)
+            warm = self._warm_exec.get(bucket)
+            out = None
+            if warm is not None:
+                try:
+                    out = warm(self._params(), inputs)
+                except Exception:
+                    # the warm program is an optimization only: any
+                    # rejection reverts this rung to the eager forward
+                    logger.warning("warm program for bucket %d rejected the "
+                                   "call; reverting to eager dispatch",
+                                   bucket, exc_info=True)
+                    self._warm_exec.pop(bucket, None)
+            if out is None:
+                out = self._apply(inputs)
             return {k: _to_numpy(v[:count])
                     for k, v in _name_outputs(out).items()}
 

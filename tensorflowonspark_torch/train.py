@@ -130,13 +130,6 @@ STEPS_PER_CALL_ENV = "TFOS_STEPS_PER_CALL"
 #: autograd's buffers, which a capture cannot allocate for later replays
 GRAPH_WARMUP_STEPS = 2
 
-# constructor arguments of the JAX Trainer that this port does not take yet:
-# (JAX default, the ROADMAP.md item that ports it)
-_UNPORTED = {
-    "aot_cache": (None, "Queue 1, the compile plane"),
-}
-
-
 def _resolve_transfer_guard(mode):
     """Normalize a ``fit_feed(transfer_guard=...)`` / env value to a guard
     level string, or None when guarding is off (the JAX package's rule).
@@ -503,25 +496,38 @@ class Trainer(object):
         it), else ``("data", "fsdp")``.  ``ValueError`` when it differs
         from the model's; :meth:`fit_feed` raises when a meshed feed's
         differs.
-
-    ``aot_cache`` raises ``NotImplementedError`` at any value other than
-    the JAX default: it is not ported yet.
+      aot_cache: warm-start artifact store — a directory path or a
+        :class:`~tensorflowonspark_torch.compilecache.AOTCache`.  The step /
+        multi-step / repeat programs (``step``, ``multi_<K>``,
+        ``repeat_<K>``) are resolved through it at their first dispatch: a
+        fingerprint-matched artifact installs the kernel libraries the
+        step launches without ``nvcc`` (verdict ``loaded``); a cold store
+        builds them once and persists them for the next restart
+        (``compiled``).  The step itself stays eager (CUDA graphs at
+        K > 1, captured anew): AOTInductor compiles no backward or
+        optimizer step, and a CUDA graph cannot be serialized
+        (:class:`~tensorflowonspark_torch.compilecache.KernelSet`).
+        Fingerprints cover versions/device/mesh/avals/kernel sources PLUS
+        a structural hash of the loss fn + optimizer
+        (:func:`~tensorflowonspark_torch.compilecache.program_identity`),
+        so resuming after editing the loss or a hyperparameter rejects
+        the stale artifact; still scope the directory per model run.
+        :func:`fit_supervised` defaults it beside a LOCAL checkpoint root
+        (remote roots skip the default — the store is local-filesystem
+        only).  The build or install time counts in
+        ``train_compile_us_max``.
+      aot_program_version: optional caller-asserted program identity mixed
+        into the AOT fingerprint VERBATIM; bump it on any program change
+        the structural hash cannot see — a mismatch is a clean recompile,
+        never a crash.
     """
 
     def __init__(self, loss_fn, init_params, optimizer, extra_state=None,
                  compute_dtype=None, batch_size=None, log_steps=20,
                  extra_step_flops=0, step_flops_override=None,
                  summary_writer=None, device=None, accum_steps=1, mesh=None,
-                 param_sharding=None, batch_axes=None, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError("Trainer() got an unexpected keyword "
-                                "argument {!r}".format(name))
-            default, item = _UNPORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    "Trainer({}=...) is not ported yet (ROADMAP.md, "
-                    "{})".format(name, item))
+                 param_sharding=None, batch_axes=None, aot_cache=None,
+                 aot_program_version=None):
         self.device = resolve_device(device)
         self.mesh = mesh
         if isinstance(param_sharding, str) and param_sharding != "fsdp":
@@ -584,6 +590,7 @@ class Trainer(object):
         self.state = TrainState(step=0, params=params,
                                 optimizer=optimizer(stepped), extra=extra,
                                 sharding=sharding)
+        self._optimizer_factory = optimizer
         if self.device.type == "cuda" and not _asks_not_capturable(
                 optimizer):
             # eager steps and graph replays share one optimizer arithmetic
@@ -635,6 +642,18 @@ class Trainer(object):
         self._rollback_req = None
         self._rollback_tokens = set()
         self._rollbacks = 0
+        # the warm-start compile plane (compilecache): the artifact store,
+        # each program's resolved artifact (None: eager dispatch for good)
+        # and the batch signature it resolved for, and the load-vs-compile
+        # verdicts for status reporting
+        self._aot = None
+        self._aot_exec = {}
+        self._aot_signature = {}
+        self._aot_verdicts = {}
+        self._aot_program_version = aot_program_version
+        self._aot_program_id = None   # memoized program_identity digest
+        if aot_cache is not None:
+            self.set_aot_cache(aot_cache)
 
     # -- the step ---------------------------------------------------------
 
@@ -883,6 +902,7 @@ class Trainer(object):
         the loss a device scalar.  The first step also counts the step
         FLOPs and bytes unless :meth:`compile_and_measure` did."""
         batch, mask = self._prepare(batch, mask)
+        self._aot_dispatch("step", batch, mask)
         loss, aux, self._health_grad_norm = self._counted_step(batch, mask)
         self._note_dispatch(1)
         # TimeHistory syncs on the loss at window boundaries: honest
@@ -912,6 +932,7 @@ class Trainer(object):
         del donate_batches
         batches, masks = self._prepare(batches, masks, stacked=True)
         k = int(masks.shape[0])
+        self._aot_dispatch("multi_%d" % k, batches, masks)
         return self._dispatch_group(
             k, lambda i: (_map(batches, lambda t: t[i]), masks[i]))
 
@@ -920,6 +941,7 @@ class Trainer(object):
         benchmark twin of :meth:`multi_step`); returns the final step's
         loss, with the same per-step accounting."""
         batch, mask = self._prepare(batch, mask)
+        self._aot_dispatch("repeat_%d" % int(k), batch, mask)
         return self._dispatch_group(int(k), lambda i: (batch, mask))
 
     def _dispatch_group(self, k, slot):
@@ -935,6 +957,93 @@ class Trainer(object):
         self._note_dispatch(k)
         self.history.on_steps_end(k, losses, window_value=losses.mean())
         return losses[-1]
+
+    # -- the warm-start compile plane -------------------------------------
+
+    def set_aot_cache(self, cache):
+        """Attach a warm-start artifact store (a directory path or
+        :class:`~tensorflowonspark_torch.compilecache.AOTCache`).  No-op when
+        one is already attached, so :func:`fit_supervised` can default the
+        store beside the checkpoint root without clobbering an explicit
+        ctor choice."""
+        if self._aot is not None or cache is None:
+            return
+        from tensorflowonspark_torch import compilecache
+
+        self._aot = (cache if isinstance(cache, compilecache.AOTCache)
+                     else compilecache.AOTCache(cache))
+
+    def _aot_resolve(self, name, batch, mask):
+        """The artifact of program ``name``, or None (eager dispatch, no
+        store).  The first call per name decides: a fingerprint-matched
+        artifact installs the kernel libraries without ``nvcc`` (the
+        warm-rejoin path); a cold store builds them once and persists them
+        for the next restart.  Either way the time counts toward
+        ``train_compile_us_max``.  Shape drift after resolution is handled
+        at dispatch (:meth:`_aot_dispatch`)."""
+        if self._aot is None:
+            return None
+        if name in self._aot_exec:
+            return self._aot_exec[name]
+        from tensorflowonspark_torch import compilecache
+
+        optimizer = self.state.optimizer
+        if self._aot_program_id is None:
+            # the Python half of the program — avals alone cannot tell two
+            # losses (or two learning rates) with identical shapes apart
+            self._aot_program_id = compilecache.program_identity(
+                self.loss_fn, self._optimizer_factory,
+                "%s.%s" % (type(optimizer).__module__,
+                           type(optimizer).__qualname__), optimizer.defaults)
+        fp = compilecache.fingerprint(
+            avals=(self.state.params, self.state.extra, batch, mask),
+            mesh=self.mesh, donate=(),
+            extra={"program": name, "accum_steps": self.accum_steps,
+                   "compute_dtype": str(self.compute_dtype),
+                   "program_id": self._aot_program_id,
+                   "program_version": self._aot_program_version,
+                   # output-structure revision of the loop programs (the
+                   # JAX package's; kept so both stores read alike)
+                   "loop_rev": 2})
+        compiled, verdict, micros = compilecache.load_or_compile(
+            self._aot, name, fp, compilecache.KernelSet.compile,
+            (self.device,))
+        self._aot_verdicts[name] = verdict
+        self._compile_secs = (self._compile_secs or 0.0) + micros / 1e6
+        if verdict == "loaded":
+            # loud on purpose: this program runs PRE-EXISTING stored
+            # libraries — the fingerprint vouches for versions/device/
+            # avals/program identity, the operator should still see which
+            # store they came from
+            logger.warning(
+                "AOT program %s: loaded %d kernel librar%s from %s (%.1f "
+                "ms, no nvcc; program_id %s)", name, len(compiled.names),
+                "y" if len(compiled.names) == 1 else "ies",
+                self._aot.directory, micros / 1e3, self._aot_program_id[:12])
+        else:
+            logger.info("AOT program %s: %s (%.1f ms)", name, verdict,
+                        micros / 1e3)
+        self._aot_exec[name] = compiled
+        self._aot_signature[name] = _signature(batch, mask)
+        return compiled
+
+    def _aot_dispatch(self, name, batch, mask):
+        """Resolve program ``name`` before its dispatch.  A program whose
+        batch shapes drift from those it resolved for (e.g. an odd tail
+        batch) reverts to plain eager dispatch for good, as the JAX
+        Trainer reverts a shape-locked executable to JIT.  The dispatch
+        itself is the same either way: the artifact's libraries are the
+        ones the step launches."""
+        if self._aot is None:
+            return
+        if name not in self._aot_exec:
+            self._aot_resolve(name, batch, mask)
+        elif (self._aot_exec[name] is not None
+              and _signature(batch, mask) != self._aot_signature[name]):
+            logger.warning(
+                "AOT program %s: batch shapes drifted from its artifact's; "
+                "reverting this program to eager dispatch", name)
+            self._aot_exec[name] = None
 
     # -- CUDA graphs ------------------------------------------------------
 
@@ -1499,6 +1608,10 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
         ``train/publish`` span; under a sharded state every rank first
         joins the gather of the full params.
 
+    The AOT artifact store (``Trainer(aot_cache=)``) defaults to
+    :func:`~tensorflowonspark_torch.checkpoint.aot_root` beside a local
+    checkpoint root; a remote root skips it.
+
     Every attempt opens with ``trainer.restore_latest(validate=True)`` in a
     ``train/restore`` span and trains in a ``train/fit_attempt`` span.  The
     chief registers an emergency save with
@@ -1516,6 +1629,29 @@ def fit_supervised(trainer, feed_factory, ckpt_manager, retry_policy=None,
 
     policy = retry_policy or fault_mod.RetryPolicy()
     tracer = telemetry.get_tracer()
+
+    # Warm-start default: the AOT artifact store lives beside the
+    # checkpoints, so a restarted/replacement supervisor that can see the
+    # checkpoint root can also see the stored kernel libraries (restore and
+    # warm rejoin share one directory tree).  set_aot_cache is a no-op when
+    # the Trainer ctor already chose a store.  Remote roots skip the
+    # default: AOTCache is local-filesystem only, and a store silently
+    # landing on node-local disk would LOOK shared while never warming a
+    # rejoining node.
+    from tensorflowonspark_torch import checkpoint as ckpt_mod
+    from tensorflowonspark_torch import fsio
+
+    if fsio.is_remote(ckpt_manager.directory):
+        logger.info(
+            "checkpoint root %s is remote; warm-start AOT store not "
+            "auto-attached (pass Trainer(aot_cache=<shared local mount>) "
+            "to opt in)", ckpt_manager.directory)
+    else:
+        try:
+            trainer.set_aot_cache(ckpt_mod.aot_root(ckpt_manager.directory))
+        except (OSError, ValueError) as e:  # read-only roots: optional
+            logger.warning("AOT store beside checkpoints unavailable (%s); "
+                           "training proceeds without it", e)
 
     def _emergency_save():
         # the preemption drain: land whatever progress exists before the

@@ -267,15 +267,47 @@ def test_files_mode_node(tmp_path):
     assert set(state) == set(mnist.build_mnist().state_dict())
 
 
+def _compile_root_fun(args, ctx):
+    """What the node's compile plane set before this fn ran."""
+    import json
+
+    from tensorflowonspark_torch import compilecache
+    from tensorflowonspark_torch.ops import _build
+
+    with open(args.report, "w") as f:
+        json.dump({"configured": compilecache.configured_dir(),
+                   "env": os.environ.get(compilecache.CACHE_DIR_ENV),
+                   "kernels": str(_build.build_dir())}, f)
+
+
 @pytest.mark.parametrize("unported", [
     {"data_service": "localhost:1"},
-    {"compile_cache_dir": "/nonexistent"},
+    {"compile_cache_dir": "root"},
 ])
-def test_unported_planes_raise(unported):
-    """The planes still to port raise, naming their item (E, the data
-    service; H, the compile plane)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item [EH]"):
-        cluster.run(object(), _raise_fun, None, num_executors=1, **unported)
+def test_unported_planes_raise(unported, tmp_path):
+    """The data service (item E) still raises, naming its item; the
+    compile plane is ported: the node makes ``compile_cache_dir`` its
+    compile root (kernels under ``<root>/kernels``) before the user fn
+    runs."""
+    if "data_service" in unported:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item E"):
+            cluster.run(object(), _raise_fun, None, num_executors=1,
+                        **unported)
+        return
+    root = str(tmp_path / unported["compile_cache_dir"])
+    args = types.SimpleNamespace(report=str(tmp_path / "report.json"))
+    b = backend.LocalBackend(1)
+    try:
+        c = cluster.run(b, _compile_root_fun, args, num_executors=1,
+                        input_mode=cluster.InputMode.FILES,
+                        compile_cache_dir=root)
+        c.shutdown()
+    finally:
+        b.stop()
+    with open(args.report) as f:
+        report = json.load(f)
+    assert report == {"configured": root, "env": root,
+                      "kernels": os.path.join(root, "kernels")}
 
 
 def _noop_fun(args, ctx):

@@ -37,6 +37,37 @@ def _convert(jax_dir, torch_dir, to_torch):
         input_signature=desc["input_signature"])
 
 
+class _StandInCompiler(object):
+    """AOTInductor's stand-in for plumbing tests (the suite's real
+    compiles are in ``tests/test_torch_compilecache_aoti.py``): a rung's
+    package is a marker, its program the server's own functional forward,
+    which takes the params as inputs as a package does."""
+
+    def __init__(self, monkeypatch):
+        from tensorflowonspark_torch import compilecache
+
+        self.fns = []
+        self.cc = compilecache
+        monkeypatch.setattr(compilecache, "aoti_compile", self.compile)
+        monkeypatch.setattr(compilecache, "_load_package", self.load)
+        for var in (compilecache.CACHE_DIR_ENV, "TORCHINDUCTOR_CACHE_DIR",
+                    "TRITON_CACHE_DIR"):
+            if var in os.environ:
+                monkeypatch.setenv(var, os.environ[var])
+            else:
+                monkeypatch.delenv(var, raising=False)
+        monkeypatch.setattr(compilecache, "_configured_dir", None)
+        monkeypatch.setattr(compilecache, "_env_set", {})
+
+    def compile(self, fn, *args):
+        self.fns.append(fn)
+        return self.cc.AOTIProgram(b"stand-in package", fn)
+
+    def load(self, data, device):
+        assert data == b"stand-in package" and device == "cpu"
+        return self.fns[-1]
+
+
 def _assert_same_lines(got_path, want_path, n):
     got = [json.loads(line) for line in open(got_path)]
     want = [json.loads(line) for line in open(want_path)]
@@ -153,25 +184,48 @@ def test_serve_subprocess_answers_and_exits_on_sigterm(linear_exports):
 
 @pytest.mark.parametrize("flags,item", [
     (["--registry", "{registry}", "--model", "lin"], "item H"),
-    (["--warm-cache-dir", "/w"], "item H"),
+    (["--warm-cache-dir", "{warm}"], "item H"),
     (["--pjrt_plugin", "/p.so", "--input", "/in"], "item L"),
 ])
-def test_unported_options_raise(linear_exports, flags, item, tmp_path):
-    """``--warm-cache-dir``, a registry entry's ``warm_dir`` (the registry
-    itself is ported: ``tests/test_torch_fleet.py``) and ``--pjrt_plugin``
-    name the items that port them."""
-    from tensorflowonspark_torch import fleet
+def test_unported_options_raise(linear_exports, flags, item, tmp_path,
+                                monkeypatch):
+    """``--pjrt_plugin`` names the item that ports it.  ``--warm-cache-dir``
+    and a registry entry's ``warm_dir`` (item H) are ported: the replica's
+    compile root and warm store are that directory, its first start
+    compiles the rung and a restart loads it, answering as before (the
+    real AOTInductor replicas: ``tests/test_torch_compilecache_aoti.py``)."""
+    from tensorflowonspark_torch import compilecache, fleet
 
     _, torch_dir = linear_exports
+    warm = str(tmp_path / "warm")
     registry = fleet.ModelRegistry(tmp_path / "registry")
-    registry.publish("lin", "1", torch_dir, status="live",
-                     warm_dir=str(tmp_path / "warm"))
+    registry.publish("lin", "1", torch_dir, status="live", warm_dir=warm)
     registry.close()
-    flags = [f.format(registry=registry.root) for f in flags]
-    serve = [] if "--input" in flags else ["--serve"]
-    with pytest.raises(NotImplementedError, match=item):
-        inference_cli.main(["--export_dir", torch_dir, "--device", "cpu"]
-                           + serve + flags)
+    flags = [f.format(registry=registry.root, warm=warm) for f in flags]
+    if item == "item L":
+        with pytest.raises(NotImplementedError, match=item):
+            inference_cli.main(["--export_dir", torch_dir, "--device",
+                                "cpu"] + flags)
+        return
+    _StandInCompiler(monkeypatch)
+    x = {"x": np.asarray([[1.0, 1.0]], np.float32)}
+    verdicts, outs = [], []
+    for _ in range(2):
+        args = inference_cli.build_parser().parse_args(
+            ["--export_dir", torch_dir, "--device", "cpu", "--serve",
+             "--max-batch", "1"] + flags)
+        server, version = inference_cli.open_replica(args)
+        assert compilecache.configured_dir() == warm
+        assert server._aot.directory == warm
+        server.warmup()
+        verdicts.append([(b["bucket"], b["verdict"])
+                         for b in server.warmup_report["buckets"]])
+        outs.append(server.predict_feed(x, 1)["output"])
+    assert verdicts == [[(1, "compiled")], [(1, "loaded")]]
+    assert server.compile_count == 0
+    assert version == ("1" if "--registry" in flags else None)
+    np.testing.assert_allclose(outs[1][:, 0], [5.0], rtol=0, atol=TOL)
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def test_default_device_is_the_card(linear_exports, tmp_path, monkeypatch):

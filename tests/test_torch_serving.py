@@ -189,7 +189,8 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
                           "transformer_lm_torch.py"),
              os.path.join("scripts", "analyze_profile_torch.py"),
              os.path.join("scripts", "metrics_replay_torch.py"),
-             os.path.join("scripts", "ci_assert_torch_fleet.py"))
+             os.path.join("scripts", "ci_assert_torch_fleet.py"),
+             os.path.join("scripts", "ci_assert_torch_warmstart.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -210,7 +211,8 @@ missing = sorted(set(pkg.__name__ + "." + m for m in (
     "models.resnet", "ops.augment", "data", "parallel.mesh",
     "parallel.fsdp", "parallel.ring", "parallel.tp", "parallel.ep",
     "parallel.pp", "parallel.comm", "observatory", "profiling",
-    "profiler", "watchtower", "guardrails", "autopilot", "remediator"))
+    "profiler", "watchtower", "guardrails", "autopilot", "remediator",
+    "compilecache"))
     - set(names))
 from tensorflowonspark_torch.parallel import ep, fsdp, mesh, pp, ring, tp
 missing += [n for n in ("tp_param_shardings", "shard_params")
@@ -271,6 +273,15 @@ missing += [n for n in ("Remediator", "replay_journal")
             if not hasattr(remediator, n)]
 missing += [n for n in ("restore_latest_valid", "_quarantine")
             if not hasattr(checkpoint.CheckpointManager, n)]
+from tensorflowonspark_torch import compilecache
+missing += [n for n in ("CACHE_DIR_ENV", "stats", "configure",
+                        "configure_from_meta", "configured_dir",
+                        "fingerprint", "program_identity", "AOTCache",
+                        "load_or_compile", "KernelSet", "AOTIProgram",
+                        "aoti_compile") if not hasattr(compilecache, n)]
+missing += [n for n in ("aot_root",) if not hasattr(checkpoint, n)]
+missing += [n for n in ("set_aot_cache", "_aot_resolve")
+            if not hasattr(train.Trainer, n)]
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 25 else 0)
 """
@@ -283,10 +294,11 @@ def test_port_imports_no_jax():
     pipeline-parallel modules among them),
     chip_smoke.py, the port's MNIST, ResNet and LM examples,
     scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py and
-    scripts/ci_assert_torch_fleet.py has no jax, flax, optax, orbax or
-    JAX-package module; the alerting and control planes (watchtower,
-    guardrails, autopilot, remediator) and the model fleet (fleet, with
-    every public name of the JAX package's) are among the port modules."""
+    scripts/ci_assert_torch_fleet.py and scripts/ci_assert_torch_warmstart.py
+    has no jax, flax, optax, orbax or JAX-package module; the alerting and
+    control planes (watchtower, guardrails, autopilot, remediator), the
+    model fleet (fleet, with every public name of the JAX package's) and
+    the compile plane (compilecache) are among the port modules."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -297,9 +309,9 @@ def test_port_imports_no_jax():
 def test_port_sources_name_no_jax():
     """No line of the port (its fleet among it), of chip_smoke.py, of the
     port's MNIST, ResNet and LM examples or of
-    scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py and
-    scripts/ci_assert_torch_fleet.py imports a forbidden package, not even
-    inside a function."""
+    scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py,
+    scripts/ci_assert_torch_fleet.py and scripts/ci_assert_torch_warmstart.py
+    imports a forbidden package, not even inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
@@ -311,10 +323,11 @@ def test_port_sources_name_no_jax():
         assert os.path.join(REPO, "tensorflowonspark_torch", "parallel",
                             name + ".py") in paths, name
     for name in ("watchtower", "guardrails", "autopilot", "remediator",
-                 "cluster", "fleet"):
+                 "cluster", "fleet", "compilecache"):
         assert os.path.join(REPO, "tensorflowonspark_torch",
                             name + ".py") in paths, name
-    for name in ("metrics_replay_torch.py", "ci_assert_torch_fleet.py"):
+    for name in ("metrics_replay_torch.py", "ci_assert_torch_fleet.py",
+                 "ci_assert_torch_warmstart.py"):
         assert os.path.join(REPO, "scripts", name) in paths, name
     offenders = []
     for path in paths:

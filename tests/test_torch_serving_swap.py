@@ -5,6 +5,8 @@
 converted, served by both for ``linear`` and for the multi-input,
 multi-output ``two_tower`` (fp32: 1e-6)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,8 @@ from tensorflowonspark_tpu import checkpoint as jax_checkpoint
 from tensorflowonspark_tpu import serving as jax_serving
 from tensorflowonspark_tpu import telemetry as jax_telemetry
 from tensorflowonspark_tpu.models import get_model as jax_get_model
-from tensorflowonspark_torch import checkpoint, convert, serving, telemetry
+from tensorflowonspark_torch import (checkpoint, compilecache, convert,
+                                     serving, telemetry)
 from tensorflowonspark_torch.fleet import SwapRefused
 
 TOL = 1e-6
@@ -131,10 +134,55 @@ def test_warmup_report_and_version_match_jax(lm):
     assert server.model_name == jax_server.model_name
 
 
-def test_warm_cache_dir_is_not_ported(lm, tmp_path):
-    with pytest.raises(NotImplementedError, match="item H"):
-        serving.ModelServer(lm[1], batch_size=4, device="cpu",
-                            warm_cache_dir=str(tmp_path))
+def test_warm_cache_dir_is_not_ported(lm, tmp_path, monkeypatch):
+    """``warm_cache_dir`` is ported (item H): every rung compiles into the
+    store, a restart loads each with ``compile_count == 0`` (the JAX
+    server's verdicts and counts), outputs stay the eager server's, and a
+    live swap keeps the loaded rungs, whose params are inputs.  The rungs'
+    programs here are the forward itself (the real AOTInductor packages:
+    ``tests/test_torch_compilecache_aoti.py``)."""
+    _StandInCompiler(monkeypatch)
+    tokens = np.random.default_rng(2).integers(0, 64, (3, 32)).astype(
+        np.int32)
+    eager = serving.ModelServer(lm[1], batch_size=4, device="cpu")
+    want = eager.predict_feed({"tokens": tokens}, 3)["output"]
+    reports = []
+    for _ in range(2):
+        server = serving.ModelServer(lm[1], batch_size=4, device="cpu",
+                                     warm_cache_dir=str(tmp_path / "warm"))
+        server.warmup()
+        reports.append((server.warmup_report["loaded"],
+                        server.warmup_report["compiled"],
+                        server.compile_count))
+        np.testing.assert_array_equal(
+            server.predict_feed({"tokens": tokens}, 3)["output"], want)
+    assert reports == [(0, 3, 3), (3, 0, 0)]
+    assert sorted(os.listdir(str(tmp_path / "warm"))) == [
+        "serving_b1.aotx", "serving_b2.aotx", "serving_b4.aotx"]
+    rungs = dict(server._warm_exec)
+    server.swap_export(lm[1], expected_version="2")
+    assert server._warm_exec == rungs and server.compile_count == 0
+    np.testing.assert_array_equal(
+        server.predict_feed({"tokens": tokens}, 3)["output"], want)
+
+
+class _StandInCompiler(object):
+    """AOTInductor's stand-in: a rung's package is a marker, its program
+    the server's own functional forward, which takes the params as inputs
+    as a package does."""
+
+    def __init__(self, monkeypatch):
+        self.fns = []
+        monkeypatch.setattr(compilecache, "aoti_compile", self.compile)
+        monkeypatch.setattr(compilecache, "_load_package", self.load)
+
+    def compile(self, fn, *args):
+        self.fns.append(fn)
+        return compilecache.AOTIProgram(b"stand-in package", fn)
+
+    def load(self, data, device):
+        assert data == b"stand-in package" and device == "cpu"
+        return self.fns[-1]
 
 
 def test_linear_predict_feed_matches_jax(tmp_path):

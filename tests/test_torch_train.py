@@ -308,7 +308,7 @@ class _DataMesh(object):
 
 @pytest.mark.parametrize("kwargs", [
     {"mesh": _DataMesh()}, {"param_sharding": "fsdp"}, {"accum_steps": 2},
-    {"aot_cache": "/nonexistent"}, {"summary_writer": "tfevents"},
+    {"aot_cache": "aot"}, {"summary_writer": "tfevents"},
 ])
 def test_unported_trainer_arguments_raise(flax_params, kwargs, tmp_path):
     name = next(iter(kwargs))
@@ -345,10 +345,15 @@ def test_unported_trainer_arguments_raise(flax_params, kwargs, tmp_path):
             tr.step({"tokens": _tokens(5)})
         assert os.path.getsize(writer.path) > 100
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(flax_params, **kwargs)
-    # the JAX defaults are accepted
-    _trainer(flax_params, **{name: train._UNPORTED[name][0]})
+    # aot_cache, ported: a cold store compiles the step program, a second
+    # trainer over it loads, and the steps are the same
+    # (tests/test_torch_compilecache.py holds the verdicts against JAX)
+    store = str(tmp_path / kwargs[name])
+    cold, warm = (_trainer(flax_params, aot_cache=store) for _ in range(2))
+    got = [tr.step({"tokens": _tokens(5)})[0].item() for tr in (cold, warm)]
+    assert cold._aot_verdicts == {"step": "compiled"}
+    assert warm._aot_verdicts == {"step": "loaded"}
+    assert got[0] == got[1]
 
 
 def test_unported_trainer_methods_raise(flax_params, tmp_path):
