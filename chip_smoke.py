@@ -238,8 +238,26 @@ weights from a seed) along both paths:
   ``loaded``) and trains to the first run's losses bit for bit.  Printed:
   each replica's ready and warm-up seconds, each cluster's seconds from
   ``cluster.run`` to its first dispatch's end and ``train_compile_us_max``.
-  The kernels line's ``launches`` is this phase's: both clusters and both
-  replicas.
+- export: the exported serving artifact and the C++ runner.  A process of
+  its own, started before ``pipeline`` so that its compiles run beside
+  the phases from there to ``parallel_j2`` (it is joined before
+  ``observability``), builds the runner (``csrc/aoti_runner.cpp``) and
+  the operator library (``csrc/flash_ops.cpp``) with the host's ``g++``
+  against torch, and exports the LM with ``export_model(..., model=,
+  embed_batch_size=4)``: ``apply.pt2`` (``torch.export``, the params as
+  inputs) and ``apply_embedded.pt2`` (AOTInductor, the params baked in).
+  Here ``ModelServer`` serves the requests from the artifact
+  (``from_artifact``; rungs 4, 4, 4 and 1) within the serve tolerance of
+  an eager registry ``ModelServer`` on the same params, with layers x
+  dispatches forward launches by the counter and by the profiler; beside
+  it, the runner serves the embedded package with no Python (two batches
+  of 4, its launches layers x batches by the C++ binding's counter),
+  ``inference_cli --native`` answers TFRecord rows of a one-layer LM (JSON
+  lines of the flagship's logits would be hundreds of MB a row), and the
+  C++ binding equals the Python op bit for bit at four shapes.  The
+  kernels line's ``launches`` for the forward is this phase's (the
+  artifact, the runner and the CLI's runner); the backward kernels keep
+  the warm-start clusters'.
 
 A line before the kernels line gives the script's wall time and each
 phase's seconds.
@@ -434,14 +452,69 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(prof):
-    """The device-side events of a ``torch.profiler`` trace, less the GPU
+# the traces this process read with trace_records: windows, records, and
+# the seconds the reads took (the wall line reports them)
+TRACE_READS = {"windows": 0, "records": 0, "seconds": 0.0}
+
+
+class TraceKernel(object):
+    """One name's device-side records in a trace: ``key``, ``count`` and
+    ``self_device_time_total`` (microseconds), as ``key_averages()`` gives
+    them."""
+
+    def __init__(self, key):
+        self.key = key
+        self.count = 0
+        self.self_device_time_total = 0.0
+
+
+def trace_records(prof, device_type):
+    """The records of ``device_type`` in a finished ``torch.profiler``
+    trace, by name (demangled, as ``key_averages()`` names them), less the
     ranges of user annotations such as "Optimizer.step#Adam.step", which
-    overlap the kernels they enclose."""
-    return [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
+    overlap the kernels they enclose.  Read from the profiler's raw
+    records: ``key_averages()`` first parses every record into an event
+    tree, most of a counting window's time for LM steps on the card.  The
+    reads are tallied in :data:`TRACE_READS`."""
+    from torch.autograd import profiler_util
+
+    t0 = time.perf_counter()
+    demangle = getattr(profiler_util, "_demangle", lambda name: name)
+    by_name = {}
+    events = prof.profiler.kineto_results.events()
+    for e in events:
+        if e.device_type() != device_type:
+            continue
+        if getattr(e, "is_user_annotation", lambda: False)() or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        kernel = by_name.get(raw)
+        if kernel is None:
+            kernel = by_name[raw] = TraceKernel(
+                demangle(raw) if len(raw) > 1 else raw)
+        kernel.count += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            kernel.self_device_time_total += e.duration_ns() / 1e3
+    merged = {}
+    for kernel in by_name.values():
+        if "#" in kernel.key:
+            continue
+        into = merged.setdefault(kernel.key, TraceKernel(kernel.key))
+        into.count += kernel.count
+        into.self_device_time_total += kernel.self_device_time_total
+    TRACE_READS["windows"] += 1
+    TRACE_READS["records"] += len(events)
+    TRACE_READS["seconds"] += time.perf_counter() - t0
+    return list(merged.values())
+
+
+def device_kernels(prof):
+    """The device-side records of a ``torch.profiler`` trace, by kernel
+    name (see :func:`trace_records`)."""
+    from torch.profiler import DeviceType
+
+    return trace_records(prof, DeviceType.CUDA)
 
 
 # trailing work before a counting profiler stops (see counted_on_device)
@@ -3891,6 +3964,9 @@ def phase_lm_example(torch, np, moe_row):
     byte files written here (``--data_dir``); each run's export is loaded
     and served in this process."""
     from tensorflowonspark_torch import backend, checkpoint, cluster, serving
+    # what cluster.run imports at first use, imported before the two runs'
+    # threads (two threads importing one module at once can fail)
+    from tensorflowonspark_torch import fault, manager, util  # noqa: F401
 
     twin = lm_example()
     layers = MOE_CONFIG["num_layers"]
@@ -3898,7 +3974,11 @@ def phase_lm_example(torch, np, moe_row):
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "text")
         write_text_files(np, data)
-        for mode in ("synthetic", "files"):
+
+        def train(mode):
+            """The twin's cluster on ``mode``'s stream: ``(its export, the
+            node's report, when cluster.run was called, when shutdown
+            returned)``."""
             export_dir = os.path.join(tmp, "export_" + mode)
             argv = ["--cluster_size", "1", "--batch_size", str(TRAIN_BATCH),
                     "--train_steps", str(EXAMPLE_STEPS),
@@ -3916,7 +3996,6 @@ def phase_lm_example(torch, np, moe_row):
             node_args = {"twin": twin.parse_args(argv),
                          "example_dir": os.path.dirname(twin.__file__),
                          "report": os.path.join(tmp, mode + ".json")}
-            torch.cuda.empty_cache()
             b = backend.LocalBackend(1)
             try:
                 t_run = time.time()
@@ -3929,6 +4008,17 @@ def phase_lm_example(torch, np, moe_row):
                                          EXAMPLE_REPORT_SECS)
             finally:
                 b.stop()
+            return export_dir, report, t_run, t_done
+
+        # the two runs' clusters side by side on the card (their bring-up
+        # and step times are each other's neighbours')
+        torch.cuda.empty_cache()
+        modes = ("synthetic", "files")
+        legs = {mode: Leg(lambda mode=mode: train(mode),
+                          EXAMPLE_REPORT_SECS + CLUSTER_REPORT_SECS)
+                for mode in modes}
+        for mode in modes:
+            export_dir, report, t_run, t_done = legs[mode].result()
             _, descriptor = checkpoint.load_model(export_dir, validate=True)
             t0 = time.perf_counter()
             server = serving.ModelServer(export_dir, batch_size=SERVE_BATCH)
@@ -4620,6 +4710,11 @@ def observe_main(args, ctx):
     import importlib
     import traceback
 
+    import faulthandler
+
+    # a crash of this process (seen twice: its /capture endpoint gone
+    # mid-request) prints every thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
     report = {}
     try:
         import torch
@@ -4881,9 +4976,24 @@ def phase_observability_cluster(torch, np, metrics, clustered, mega_cluster,
                 addresses = status.get("profiler_addresses")
                 cap1, man1, cap1_s = cluster_capture(base,
                                                      OBS_CAPTURE_STEPS)
-                body, headers = http_get(
-                    "http://%s/capture?duration_ms=%d" % (
-                        addresses[0], OBS_DIRECT_CAPTURE_MS))
+                # one more closed window before the direct capture, so
+                # that it starts on a node back at steady steps
+                closed = node_metrics(base)[2].get(
+                    'tfos_step_ms_count{executor="0"}', 0) // OBS_LOG_STEPS
+                wait_until("a window after the cluster capture",
+                           lambda: windows_closed(closed + 1),
+                           OBS_READY_SECS)
+                try:
+                    body, headers = http_get(
+                        "http://%s/capture?duration_ms=%d" % (
+                            addresses[0], OBS_DIRECT_CAPTURE_MS))
+                except Exception as e:
+                    node = (open(args["report"]).read()[-4000:]
+                            if os.path.exists(args["report"])
+                            else "no report")
+                    raise AssertionError(
+                        "the node's direct /capture failed ({!r}); the "
+                        "node's report: {}".format(e, node))
                 direct = flash_kernel_counts(json.loads(
                     gzip.decompress(body))["traceEvents"])
                 direct_info = {k[len("X-Tfos-Capture-"):]: v
@@ -6031,13 +6141,16 @@ def phase_control(torch, np, clustered, config=LM_CONFIG, device=None):
     t_start = time.perf_counter()
     if device is None:
         torch.cuda.empty_cache()   # the earlier phases' cached blocks
-    # the autopilot's threshold: its default, or below the K = 1 cluster
-    # run's dispatch gap a step when that is under the default
+    # the autopilot's threshold: a quarter of the K = 1 cluster run's
+    # dispatch gap a step, at most its default.  The leg's own gap need not
+    # follow the cluster run's: on a host where the cluster run's gap was
+    # above the default (1764.7 us a step) the leg's sat at 503.8, and at
+    # the default threshold the autopilot waited 1291 steps (161 s) for a
+    # window above it
     overlap = clustered.get("overlap") or {}
     steps = overlap.get("train_steps_total") or clustered.get("steps") or 1
     gap_us = overlap.get("dispatch_gap_us", 0) / steps
-    gap_hi_us = (AUTOPILOT_GAP_HI_US if gap_us >= AUTOPILOT_GAP_HI_US
-                 else gap_us / 4)
+    gap_hi_us = min(AUTOPILOT_GAP_HI_US, gap_us / 4)
     legs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, leg in (("control_rollback", lambda: control_rollback(
@@ -6917,6 +7030,494 @@ def phase_warmstart(torch, np, started):
     return row
 
 
+# -- export: the serving artifact and the C++ runner ---------------------------
+
+# the embedded package's fixed batch: the serve phase's top rung; the
+# runner serves EXPORT_NATIVE_ROWS rows in batches of it (two batches, the
+# last three rows of the second padding)
+EXPORT_EMBED_BATCH = SERVE_BATCH
+EXPORT_NATIVE_ROWS = 5
+# inference_cli --native writes each row's logits as JSON numbers: at the
+# flagship's vocab a row is 32.8M of them (hundreds of MB of text), so the
+# CLI leg serves a one-layer LM of the flagship's attention width with a
+# 256-token vocab (the kernel at the serve shape, a row 262144 numbers)
+EXPORT_CLI_CONFIG = dict(LM_CONFIG, num_layers=1, vocab_size=256)
+EXPORT_CLI_ROWS = 3
+# the export process's budget: the native builds, two torch.export runs,
+# two AOTInductor compiles, and the runner, CLI and binding legs
+EXPORT_SECS = 1200
+EXPORT_LEG_SECS = 600
+# the C++ binding against the Python op, bit for bit (one kernel, the same
+# inputs): the serve shape, head_dim 32 and 128 on the tensor cores, and
+# fp32 head_dim 32 (zero-padded to 64 by both wrappers)
+BINDING_CASES = [
+    ((SERVE_BATCH, SEQ, 16, 64), "bfloat16", True, True),
+    ((2, 256, 4, 32), "bfloat16", True, False),
+    ((2, 256, 4, 128), "bfloat16", True, False),
+    ((2, 256, 4, 32), "float32", False, False),
+]
+
+# ``python -m tensorflowonspark_torch.inference_cli`` (the same runpy
+# entry) with INFO logging on stderr, where the runner's own line lands
+NATIVE_CLI_WRAPPER = """
+import logging, runpy, sys
+logging.basicConfig(level=logging.INFO)
+sys.argv = ["tensorflowonspark_torch.inference_cli"] + sys.argv[1:]
+runpy.run_module("tensorflowonspark_torch.inference_cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+# a process with no Python op: the C++ registration (argv[1]) computes
+# the forward of every case in argv[2] on the cases' device and saves
+# the outputs and its launch and call counts to argv[3]
+BINDING_CHILD = """
+import ctypes, sys
+import torch
+torch.ops.load_library(sys.argv[1])
+lib = ctypes.CDLL(sys.argv[1])
+lib.tfos_flash_fwd_launches.restype = ctypes.c_longlong
+lib.tfos_flash_fwd_calls.restype = ctypes.c_longlong
+outs = []
+for qkv, fused, scale, causal, device in torch.load(sys.argv[2]):
+    qkv = qkv.to(device)
+    q, k, v = (qkv.unbind(2) if fused else
+               [qkv[:, :, i].contiguous() for i in range(3)])
+    o, lse = torch.ops.tfos.flash_fwd(q, k, v, scale, causal)
+    outs.append((o.cpu(), lse.cpu()))
+torch.save({"outs": outs, "launches": lib.tfos_flash_fwd_launches(),
+            "calls": lib.tfos_flash_fwd_calls()}, sys.argv[3])
+"""
+
+
+def registry_view(export_dir, path):
+    """``export_dir`` without its serialized programs (its params linked):
+    what a ``ModelServer`` rebuilds from the registry."""
+    os.makedirs(path)
+    os.symlink(os.path.join(export_dir, "params.pt"),
+               os.path.join(path, "params.pt"))
+    with open(os.path.join(export_dir, "export.json")) as f:
+        desc = json.load(f)
+    for key in ("exported", "embedded_pt2"):
+        desc.pop(key, None)
+    with open(os.path.join(path, "export.json"), "w") as f:
+        json.dump(desc, f)
+    return path
+
+
+def worst_diff(np, got, want):
+    """``(max |got - want|, max |want|)`` over pairs of arrays."""
+    return max(logit_diff(np, g, w) for g, w in zip(got, want))
+
+
+def native_leg(np, export_dir, tmp, device):
+    """The C++ runner on the LM's embedded package: :data:`EXPORT_NATIVE_ROWS`
+    rows in batches of :data:`EXPORT_EMBED_BATCH` through one runner
+    process, against an eager registry ``ModelServer`` on the same padded
+    batches."""
+    from tensorflowonspark_torch import serving
+
+    with open(os.path.join(export_dir, "export.json")) as f:
+        desc = json.load(f)
+    vocab = desc["model_config"]["vocab_size"]
+    seq = desc["embedded_pt2"]["inputs"][0]["shape"][1]
+    batches = -(-EXPORT_NATIVE_ROWS // EXPORT_EMBED_BATCH)
+    padded = np.zeros((batches * EXPORT_EMBED_BATCH, seq), np.int32)
+    padded[:EXPORT_NATIVE_ROWS] = np.random.default_rng(10).integers(
+        0, vocab, (EXPORT_NATIVE_ROWS, seq), dtype=np.int32)
+    feeds = [{"tokens": padded[i:i + EXPORT_EMBED_BATCH]}
+             for i in range(0, len(padded), EXPORT_EMBED_BATCH)]
+    report = {}
+    t0 = time.perf_counter()
+    outs = serving.run_embedded_native_many(export_dir, feeds, device=device,
+                                            report=report)
+    seconds = time.perf_counter() - t0
+    eager = serving.ModelServer(registry_view(
+        export_dir, os.path.join(tmp, "native_eager")),
+        batch_size=EXPORT_EMBED_BATCH, device=device)
+    diff, scale = worst_diff(
+        np, [o["output"] for o in outs],
+        [eager.predict_feed(f, EXPORT_EMBED_BATCH)["output"] for f in feeds])
+    return {"rows": EXPORT_NATIVE_ROWS, "batches": batches,
+            "report": report, "seconds": seconds,
+            "eager_from_artifact": eager.from_artifact,
+            "vs_eager_max_abs_diff": diff, "max_abs_logit": scale}
+
+
+def cli_leg(np, export_dir, tmp, device):
+    """``inference_cli --native`` over :data:`EXPORT_CLI_ROWS` TFRecord
+    rows of the CLI leg's LM, its JSON lines against an eager registry
+    ``ModelServer`` on the same rows."""
+    from tensorflowonspark_torch import dfutil, serving
+
+    with open(os.path.join(export_dir, "export.json")) as f:
+        desc = json.load(f)
+    vocab = desc["model_config"]["vocab_size"]
+    seq = desc["embedded_pt2"]["inputs"][0]["shape"][1]
+    tokens = np.random.default_rng(11).integers(
+        0, vocab, (EXPORT_CLI_ROWS, seq), dtype=np.int32)
+    data, out = os.path.join(tmp, "tfr"), os.path.join(tmp, "cli.jsonl")
+    dfutil.save_as_tfrecords([{"tokens": t.tolist()} for t in tokens], data,
+                             schema={"tokens": "array<int64>"})
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", NATIVE_CLI_WRAPPER,
+         "--export_dir", export_dir, "--input", data, "--schema_hint",
+         "struct<tokens:array<bigint>>", "--native", "--output", out,
+         "--device", device or "cuda"], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=EXPORT_LEG_SECS)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("inference_cli --native failed:\n"
+                             + proc.stderr[-3000:])
+    reports = [json.loads(line.split("aoti_runner report: ", 1)[1])
+               for line in proc.stderr.splitlines()
+               if "aoti_runner report: " in line]
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    eager = serving.ModelServer(registry_view(
+        export_dir, os.path.join(tmp, "cli_eager")),
+        batch_size=EXPORT_EMBED_BATCH, device=device)
+    want = eager.predict_feed({"tokens": tokens}, len(tokens))["output"]
+    diff, scale = worst_diff(
+        np, [np.asarray(line["output"], np.float32) for line in lines],
+        list(want))
+    return {"config": desc["model_config"], "rows": EXPORT_CLI_ROWS,
+            "lines": len(lines), "rows_kept": all(
+                line["tokens"] == t.tolist() for line, t in zip(lines, tokens)),
+            "runner_reports": reports, "seconds": seconds,
+            "vs_eager_max_abs_diff": diff, "max_abs_logit": scale}
+
+
+def binding_leg(torch, np, lib, tmp, device):
+    """The C++ registration (``lib``) against the Python op on
+    :data:`BINDING_CASES`: the C++ side in a process with no Python op
+    (:data:`BINDING_CHILD`), the Python side here, bit for bit."""
+    cases = []
+    for shape, dtype_name, causal, fused in BINDING_CASES:
+        b, s, h, d = shape
+        x = np.random.default_rng(d).standard_normal((b, s, 3, h, d))
+        cases.append((torch.from_numpy(x.astype(np.float32)).to(
+            getattr(torch, dtype_name)), fused, 1.0 / math.sqrt(d), causal,
+            "cpu" if device == "cpu" else "cuda"))
+    src, dst = os.path.join(tmp, "cases.pt"), os.path.join(tmp, "outs.pt")
+    torch.save(cases, src)
+    proc = subprocess.run([sys.executable, "-c", BINDING_CHILD, lib, src,
+                           dst], cwd=HERE, capture_output=True, text=True,
+                          timeout=EXPORT_LEG_SECS)
+    if proc.returncode != 0:
+        raise AssertionError("the C++ binding's process failed:\n"
+                             + proc.stderr[-3000:])
+    bound = torch.load(dst)
+    equal = []
+    for (qkv, fused, scale, causal, dev), (o, lse) in zip(cases,
+                                                         bound["outs"]):
+        qkv = qkv.to(dev)
+        q, k, v = (qkv.unbind(2) if fused else
+                   [qkv[:, :, i].contiguous() for i in range(3)])
+        want_o, want_lse = torch.ops.tfos.flash_fwd(q, k, v, scale, causal)
+        equal.append(bool(torch.equal(o, want_o.cpu())
+                          and torch.equal(lse, want_lse.cpu())))
+    return {"cases": [list(c) for c in BINDING_CASES], "bit_equal": equal,
+            "launches": bound["launches"], "calls": bound["calls"]}
+
+
+def export_main(out, device=None, config=LM_CONFIG,
+                cli_config=EXPORT_CLI_CONFIG):
+    """The export process (:func:`start_export`), at ``nice`` 10 so that
+    the phases beside it keep the host's cores: builds the runner and the
+    operator library, exports the LM at ``config`` and the CLI leg's LM,
+    each with its artifact and its embedded package for ``device``'s type
+    (the card's unless ``"cpu"``), then runs the legs that need no count
+    of this process's launches, side by side: the runner
+    (:func:`native_leg`), the CLI (:func:`cli_leg`) and the binding
+    (:func:`binding_leg`), each in processes of its own.  Writes what it
+    took and found to ``out/report.json``."""
+    import numpy as np
+    import torch
+
+    # dfutil too: the legs' threads import nothing a second time at once
+    from tensorflowonspark_torch import checkpoint, dfutil, serving  # noqa
+    from tensorflowonspark_torch.models import get_model
+    from tensorflowonspark_torch.ops import _build
+
+    os.nice(10)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = {}
+    t0 = time.perf_counter()
+    built = _build.build_native()
+    report["native_build_s"] = time.perf_counter() - t0
+    report["native_build"] = {n: {k: r[k] for k in ("seconds", "cached")}
+                              for n, r in built.items()}
+    seconds = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = time.perf_counter() - t
+        return run
+
+    plain = serving.serialize_apply, serving.serialize_embedded
+    serving.serialize_apply = timed("torch_export_s", plain[0])
+    serving.serialize_embedded = timed("embedded_s", plain[1])
+    try:
+        for name, cfg, seed in (("lm", config, 0), ("cli", cli_config, 1)):
+            path = os.path.join(out, name)
+            model = get_model("transformer_lm", **cfg)
+            model.init_weights(torch.Generator().manual_seed(seed))
+            seconds.clear()
+            t = time.perf_counter()
+            checkpoint.export_model(
+                path, model, "transformer_lm", model_config=cfg,
+                input_signature=lm_signature(cfg), model=model,
+                embed_batch_size=EXPORT_EMBED_BATCH,
+                embed_platform="cpu" if device == "cpu" else "cuda")
+            report[name] = dict(seconds, export_s=time.perf_counter() - t,
+                                bytes={f: os.path.getsize(
+                                    os.path.join(path, f))
+                                    for f in sorted(os.listdir(path))})
+            del model
+    finally:
+        serving.serialize_apply, serving.serialize_embedded = plain
+    def leg(fn, *args):
+        def run():
+            t = time.perf_counter()
+            return dict(fn(*args), leg_s=time.perf_counter() - t)
+        return Leg(run, EXPORT_LEG_SECS)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the three legs side by side, each in processes of its own
+        legs = {"native": leg(native_leg, np, os.path.join(out, "lm"), tmp,
+                              device),
+                "cli": leg(cli_leg, np, os.path.join(out, "cli"), tmp,
+                           device),
+                "binding": leg(binding_leg, torch, np,
+                               built["flash_ops"]["path"], tmp, device)}
+        for name, running in legs.items():
+            report[name] = running.result()
+    report["process_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, "report.json"), "w") as f:
+        json.dump(report, f)
+
+
+def start_export(torch, np, config=LM_CONFIG, device=None):
+    """The export phase's first step, started early so that its compiles
+    and its runner, CLI and binding legs run beside the phases before it:
+    :func:`export_main` in a process of its own.  Returns what
+    :func:`phase_export` continues from."""
+    out = tempfile.mkdtemp(prefix="chip-export-")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+    code = ("import sys, chip_smoke; chip_smoke.export_main(sys.argv[1], "
+            "{!r}, {!r}, {!r})".format(
+                device, config, dict(EXPORT_CLI_CONFIG, **{
+                    k: config[k] for k in ("head_dim", "num_heads",
+                                           "max_seq_len", "dtype")})))
+    log = open(os.path.join(out, "export.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", code, out], cwd=HERE,
+                            env=env, stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "log": log, "out": out, "config": config,
+            "device": device, "t0": time.perf_counter()}
+
+
+def join_export(started):
+    """Wait for the export process (at most :data:`EXPORT_SECS` after its
+    start) and raise with its log's tail unless it succeeded.  The main
+    path calls it before ``observability``, so that the phases from there
+    on share the host with no compile."""
+    if "waited_s" not in started:
+        try:
+            rc = started["proc"].wait(max(1.0, EXPORT_SECS - (
+                time.perf_counter() - started["t0"])))
+        except subprocess.TimeoutExpired:
+            rc = None
+        started["waited_s"] = time.perf_counter() - started["t0"]
+        started["rc"] = rc
+        started["log"].close()
+    if started["rc"] != 0:
+        with open(os.path.join(started["out"], "export.log")) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError("the export process ended with {}:\n{}".format(
+            started["rc"], tail))
+
+
+def stop_export(started):
+    """End what :func:`start_export` started."""
+    if started["proc"].poll() is None:
+        started["proc"].kill()
+        started["proc"].wait()
+    started["log"].close()
+    shutil.rmtree(started["out"], ignore_errors=True)
+
+
+class Leg(object):
+    """``fn()`` on a thread, which :meth:`result` joins within ``seconds``
+    and re-raises from: work in other processes beside this process's."""
+
+    def __init__(self, fn, seconds):
+        import threading
+
+        self.value, self.error, self.seconds = None, None, seconds
+
+        def run():
+            try:
+                self.value = fn()
+            except BaseException as e:   # re-raised by result()
+                self.error = e
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def result(self):
+        self.thread.join(self.seconds)
+        if self.thread.is_alive():
+            raise AssertionError("a leg ran past {} s".format(self.seconds))
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def export_launches(row):
+    """The forward's launches on the export phase's main path: the
+    artifact served in this process, the runner's and the CLI's runner's."""
+    made = row["export_process"]
+    return (row["artifact"]["fwd_launches"]
+            + made["native"]["report"]["flash_fwd_launches"]
+            + sum(r["flash_fwd_launches"]
+                  for r in made["cli"]["runner_reports"]))
+
+
+def phase_export(torch, np, fa, started):
+    """The exported serving artifact and the C++ runner, on the LM of
+    :func:`start_export` (``export_model(..., model=, embed_batch_size=4)``
+    in its own process).  Here ``ModelServer`` serves every request of
+    :data:`REQUESTS` from ``apply.pt2`` (``from_artifact``; rungs 4, 4, 4
+    and 1), its logits within :data:`LOGIT_TOL` of an eager registry
+    ``ModelServer`` on the same params and its forward launches equal to
+    layers x dispatches, by the counter and by the profiler.  From the
+    export process's report: the C++ runner served the embedded package
+    with no Python (two batches of 4, launches layers x batches, logits
+    within the same tolerance), ``inference_cli --native`` answered
+    TFRecord rows as the eager server does, and the C++ binding equals the
+    Python op bit for bit (``device="cpu"`` rehearses it all on the CPU,
+    where nothing launches)."""
+    from tensorflowonspark_torch import serving
+
+    device, config = started["device"], started["config"]
+    layers, vocab = config["num_layers"], config["vocab_size"]
+    seq = config["max_seq_len"]
+    join_export(started)
+    with open(os.path.join(started["out"], "report.json")) as f:
+        made = json.load(f)
+    lm_dir = os.path.join(started["out"], "lm")
+    with open(os.path.join(lm_dir, "export.json")) as f:
+        desc = json.load(f)
+    if not ("exported" in desc and "embedded_pt2" in desc):
+        raise AssertionError("the export holds no artifact or no embedded "
+                             "package: {}".format(sorted(desc)))
+    rng = np.random.default_rng(9)
+    requests = [rng.integers(0, vocab, (n, seq), dtype=np.int32)
+                for n in REQUESTS]
+    with tempfile.TemporaryDirectory() as tmp:
+        card_memory(torch, device, reset=True)
+        fa.fwd_launches = 0                          # the main path starts
+        t0 = time.perf_counter()
+        server = serving.ModelServer(lm_dir, batch_size=SERVE_BATCH,
+                                     device=device)
+        load_s = time.perf_counter() - t0
+        latencies = []
+
+        def main_path():
+            outs = []
+            for tokens in requests:
+                t = time.perf_counter()
+                outs.append(server.predict_feed({"tokens": tokens},
+                                                len(tokens))["output"])
+                latencies.append(time.perf_counter() - t)
+            return outs
+
+        outputs, executed, busy_ms = on_card(torch, main_path, device)
+        launches = fa.fwd_launches                   # the main path ends
+        peak_bytes = card_memory(torch, device)
+        rungs = [serving.bucket_for(n, server.buckets) for n in REQUESTS]
+        from_artifact, compiles = server.from_artifact, server.compile_count
+        del server
+        eager = serving.ModelServer(registry_view(
+            lm_dir, os.path.join(tmp, "eager")), batch_size=SERVE_BATCH,
+            device=device)
+        eager_artifact = eager.from_artifact
+        served = worst_diff(np, outputs, [
+            eager.predict_feed({"tokens": t}, len(t))["output"]
+            for t in requests])
+        del eager
+    native, cli, binding = made["native"], made["cli"], made["binding"]
+    expected = layers * len(REQUESTS)
+    expected_native = layers * native["batches"]
+    on_the_card = device is None
+    row = {"phase": "export", "config": config,
+           "export_process": dict(made, waited_s=started["waited_s"]),
+           "artifact": {"from_artifact": from_artifact, "load_s": load_s,
+                        "rungs": rungs, "compile_count": compiles,
+                        "requests": [{"rows": n, "ms": 1e3 * t}
+                                     for n, t in zip(REQUESTS, latencies)],
+                        "fwd_launches": launches,
+                        "device_launches": executed,
+                        "expected_launches": expected, "busy_ms": busy_ms,
+                        "max_memory_allocated": peak_bytes,
+                        "vs_eager_max_abs_diff": served[0],
+                        "max_abs_logit": served[1],
+                        "eager_from_artifact": eager_artifact},
+           "expected_native_launches": expected_native, "tol": LOGIT_TOL}
+    emit(row)
+    if not (from_artifact and not eager_artifact
+            and not native["eager_from_artifact"]
+            and rungs == [SERVE_BATCH, SERVE_BATCH, SERVE_BATCH, 1]
+            and compiles == 2):
+        raise AssertionError("the artifact did not serve rungs {} "
+                             "(from_artifact {}, compiles {})".format(
+                                 rungs, from_artifact, compiles))
+    if launches != (expected if on_the_card else 0) or (
+            on_the_card and executed["flash_fwd"] != expected):
+        raise AssertionError("the artifact's forward launched {} (the card "
+                             "ran {}), expected {}".format(
+                                 launches, executed["flash_fwd"], expected))
+    for name, (diff, scale) in (
+            ("artifact", served),
+            ("native", (native["vs_eager_max_abs_diff"],
+                        native["max_abs_logit"])),
+            ("cli", (cli["vs_eager_max_abs_diff"], cli["max_abs_logit"]))):
+        if not diff <= LOGIT_TOL * scale:
+            raise AssertionError("{} logits differ from the eager server's "
+                                 "by {} (max |logit| {})".format(
+                                     name, diff, scale))
+    report = native["report"]
+    if (report.get("flash_fwd_launches")
+            != (expected_native if on_the_card else 0)
+            or report.get("flash_fwd_calls") != expected_native):
+        raise AssertionError("the runner reported {}, expected {} calls, "
+                             "launches on the card".format(report,
+                                                           expected_native))
+    cli_layers = cli["config"]["num_layers"]
+    if (cli["lines"] != EXPORT_CLI_ROWS or not cli["rows_kept"]
+            or len(cli["runner_reports"]) != 1
+            or cli["runner_reports"][0]["flash_fwd_calls"] != cli_layers
+            or cli["runner_reports"][0]["flash_fwd_launches"]
+            != (cli_layers if on_the_card else 0)):
+        raise AssertionError("inference_cli --native: {}".format(cli))
+    if not all(binding["bit_equal"]) or (
+            binding["calls"] != len(BINDING_CASES)) or (
+            binding["launches"]
+            != (len(BINDING_CASES) if on_the_card else 0)):
+        raise AssertionError("the C++ binding against the Python op: "
+                             "{}".format(binding))
+    shutil.rmtree(started["out"], ignore_errors=True)
+    return row
+
+
 def main():
     import torch
 
@@ -6977,37 +7578,53 @@ def main():
                          steps_per_call=MEGA_K, k1_cluster=clustered)
     gatewayed = timed("gateway", phase_gateway, torch, np, fa)
     served_cli = timed("serve_cli", phase_serve_cli, torch, np)
-    piped = timed("pipeline", phase_pipeline, torch, np)
-    resnet_trained = timed("resnet_train", phase_resnet_train, torch, np, fa)
-    timed("resnet_card_vs_cpu", phase_resnet_card_vs_cpu, torch, np)
-    timed("resnet_files", phase_resnet_files, torch, np, fa, resnet_trained)
-    moe, moe_model, moe_params = timed("moe_train", phase_moe_train, torch,
-                                       np, fa, metrics, mega)
-    timed("moe_card_vs_cpu", phase_moe_card_vs_cpu, torch, np)
-    moe_served = timed("moe_serve", phase_moe_serve, torch, np, fa,
-                       moe_model, moe_params)
-    del moe_model, moe_params
-    example = timed("lm_example", phase_lm_example, torch, np, moe)
-    parallel = timed("parallel", phase_parallel, torch, np, fa, trained,
-                     mega)
-    j2 = timed("parallel_j2", phase_parallel_j2, torch, np, fa, trained, moe)
-    observed, observed_card = timed("observability", phase_observability,
-                                    torch, np, fa, metrics, clustered,
-                                    mega_cluster)
-    control = timed("control", phase_control, torch, np, clustered)
-    # the warm-start phase's cold replica compiles beside the fleet phase
-    warm_started = timed("warmstart_start", start_warmstart, torch, np)
+    # the export phase's builds, compiles and no-Python legs run in a
+    # process of their own beside the phases from here to parallel_j2
+    export_started = timed("export_start", start_export, torch, np)
     try:
-        fleet_row = timed("fleet", phase_fleet, torch, np,
-                          supervised["crash_resume"]["published"])
-    except BaseException:
-        stop_warmstart(warm_started)
-        raise
+        piped = timed("pipeline", phase_pipeline, torch, np)
+        resnet_trained = timed("resnet_train", phase_resnet_train, torch, np,
+                               fa)
+        timed("resnet_card_vs_cpu", phase_resnet_card_vs_cpu, torch, np)
+        timed("resnet_files", phase_resnet_files, torch, np, fa,
+              resnet_trained)
+        moe, moe_model, moe_params = timed("moe_train", phase_moe_train,
+                                           torch, np, fa, metrics, mega)
+        timed("moe_card_vs_cpu", phase_moe_card_vs_cpu, torch, np)
+        moe_served = timed("moe_serve", phase_moe_serve, torch, np, fa,
+                           moe_model, moe_params)
+        del moe_model, moe_params
+        example = timed("lm_example", phase_lm_example, torch, np, moe)
+        parallel = timed("parallel", phase_parallel, torch, np, fa, trained,
+                         mega)
+        j2 = timed("parallel_j2", phase_parallel_j2, torch, np, fa, trained,
+                   moe)
+        # the export process ends before the observed and controlled
+        # clusters, whose planes time their nodes' beats and steps
+        timed("export_join", join_export, export_started)
+        observed, observed_card = timed("observability", phase_observability,
+                                        torch, np, fa, metrics, clustered,
+                                        mega_cluster)
+        control = timed("control", phase_control, torch, np, clustered)
+        # the warm-start phase's cold replica compiles beside the fleet
+        # phase
+        warm_started = timed("warmstart_start", start_warmstart, torch, np)
+        try:
+            fleet_row = timed("fleet", phase_fleet, torch, np,
+                              supervised["crash_resume"]["published"])
+        except BaseException:
+            stop_warmstart(warm_started)
+            raise
+        finally:
+            shutil.rmtree(fleet_root, ignore_errors=True)
+        warm = timed("warmstart", phase_warmstart, torch, np, warm_started)
+        exported = timed("export", phase_export, torch, np, fa,
+                         export_started)
     finally:
-        shutil.rmtree(fleet_root, ignore_errors=True)
-    warm = timed("warmstart", phase_warmstart, torch, np, warm_started)
+        stop_export(export_started)
     emit({"phase": "wall", "seconds": time.perf_counter() - started,
-          "phase_seconds": phase_seconds, "http_retries": HTTP_RETRIES})
+          "phase_seconds": phase_seconds, "http_retries": HTTP_RETRIES,
+          "trace_reads": TRACE_READS})
 
     serve_row = fwd_rows[0]
     head_dim_train = LM_CONFIG["head_dim"]
@@ -7030,16 +7647,16 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path, the warm-start compile plane: the
-            # flash LM trained by the cold and the warm cluster (each
-            # node's counters zeroed before fit_supervised and read after)
-            # and served by the cold and the warm replica (fresh
-            # processes: each counts from 0 and prints its count at exit)
-            "launches": (sum(warm["train"][run]["launches"][name]
-                             for run in ("cold", "warm"))
-                         + (sum(warm["serve"][run]["fwd_launches"]
-                                for run in ("cold", "warm"))
-                            if name == "flash_fwd" else 0)),
+            # this slice's main path, the exported artifact and the C++
+            # runner: the forward's launches as ModelServer served the
+            # artifact (the counter zeroed before, read after) and as the
+            # runner and the CLI's runner served the embedded packages
+            # (fresh processes: each counts from 0 and reports its count);
+            # the backward kernels, off this path, count the previous
+            # slice's: the warm-start clusters
+            "launches": (export_launches(exported) if name == "flash_fwd"
+                         else sum(warm["train"][run]["launches"][name]
+                                  for run in ("cold", "warm"))),
             "device_launches_by_path": dict(
                 {"parallel_fsdp": parallel["runs"]["k1"][
                     "device_launches"][name],
@@ -7120,6 +7737,11 @@ def main():
                                else len(bwd_rows))}
         if name == "flash_fwd":
             entry["launches_by_path"].update({
+                "export_artifact": exported["artifact"]["fwd_launches"],
+                "export_native": exported["export_process"]["native"][
+                    "report"]["flash_fwd_launches"],
+                "export_cli_native": exported["export_process"]["cli"][
+                    "runner_reports"][0]["flash_fwd_launches"],
                 "warmstart_serve_cold": warm["serve"]["cold"]["fwd_launches"],
                 "warmstart_serve_warm": warm["serve"]["warm"]["fwd_launches"],
                 "fleet_replicas": sum(fleet_row["fwd_launches"].values()),
@@ -7130,6 +7752,10 @@ def main():
                 "moe_serve": moe_served["fwd_launches"]})
             entry["device_launches_by_path"]["gateway"] = \
                 gatewayed["device_launches"][name]
+            entry["device_launches_by_path"]["export_artifact"] = \
+                exported["artifact"]["device_launches"][name]
+            # the C++ binding (csrc/flash_ops.cpp) against the Python op
+            entry["cpp_binding"] = exported["export_process"]["binding"]
             entry["serve_shape"] = {
                 k: serve_row[k] for k in ("shape", "max_abs_err_o",
                                           "kernel_ms", "kernel_device_ms",

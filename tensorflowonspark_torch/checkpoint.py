@@ -430,10 +430,33 @@ def should_export(ctx):
     return ctx.is_chief()
 
 
+_ARTIFACT_FILE = "apply.pt2"
+_EMBEDDED_FILE = "apply_embedded.pt2"
+
+
 def export_model(export_dir, params, model_name, model_config=None,
-                 input_signature=None):
+                 input_signature=None, model=None,
+                 serialize_platforms=("cpu", "cuda"), embed_batch_size=None,
+                 embed_platform="cuda"):
     """Export ``params`` (a ``state_dict`` or an ``nn.Module``) and the
-    model descriptor for serving."""
+    model descriptor for serving.
+
+    When ``model`` (the ``nn.Module``) and ``input_signature`` are given,
+    the serving fn is ALSO exported with ``torch.export``
+    (:func:`~tensorflowonspark_torch.serving.serialize_apply`: params as
+    inputs, batch-dynamic) to ``apply.pt2``, descriptor key ``"exported":
+    {"file", "platforms"}``: a serving host then needs torch and the
+    port's ops alone, no model registry and no user code.  Registry
+    serving remains the fallback whenever the artifact is absent or made
+    for other platforms.
+
+    ``embed_batch_size`` additionally writes a **params-embedded**,
+    fixed-batch AOTInductor package for the C++ runner
+    (:func:`~tensorflowonspark_torch.serving.serialize_embedded`) to
+    ``apply_embedded.pt2``, descriptor key ``"embedded_pt2"``: its io meta
+    and ``"file"``; ``embed_platform`` is the device type it is built for
+    (the compile runs there).  A failed serialization logs a warning and
+    leaves the export registry-served, as in the JAX package."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     export_dir = _fs_path(export_dir)
@@ -447,9 +470,41 @@ def export_model(export_dir, params, model_name, model_config=None,
         "model_config": model_config or {},
         "input_signature": input_signature or {},
     }
+    if model is not None and input_signature:
+        from tensorflowonspark_torch import serving
+
+        try:
+            blob, platforms = serving.serialize_apply(
+                model, state, input_signature, platforms=serialize_platforms)
+            _write_bytes(os.path.join(export_dir, _ARTIFACT_FILE), blob)
+            descriptor["exported"] = {"file": _ARTIFACT_FILE,
+                                      "platforms": list(platforms)}
+        except Exception:
+            # params + registry still serve; don't fail the export
+            logger.warning("torch.export of the serving fn failed; export "
+                           "remains registry-served", exc_info=True)
+        if embed_batch_size:
+            try:
+                package, meta = serving.serialize_embedded(
+                    model, state, input_signature,
+                    batch_size=embed_batch_size, platform=embed_platform)
+                _write_bytes(os.path.join(export_dir, _EMBEDDED_FILE),
+                             package)
+                meta["file"] = _EMBEDDED_FILE
+                descriptor["embedded_pt2"] = meta
+            except Exception:
+                logger.warning("embedded package build failed; native "
+                               "runner artifact omitted", exc_info=True)
     with open(os.path.join(export_dir, _DESCRIPTOR), "w") as f:
         json.dump(descriptor, f)
     logger.info("exported %s to %s", model_name, export_dir)
+
+
+def _write_bytes(path, data):
+    """``data`` to ``path`` through a temporary file and a rename."""
+    with open(path + ".tmp", "wb") as f:
+        f.write(data)
+    os.replace(path + ".tmp", path)
 
 
 def load_model(export_dir, validate=False):

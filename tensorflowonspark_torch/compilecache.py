@@ -572,12 +572,12 @@ class AOTIProgram(object):
 
 def _inductor_options(device):
     """Inductor settings for a package on ``device``: the compiler of
-    :func:`_openmp_cxx`, and for a CUDA package no probe of the host's
+    ``ops._build.openmp_cxx``, and for a CUDA package no probe of the host's
     vector ISA (it has no CPU kernels to vectorize; each probe builds and
     loads a test library, seconds on a card's host)."""
     from torch._inductor import config
 
-    options = {"cpp.cxx": (None, _openmp_cxx())}
+    options = {"cpp.cxx": (None, _build_module().openmp_cxx())}
     if device == "cuda" and hasattr(config.cpp, "vec_isa_ok"):
         options["cpp.vec_isa_ok"] = False
     return options
@@ -601,54 +601,6 @@ def _load_package(data, device="cpu"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-_CXX = {}
-
-
-def _openmp_cxx():
-    """A C++ compiler that links ``-fopenmp``, which AOTInductor puts on
-    the link line of every package: Inductor's own choice (``$CXX``, else
-    ``g++``) when it can, else the first ``g++``, ``c++`` or ``clang++`` on
-    the ``PATH`` that can (a toolchain without libgomp's spec file cannot
-    link it); None when none can.  Checked once per process."""
-    import subprocess
-
-    from torch._inductor import config
-
-    with _lock:
-        if "cxx" in _CXX:
-            return _CXX["cxx"]
-        default = config.cpp.cxx
-        default = default[-1] if isinstance(default, (list, tuple)) \
-            else default
-        tmp = tempfile.mkdtemp(prefix="tfos-cxx-")
-        try:
-            src = os.path.join(tmp, "main.cpp")
-            with open(src, "w") as f:
-                f.write("int main() { return 0; }\n")
-            for cxx in [default] + [shutil.which(name) for name in
-                                    ("g++", "c++", "clang++")]:
-                if not cxx:
-                    continue
-                try:
-                    ok = subprocess.run(
-                        [cxx, "-fopenmp", src, "-o",
-                         os.path.join(tmp, "main")],
-                        capture_output=True, timeout=120).returncode == 0
-                except (OSError, subprocess.SubprocessError):
-                    ok = False
-                if ok:
-                    _CXX["cxx"] = cxx
-                    break
-            else:
-                _CXX["cxx"] = None
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        if _CXX["cxx"] != default:
-            logger.info("AOTInductor links with %s (%s cannot link "
-                        "-fopenmp)", _CXX["cxx"], default)
-        return _CXX["cxx"]
-
-
 def aoti_compile(fn, *args):
     """Compile ``fn(*args)`` ahead of time with AOTInductor at the static
     shapes of ``args`` (trees of tensors) and load it: an
@@ -665,7 +617,7 @@ def aoti_compile(fn, *args):
         def forward(self, *inputs):
             return fn(*inputs)
 
-    if _openmp_cxx() is None:
+    if _build_module().openmp_cxx() is None:
         raise RuntimeError("no C++ compiler here links -fopenmp, which "
                            "AOTInductor needs")
     device = (_tree_device(args) or torch.device("cpu")).type

@@ -950,7 +950,7 @@ def publish_trained(spec, params, step):
         {"registry": ModelRegistry-or-root-path, "model": name,
          "version": str (default "step-<N>"), "model_name": descriptor name,
          "model_config": {...}, "input_signature": {...},
-         "warm_dir": path or None}
+         "warm_dir": path or None, "module": nn.Module or None}
 
     ``params`` is the trainer's full params (a ``state_dict``); a detached
     CPU copy is taken first.  The copy is
@@ -958,9 +958,11 @@ def publish_trained(spec, params, step):
     enter the fleet — the quarantine discipline of ``restore_latest_valid``
     applied at the publish boundary), exported with
     ``checkpoint.export_model`` into the registry layout, and journaled as
-    a staging version for the canary controller to walk to live.  The JAX
-    spec's ``flax_model`` key is accepted and ignored: the port's export
-    rebuilds the model from its descriptor.  Returns the registry entry.
+    a staging version for the canary controller to walk to live.
+    ``"module"`` (the JAX spec's ``flax_model``) is the ``nn.Module``
+    passed to ``export_model(model=...)``: the published version then
+    carries the exported artifact (``apply.pt2``) with the input
+    signature.  Returns the registry entry.
     """
     from . import checkpoint
 
@@ -983,7 +985,8 @@ def publish_trained(spec, params, step):
         export_dir, host_params,
         spec.get("model_name") or model,
         model_config=spec.get("model_config"),
-        input_signature=spec.get("input_signature"))
+        input_signature=spec.get("input_signature"),
+        model=spec.get("module"))
     return registry.publish(model, version, export_dir,
                             model_config=spec.get("model_config"),
                             warm_dir=spec.get("warm_dir"),

@@ -44,18 +44,27 @@ so a restarted replica loads its rungs and reaches its ready line with
 A response is one frame with a 4-byte length: its outputs must stay under
 4 GiB (33 rows of the flagship LM's fp32 logits do not fit).
 
-Not ported yet, and refused with ``NotImplementedError``: ``--pjrt_plugin``
-(item L, the C++ runner).
+``--native`` serves batch mode with no Python on the serving path: the
+export's embedded AOTInductor package (``export_model(...,
+embed_batch_size=N)``) runs in the C++ runner (``csrc/aoti_runner.cpp``)
+on ``--device``, each batch padded to the package's fixed size.
+
+The JAX CLI's ``--pjrt_plugin PATH`` names a PJRT device plugin, which a
+CUDA host has no use for: it is refused with ``NotImplementedError``
+naming ``--native``.
 """
 
 import argparse
 import json
 import logging
+import os
 import sys
 
 import numpy as np
 
-from tensorflowonspark_torch import dfutil, schema as schema_mod, serving
+from tensorflowonspark_torch import (checkpoint, dfutil, schema as schema_mod,
+                                     serving)
+from tensorflowonspark_torch.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -87,11 +96,65 @@ def run_inference(export_dir, rows, input_mapping=None, output_name=None,
         yield row
 
 
+def run_inference_native(export_dir, rows, device=None, input_mapping=None,
+                         output_mapping=None):
+    """Serve through the C++ runner (``csrc/aoti_runner.cpp``): batches
+    are padded to the embedded package's fixed batch size, fed as raw
+    buffers, and the runner's outputs zip back into one dict per input
+    row.  Requires the export to carry the ``embedded_pt2`` artifact
+    (``export_model(..., embed_batch_size=...)``) built for ``device``'s
+    type (the CUDA card unless ``"cpu"``)."""
+    device = resolve_device(device).type
+    with open(os.path.join(checkpoint._fs_path(export_dir),
+                           checkpoint._DESCRIPTOR)) as f:
+        desc = json.load(f)
+    emb = desc.get("embedded_pt2")
+    if not emb:
+        raise ValueError(
+            "export has no embedded_pt2 artifact; re-export with "
+            "embed_batch_size set to use --native serving")
+    bsz = emb["batch_size"]
+    col_for = {t: c for c, t in (input_mapping or {}).items()}
+    out_col = dict(output_mapping or {})
+    rows = list(rows)
+    # every padded chunk first, then ONE runner process for all of them:
+    # the package loads once instead of per chunk
+    chunks = []
+    feeds = []
+    for lo in range(0, len(rows), bsz):
+        chunk = rows[lo:lo + bsz]
+        count = len(chunk)
+        feed = {}
+        for spec in emb["inputs"]:
+            tensor = spec["name"]
+            col = col_for.get(tensor, tensor)
+            vals = np.asarray([r[col] for r in chunk])
+            vals = vals.reshape([-1] + list(spec["shape"][1:]))
+            if count < bsz:
+                pad = [(0, bsz - count)] + [(0, 0)] * (vals.ndim - 1)
+                vals = np.pad(vals, pad)
+            feed[tensor] = vals
+        chunks.append(chunk)
+        feeds.append(feed)
+    all_outs = serving.run_embedded_native_many(export_dir, feeds,
+                                                device=device)
+    for chunk, outs in zip(chunks, all_outs):
+        for i in range(len(chunk)):
+            row = dict(chunk[i])
+            for tensor, arr in outs.items():
+                cell = arr[i]
+                row[out_col.get(tensor, tensor)] = (
+                    cell.tolist() if cell.ndim else cell.item())
+            yield row
+
+
 def _refuse_unported(args):
-    """Options of the JAX CLI that wait for another item of the port."""
+    """Options of the JAX CLI with no meaning in the port."""
     if getattr(args, "pjrt_plugin", None):
         raise NotImplementedError(
-            "--pjrt_plugin waits for the C++ runner (ROADMAP item L)")
+            "--pjrt_plugin names a PJRT device plugin, which a CUDA host has "
+            "no use for; the port's C++ runner (ROADMAP item L) serves the "
+            "embedded package with --native on --device")
 
 
 def open_replica(args):
@@ -189,9 +252,13 @@ def build_parser():
                         help='JSON {"tensor": "column"}, one entry per '
                              "output tensor (reference -o)")
     parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--native", action="store_true",
+                        help="serve through the C++ runner (no Python on the "
+                             "serving path) on --device; needs an export "
+                             "with the embedded_pt2 artifact")
     parser.add_argument("--pjrt_plugin", default=None,
-                        help="the JAX CLI's native runner; not ported yet "
-                             "(ROADMAP item L): refused")
+                        help="the JAX CLI's PJRT plugin: refused (a CUDA "
+                             "host serves natively with --native)")
     parser.add_argument("--output", default=None,
                         help="output JSON-lines path (stdout when omitted)")
     parser.add_argument("--device", default="cuda",
@@ -267,10 +334,16 @@ def main(argv=None):
     logger.info("loaded %d rows from %s (schema %s)",
                 len(rows), args.input, rows.schema)
 
-    results = run_inference(args.export_dir, rows,
-                            input_mapping=input_mapping,
-                            output_mapping=output_mapping,
-                            batch_size=args.batch_size, device=args.device)
+    if args.native:
+        results = run_inference_native(
+            args.export_dir, rows, device=args.device,
+            input_mapping=input_mapping, output_mapping=output_mapping)
+    else:
+        results = run_inference(args.export_dir, rows,
+                                input_mapping=input_mapping,
+                                output_mapping=output_mapping,
+                                batch_size=args.batch_size,
+                                device=args.device)
     out_f = open(args.output, "w") if args.output else sys.stdout
     try:
         n = 0

@@ -23,12 +23,16 @@ and loaded, and ``"cache_miss"`` when ``nvcc`` ran.
 import ctypes
 import hashlib
 import json
+import logging
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
+
+logger = logging.getLogger(__name__)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,7 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED = {}
-_TOOLKITS = {}       # nvcc path -> its version line
+_TOOLKITS = {}       # compiler path (nvcc, g++) -> its version line
+_CXX = {}            # "cxx" -> the host compiler openmp_cxx chose
 _LISTENERS = []
 _MADE_HERE = set()   # library paths this process built or installed
 #: ``nvcc`` processes this process started
@@ -237,3 +242,171 @@ def install(name, data, seconds=0.0):
         _MADE_HERE.add(str(out))
     with _LOCK:
         return _LOADED.get(name) or _dlopen(name, str(out))
+
+
+# -- the C++ programs against torch (csrc/*.cpp) -----------------------------
+
+#: The C++ sources built with the host's compiler against torch's headers
+#: and libraries: ``flash_ops`` (a shared library registering
+#: ``tfos::flash_fwd``) and ``aoti_runner`` (an executable).
+NATIVE = {"flash_ops": "shared", "aoti_runner": "executable"}
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC")
+
+
+def _torch_native():
+    """``(include dirs, library dir, whether torch has its CUDA libraries,
+    the ABI define)`` of the installed torch."""
+    import torch
+    from torch.utils import cpp_extension
+
+    lib_dir = os.path.join(os.path.dirname(torch.__file__), "lib")
+    cuda = (torch.version.cuda is not None and os.path.exists(
+        os.path.join(lib_dir, "libtorch_cuda.so")))
+    abi = "-D_GLIBCXX_USE_CXX11_ABI={}".format(
+        int(torch.compiled_with_cxx11_abi()))
+    return cpp_extension.include_paths(), lib_dir, cuda, abi
+
+
+def _native_command(name, cxx, out):
+    """The compiler's command line for ``csrc/<name>.cpp``: against torch's
+    headers, its libraries with an rpath to them, and with torch's CUDA
+    libraries (and, for ``flash_ops``, the forward kernel's library and
+    ``-DTFOS_WITH_CUDA``) where torch has them."""
+    includes, lib_dir, cuda, abi = _torch_native()
+    flags, libs = [abi], ["-ltorch", "-ltorch_cpu", "-lc10"]
+    if NATIVE[name] == "shared":
+        flags.append("-shared")
+    if cuda:
+        libs += ["-ltorch_cuda", "-lc10_cuda"]
+        if name == "flash_ops":
+            cuda_home = os.path.dirname(os.path.dirname(nvcc_path()))
+            flags += ["-DTFOS_WITH_CUDA",
+                      "-I" + os.path.join(cuda_home, "include")]
+            libs.append(str(library_path("flash_fwd")))
+    # --no-as-needed: the runner reaches torch_cuda's package runner only
+    # through its registration at load, which --as-needed would drop
+    return ([cxx, *CXX_FLAGS, *flags] + ["-I" + d for d in includes]
+            + [str(CSRC / (name + ".cpp")), "-o", str(out),
+               "-L" + lib_dir, "-Wl,--no-as-needed"] + libs
+            + ["-Wl,--as-needed", "-Wl,-rpath," + lib_dir, "-ldl"])
+
+
+def openmp_cxx():
+    """A C++ compiler that links ``-fopenmp``, which AOTInductor puts on
+    the link line of every package: Inductor's own choice (``$CXX``, else
+    ``g++``) when it can, else the first ``g++``, ``c++`` or ``clang++`` on
+    the ``PATH`` that can (a toolchain without libgomp's spec file cannot
+    link it); None when none can.  Checked once per process.  AOTInductor
+    (through ``compilecache``) and :func:`build_native` both use it."""
+    from torch._inductor import config
+
+    with _LOCK:
+        if "cxx" in _CXX:
+            return _CXX["cxx"]
+        default = config.cpp.cxx
+        default = default[-1] if isinstance(default, (list, tuple)) \
+            else default
+        tmp = tempfile.mkdtemp(prefix="tfos-cxx-")
+        try:
+            src = os.path.join(tmp, "main.cpp")
+            with open(src, "w") as f:
+                f.write("int main() { return 0; }\n")
+            for cxx in [default] + [shutil.which(name) for name in
+                                    ("g++", "c++", "clang++")]:
+                if not cxx:
+                    continue
+                try:
+                    ok = subprocess.run(
+                        [cxx, "-fopenmp", src, "-o",
+                         os.path.join(tmp, "main")],
+                        capture_output=True, timeout=120).returncode == 0
+                except (OSError, subprocess.SubprocessError):
+                    ok = False
+                if ok:
+                    _CXX["cxx"] = cxx
+                    break
+            else:
+                _CXX["cxx"] = None
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if _CXX["cxx"] != default:
+            logger.info("AOTInductor links with %s (%s cannot link "
+                        "-fopenmp)", _CXX["cxx"], default)
+        return _CXX["cxx"]
+
+
+def _native_cxx():
+    """``(path, --version line)`` of the compiler :func:`build_native`
+    uses: :func:`openmp_cxx`'s, else the ``g++`` on the ``PATH``."""
+    cxx = openmp_cxx() or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found to build {}".format(
+            sorted(NATIVE)))
+    with _LOCK:
+        if cxx not in _TOOLKITS:
+            out = subprocess.run([cxx, "--version"], capture_output=True,
+                                 text=True).stdout
+            _TOOLKITS[cxx] = (out.splitlines() or [""])[0]
+        return cxx, _TOOLKITS[cxx]
+
+
+def native_digest(name):
+    """The key of ``csrc/<name>.cpp``'s build: a hash of the source, the
+    compiler's command line (the compiler's path, flags, torch's paths,
+    the CUDA switch), the compiler's version line and
+    ``torch.__version__``."""
+    import torch
+
+    cxx, version = _native_cxx()
+    h = hashlib.sha256()
+    h.update((CSRC / (name + ".cpp")).read_bytes())
+    h.update(" ".join(_native_command(name, cxx, "out")).encode())
+    h.update(version.encode())
+    h.update(torch.__version__.encode())
+    return h.hexdigest()[:16]
+
+
+def native_path(name):
+    """Where ``csrc/<name>.cpp`` builds to (see :func:`native_digest`)."""
+    if NATIVE[name] == "shared":
+        return build_dir() / "lib{}-{}.so".format(name, native_digest(name))
+    return build_dir() / "{}-{}".format(name, native_digest(name))
+
+
+def build_native(names=None):
+    """Build the named C++ programs (default: both) that are not built yet,
+    one compiler process each, all at once; where torch has CUDA the
+    forward kernel's library is built first (``flash_ops`` links it).
+    Returns ``{name: {"path", "seconds", "cached", "log"}}``; raises
+    ``RuntimeError`` with the compiler's output when a build fails."""
+    names = list(NATIVE) if names is None else list(names)
+    build_dir().mkdir(parents=True, exist_ok=True)
+    if "flash_ops" in names and _torch_native()[2]:
+        build(["flash_fwd"])
+    cxx, _ = _native_cxx()
+    results, running = {}, {}
+    for name in names:
+        out = native_path(name)
+        if out.exists():
+            results[name] = {"path": str(out), "seconds": 0.0,
+                             "cached": True, "log": ""}
+            continue
+        tmp = out.with_name("{}.tmp{}".format(out.name, os.getpid()))
+        proc = subprocess.Popen(_native_command(name, cxx, tmp),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append("{} ({} exit {}):\n{}".format(
+                name, cxx, proc.returncode, log[-4000:]))
+            continue
+        os.replace(tmp, out)
+        results[name] = {"path": str(out), "seconds": seconds,
+                         "cached": False, "log": log}
+    if failures:
+        raise RuntimeError("native build failed: " + "\n".join(failures))
+    return results

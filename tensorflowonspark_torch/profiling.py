@@ -37,12 +37,15 @@ convention, :func:`telemetry.wall_time_us`).
 Concurrency: PyTorch allows ONE active profiler per process, and
 LocalBackend test clusters host several "nodes" in one process — node
 captures serialize on a module-level lock.  A profiler also never starts,
-stops or synchronizes the card while this process captures a CUDA graph
-or launches a replay: the Trainer holds :data:`cuda_graph_lock` around
-each capture and each replay, and so does every profiler start and stop
-here and in :mod:`profiler`.  (On an H100, a synchronize from a side thread
-broke a graph capture, and a profiler stopped from a side thread while the
-training thread launched replays hung both threads.)
+stops or synchronizes the card while this process captures a CUDA graph,
+launches a replay or launches an eager step: the Trainer holds
+:data:`cuda_graph_lock` around each capture, each replay and, on the
+card, each eager step, and so does every profiler start and stop here and
+in :mod:`profiler`.  (On an H100, a synchronize from a side thread broke a
+graph capture, a profiler stopped from a side thread while the training
+thread launched replays hung both threads, and a node whose capture
+endpoint started and stopped a profiler of every thread beside eager steps
+died at times with no Python error.)
 """
 
 import base64

@@ -1,11 +1,23 @@
 """Multi-tensor serving core of the port (the counterpart of
-:mod:`tensorflowonspark_tpu.serving`, registry-rebuild path).
+:mod:`tensorflowonspark_tpu.serving`).
 
 The export (:func:`~tensorflowonspark_torch.checkpoint.export_model`) names
-a registered model and its config; :class:`ModelServer` rebuilds it, loads
-the params onto the device and serves padded batches under
-``torch.inference_mode()``.  The feed and output conventions are the JAX
-package's:
+a registered model and its config, and may carry two serialized programs:
+
+- ``apply.pt2`` (:func:`serialize_apply`, the counterpart of the JAX
+  package's StableHLO artifact): the serving fn through ``torch.export``,
+  the params as inputs and the batch dim dynamic.  :class:`ModelServer`
+  serves it when the descriptor names it for its device type
+  (``from_artifact``): no model registry and no user code on the host, only
+  torch and the port's ``tfos::*`` ops.  Without it the server rebuilds the
+  model from the registry.
+- ``apply_embedded.pt2`` (:func:`serialize_embedded`): an AOTInductor
+  package with the params baked in, at a fixed batch, for one device type,
+  served with no Python at all by the C++ runner
+  (``csrc/aoti_runner.cpp``, :func:`run_embedded_native_many`).
+
+All three paths apply the model through :func:`build_apply_fn`.  The feed
+and output conventions are the JAX package's:
 
 - inputs: ``input_mapping`` ``{column: tensor}`` with the sorted-column
   contract; per-tensor dtype and shape coercion from the export's input
@@ -15,20 +27,26 @@ package's:
   into output columns by ``output_mapping`` ``{tensor: column}``.
 
 A live weight swap (:meth:`ModelServer.swap_export`) copies a compatible
-export's params in place into the served module: nothing is rebuilt or
-warmed again.
+export's params in place into the served params: nothing is rebuilt or
+warmed again, on either path.
 
 ``warm_cache_dir`` is the JAX server's warm executable cache
 (:mod:`~tensorflowonspark_torch.compilecache`): each ladder rung's forward
-is compiled ahead of time with AOTInductor at its zero feed, the params
-taken as inputs, and stored, so a restarted replica loads every rung with
-``compile_count == 0``, and a weight swap keeps the rungs.  Without it the
-rungs run the eager forward.  The exported StableHLO artifact of the JAX
-server has no counterpart yet (ROADMAP item G): the port serves from the
-registry.
+(the artifact's program where the server serves one) is compiled ahead of
+time with AOTInductor at its zero feed, the params taken as inputs, and
+stored, so a restarted replica loads every rung with ``compile_count ==
+0``, and a weight swap keeps the rungs.  Without it the rungs run the
+forward eagerly.
 """
 
+import copy
+import io
+import json
 import logging
+import os
+import shutil
+import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -36,7 +54,6 @@ import torch
 
 from tensorflowonspark_torch import checkpoint, telemetry
 from tensorflowonspark_torch.device import resolve_device
-from tensorflowonspark_torch.models import get_model
 from tensorflowonspark_torch.pipeline import yield_batch
 
 logger = logging.getLogger(__name__)
@@ -54,6 +71,334 @@ def _normalize_signature(signature):
         else:
             out[name] = {"shape": spec, "dtype": "float32"}
     return out
+
+
+def build_apply_fn(model, signature):
+    """The serving calling convention, in one place (shared by live
+    serving, the exported artifact and the embedded package, so none of
+    them can drift): multi-input models are applied by tensor-name keyword,
+    single-input models positionally, with ``params`` (a name -> tensor
+    dict) in place of the module's own; the fn is always ``(params,
+    {tensor: tensor}) -> outputs``."""
+    if len(signature) > 1:
+        def apply_fn(params, inputs):
+            return torch.func.functional_call(model, params, (), inputs)
+    else:
+        def apply_fn(params, inputs):
+            (x,) = inputs.values()
+            return torch.func.functional_call(model, params, (x,))
+    return apply_fn
+
+
+def _module_params(model):
+    """``model``'s params and buffers by name, detached."""
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    params.update((k, v.detach()) for k, v in model.named_buffers())
+    return params
+
+
+class _Traced(torch.nn.Module):
+    """``fn`` as a module's forward, for ``torch.export``."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _eval_mode(model, fn):
+    """``fn()`` with ``model`` in eval mode and under ``no_grad`` (the
+    flash attention ops then enter a graph as one forward op); the mode is
+    restored after."""
+    was = model.training
+    model.train(False)
+    try:
+        with torch.no_grad():
+            return fn()
+    finally:
+        model.train(was)
+
+
+#: the batch size an artifact is traced at: a dynamic dim traced at 1
+#: would specialise, and the ladder's first rung is 1
+_TRACE_BATCH = 2
+
+
+def serialize_apply(model, params, input_signature,
+                    platforms=("cpu", "cuda")):
+    """Serialize the model's serving fn (:func:`build_apply_fn`) with
+    ``torch.export``: the params are the program's inputs (not
+    constants), the batch dim is dynamic from 1 up, every other dim is
+    the signature's.  Returns ``(bytes of torch.export.save, platforms)``;
+    the program is traced on the CPU and moves to any device
+    (:func:`load_artifact`), so ``platforms`` records where it may be
+    served.  A host holding these bytes serves with torch and the port's
+    ``tfos::*`` ops alone: no model registry, no user code."""
+    sig = _normalize_signature(input_signature)
+    apply_fn = build_apply_fn(model, sig)
+    batch = torch.export.Dim("b", min=1)
+    inputs, dynamic = {}, {}
+    for tensor in sorted(sig):
+        spec = sig[tensor]
+        shape = list(spec["shape"] or [None])
+        for i, d in enumerate(shape[1:], start=1):
+            if d is None:
+                raise ValueError(
+                    "input {!r} has a non-batch dynamic dim {}; torch.export "
+                    "needs concrete non-batch dims".format(tensor, i))
+        inputs[tensor] = torch.zeros([_TRACE_BATCH] + list(shape[1:]),
+                                     dtype=getattr(torch, spec["dtype"]))
+        dynamic[tensor] = {0: batch}
+    host = {k: v.detach().cpu() for k, v in params.items()}
+    program = _eval_mode(model, lambda: torch.export.export(
+        _Traced(apply_fn), (host, inputs),
+        dynamic_shapes={"args": ({k: None for k in host}, dynamic)},
+        strict=False))
+    program.example_inputs = None    # the params: not part of the artifact
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue(), tuple(platforms)
+
+
+def _devices_named(program):
+    """The devices the ops of ``program``'s graphs name (a factory's
+    ``device=`` or a ``to(device)``), as strings."""
+    found = set()
+
+    def visit(value):
+        if isinstance(value, torch.device):
+            found.add(str(value))
+        elif isinstance(value, (list, tuple)):
+            for v in value:
+                visit(v)
+        elif isinstance(value, dict):
+            for v in value.values():
+                visit(v)
+
+    for module in program.graph_module.modules():
+        if isinstance(module, torch.fx.GraphModule):
+            for node in module.graph.nodes:
+                if node.op != "call_function":
+                    continue
+                device = node.kwargs.get("device")
+                if isinstance(device, str):   # as a move writes it
+                    device = torch.device(device)
+                visit(device)
+                visit(node.args)
+    return found
+
+
+def load_artifact(path, device):
+    """The serving program of an ``apply.pt2`` on ``device``: a callable
+    ``(params, {tensor: tensor}) -> outputs``.  Imports the port's ops
+    first (the graph calls ``tfos::flash_fwd``) and moves the program from
+    the CPU it was traced on; raises ``RuntimeError`` if an op still names
+    another device type."""
+    from tensorflowonspark_torch.ops import flash_attention  # noqa: F401
+    from torch.export.passes import move_to_device_pass
+
+    program = torch.export.load(path)
+    device = torch.device(device)
+    if device.type != "cpu":
+        program = move_to_device_pass(program, device)
+    stray = sorted(d for d in _devices_named(program)
+                   if torch.device(d).type != device.type)
+    if stray:
+        raise RuntimeError("the artifact {} still names {} after its move to "
+                           "{}".format(path, stray, device))
+    return program.module()
+
+
+_SHORT_DTYPES = {
+    "float32": "f32", "float64": "f64", "float16": "f16",
+    "bfloat16": "bf16", "int8": "s8", "int16": "s16", "int32": "s32",
+    "int64": "s64", "uint8": "u8", "uint16": "u16", "uint32": "u32",
+    "uint64": "u64", "bool": "pred",
+}
+
+
+def _to_bytes(arr, name):
+    """``arr`` as the raw bytes of dtype ``name``: through torch, which has
+    the bf16 that numpy lacks (the JAX package reaches into ml_dtypes)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(getattr(torch, name))
+    return t.contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def _from_bytes(raw, name, shape):
+    """The array of dtype ``name`` in ``raw`` (bf16 read back as float32)."""
+    t = torch.frombuffer(bytearray(raw), dtype=getattr(torch, name))
+    return _to_numpy(t.reshape(shape))
+
+
+def serialize_embedded(model, params, input_signature, batch_size=128,
+                       platform="cuda"):
+    """Serialize a **params-embedded**, fixed-batch AOTInductor package for
+    the C++ runner (``csrc/aoti_runner.cpp``).
+
+    Unlike :func:`serialize_apply` (params as inputs, batch-dynamic,
+    served by torch), this bakes the params into the package as its
+    constants and fixes the batch size, so the program's arguments are
+    exactly the input tensors, in sorted name order: a C++ host feeds raw
+    buffers with no checkpoint loader.  Built for one ``platform`` (a
+    device type: the compile runs there) with
+    :func:`~tensorflowonspark_torch.compilecache._inductor_options`'
+    compiler.  Returns ``(package_bytes, io_meta)``: ``io_meta`` records
+    the flattened input and output order the runner follows (no compile
+    options: AOTInductor needs none)."""
+    from torch._inductor import config
+
+    from tensorflowonspark_torch import compilecache
+    from tensorflowonspark_torch.ops import _build
+
+    sig = _normalize_signature(input_signature)
+    device = torch.device(platform)
+    embedded = copy.deepcopy(model).to(device)
+    embedded.load_state_dict(params)
+    apply_fn = build_apply_fn(embedded, sig)
+    own = _module_params(embedded)
+    names = sorted(sig) if sig else ["_x"]
+    example = []
+    for t in names:
+        spec = sig.get(t, {"shape": None, "dtype": "float32"})
+        shape = [batch_size] + list((spec["shape"] or [None])[1:])
+        example.append(torch.zeros(shape, dtype=getattr(torch, spec["dtype"]),
+                                   device=device))
+    traced = {}
+
+    def forward(*tensors):
+        out = apply_fn(own, dict(zip(names, tensors)))
+        named = _name_outputs(out)
+        # the runner's order: sorted names for a dict (the JAX package's
+        # pytree order), positions otherwise
+        traced["outputs"] = (sorted(named) if isinstance(out, dict)
+                             else list(named))
+        return tuple(named[n] for n in traced["outputs"])
+
+    if _build.openmp_cxx() is None:
+        raise RuntimeError("no C++ compiler here links -fopenmp, which "
+                           "AOTInductor needs")
+    program = _eval_mode(embedded, lambda: torch.export.export(
+        _Traced(forward), tuple(example), strict=False))
+    (out_node,) = [n for n in program.graph.nodes if n.op == "output"]
+    out_vals = [n.meta["val"] for n in out_node.args[0]]
+    tmp = tempfile.mkdtemp(prefix="tfos-embed-")
+    try:
+        with config.patch(compilecache._inductor_options(device.type)):
+            path = torch._inductor.aoti_compile_and_package(
+                program, package_path=os.path.join(tmp, "embedded.pt2"))
+        with open(path, "rb") as f:
+            package = f.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def short(dtype):
+        name = str(dtype).replace("torch.", "")
+        if name not in _SHORT_DTYPES:
+            raise ValueError("dtype {} unsupported by the native runner"
+                             .format(name))
+        return _SHORT_DTYPES[name]
+
+    meta = {
+        "batch_size": batch_size,
+        "platform": platform,
+        "inputs": [{"name": t, "dtype": short(x.dtype),
+                    "shape": list(x.shape)} for t, x in zip(names, example)],
+        "outputs": [{"name": n, "dtype": short(v.dtype),
+                     "shape": [int(d) for d in v.shape]}
+                    for n, v in zip(traced["outputs"], out_vals)],
+    }
+    return package, meta
+
+
+def run_embedded_native(export_dir, feed, device=None, **kwargs):
+    """Serve one batch through the C++ runner (see
+    :func:`run_embedded_native_many`)."""
+    return run_embedded_native_many(export_dir, [feed], device=device,
+                                    **kwargs)[0]
+
+
+def run_embedded_native_many(export_dir, feeds, device=None,
+                             runner_path=None, ops_lib=None, workdir=None,
+                             report=None):
+    """Serve MANY batches through ONE run of the C++ runner: the package
+    loads once and runs per batch (``--batches``).
+
+    ``feeds``: dicts of input arrays, each matching the embedded package's
+    signature (padded to its fixed batch size); buffers travel
+    concatenated per input.  ``device`` is the runner's ``--device`` (the
+    CUDA card unless ``"cpu"``; it must be the package's platform).  The
+    runner and the operator library are built at first use
+    (:func:`~tensorflowonspark_torch.ops._build.build_native`) unless
+    given.  Returns a list of ``{output_name: ndarray}`` (bf16 outputs read
+    back as float32); ``report``, a dict, receives the runner's own line
+    (``flash_fwd_launches``, ``load_s``, ``run_s``).  Raises on a shape
+    mismatch and, with the runner's tail, on a non-zero exit."""
+    from tensorflowonspark_torch.device import resolve_device
+    from tensorflowonspark_torch.ops import _build
+
+    device = resolve_device(device).type
+    export_dir = checkpoint._fs_path(export_dir)
+    with open(os.path.join(export_dir, checkpoint._DESCRIPTOR)) as f:
+        desc = json.load(f)
+    emb = desc.get("embedded_pt2")
+    if not emb:
+        raise ValueError("export has no embedded_pt2 artifact; re-export "
+                         "with embed_batch_size set")
+    if emb["platform"] != device:
+        raise ValueError("the embedded package was built for {}, not {}"
+                         .format(emb["platform"], device))
+    if not feeds:
+        return []
+    if runner_path is None or ops_lib is None:
+        built = _build.build_native()
+        runner_path = runner_path or built["aoti_runner"]["path"]
+        ops_lib = ops_lib or built["flash_ops"]["path"]
+    own_workdir = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="aoti_serve_")
+    n = len(feeds)
+    cmd = [str(runner_path), "--package",
+           os.path.join(export_dir, emb["file"]), "--device", device,
+           "--ops_lib", str(ops_lib), "--batches", str(n),
+           "--out", os.path.join(workdir, "out")]
+    rev = {v: k for k, v in _SHORT_DTYPES.items()}
+    try:
+        for spec in emb["inputs"]:
+            path = os.path.join(workdir, spec["name"] + ".bin")
+            with open(path, "wb") as f:
+                for feed in feeds:
+                    arr = np.asarray(feed[spec["name"]])
+                    if list(arr.shape) != list(spec["shape"]):
+                        raise ValueError(
+                            "input {} has shape {}, package wants {}".format(
+                                spec["name"], arr.shape, spec["shape"]))
+                    f.write(_to_bytes(arr, rev[spec["dtype"]]))
+            cmd += ["--input", "{}:{}:{}".format(
+                spec["dtype"], ",".join(str(d) for d in spec["shape"]), path)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600 + 60 * n)
+        if proc.returncode != 0:
+            raise RuntimeError("aoti_runner failed (rc={}):\n{}\n{}".format(
+                proc.returncode, proc.stdout[-2000:], proc.stderr[-2000:]))
+        line = proc.stdout.strip().splitlines()[-1]
+        logger.info("aoti_runner report: %s", line)
+        if report is not None:
+            report.update(json.loads(line))
+        results = []
+        for b in range(n):
+            outputs = {}
+            for i, spec in enumerate(emb["outputs"]):
+                name = ("out.{}.bin".format(i) if n == 1
+                        else "out.{}.{}.bin".format(b, i))
+                with open(os.path.join(workdir, name), "rb") as f:
+                    outputs[spec["name"]] = _from_bytes(
+                        f.read(), rev[spec["dtype"]], spec["shape"])
+            results.append(outputs)
+        return results
+    finally:
+        if own_workdir:
+            shutil.rmtree(workdir, ignore_errors=True)
 
 
 def bucket_ladder(max_batch):
@@ -87,7 +432,12 @@ def _to_numpy(t):
 
 class ModelServer(object):
     """Loads an export once and serves batched inference on ``device``
-    (default: the CUDA card; ``device="cpu"`` only when asked)."""
+    (default: the CUDA card; ``device="cpu"`` only when asked).
+
+    Prefers the export's artifact (``apply.pt2``, :func:`serialize_apply`)
+    when its platforms include the device's type (``from_artifact``):
+    serving then needs no model registry and no user code.  Falls back to
+    rebuilding the model from the registry by descriptor name."""
 
     def __init__(self, export_dir, batch_size=128, device=None,
                  warm_cache_dir=None):
@@ -118,10 +468,23 @@ class ModelServer(object):
             self._aot = compilecache.AOTCache(warm_cache_dir)
         self.descriptor = desc
         self.signature = _normalize_signature(desc.get("input_signature"))
-        self.model = self._registry_model(state)
-        logger.info("loaded model %s from %s on %s (inputs: %s)",
-                    desc["model_name"], export_dir, self.device,
-                    sorted(self.signature) or "<unnamed>")
+        #: Whether the export's artifact serves (else the registry's model).
+        self.from_artifact = False
+        #: The served params on the device: the registry model's own, or
+        #: the artifact program's inputs (``self.model`` is then None).
+        self.model, self.params = None, None
+        path = self._artifact_path(export_dir, desc)
+        if path is not None:
+            self.params = {k: v.to(self.device) for k, v in state.items()}
+            self._apply_fn = self._artifact_apply(path)
+            self.from_artifact = True
+        else:
+            self.model = self._registry_model(state)
+            self.params = _module_params(self.model)
+            self._apply_fn = build_apply_fn(self.model, self.signature)
+        logger.info("loaded model %s from %s on %s (inputs: %s, artifact: "
+                    "%s)", desc["model_name"], export_dir, self.device,
+                    sorted(self.signature) or "<unnamed>", self.from_artifact)
 
     @property
     def model_name(self):
@@ -172,13 +535,15 @@ class ModelServer(object):
         def avals(sd):
             return {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
 
-        if avals(state) != avals(self.model.state_dict()):
+        if avals(state) != avals(self.params):
             raise fleet.SwapRefused(
                 "swap refused: params names/shapes/dtypes differ (would "
                 "rebuild the model)")
         # in-place copies on the device's current stream, the one the
         # next dispatch's kernels queue behind
-        self.model.load_state_dict(state)
+        with torch.no_grad():
+            for name, value in state.items():
+                self.params[name].copy_(value)
         self.descriptor = dict(desc)
         if expected_version is not None:
             self.descriptor["model_version"] = str(expected_version)
@@ -191,6 +556,8 @@ class ModelServer(object):
     def _registry_model(self, state):
         """Rebuild the model from the registry by descriptor name, sized to
         the params' shapes, and load the params onto the device."""
+        from tensorflowonspark_torch.models import get_model
+
         config = dict(self.descriptor.get("model_config") or {})
         arch = config.pop("architecture", None) \
             or self.descriptor["model_name"]
@@ -199,27 +566,49 @@ class ModelServer(object):
         model.load_state_dict(state, assign=True)
         return model.to(self.device).eval()
 
-    def _apply(self, inputs):
-        """Single-input models positionally, multi-input by keyword."""
-        if len(self.signature) > 1:
-            return self.model(**inputs)
-        (x,) = inputs.values()
-        return self.model(x)
+    def _artifact_path(self, export_dir, desc):
+        """The artifact's file when the descriptor names one, it exists and
+        its platforms include this server's device type; None otherwise,
+        with a warning where an artifact was named (the server then serves
+        from the registry)."""
+        art = desc.get("exported")
+        if not art:
+            return None
+        path = os.path.join(checkpoint._fs_path(export_dir), art["file"])
+        platforms = [p.lower() for p in art.get("platforms", [])]
+        if not os.path.exists(path):
+            logger.warning("artifact %s is missing; falling back to registry "
+                           "serving", path)
+            return None
+        if platforms and self.device.type not in platforms:
+            logger.warning("artifact exported for %s but this server's device "
+                           "is %s; falling back to registry serving",
+                           platforms, self.device.type)
+            return None
+        return path
 
-    def _functional(self, params, inputs):
-        """:meth:`_apply` with ``params`` in place of the module's own (the
-        form a rung's AOTInductor program is compiled from)."""
-        if len(self.signature) > 1:
-            return torch.func.functional_call(self.model, params, (), inputs)
-        return torch.func.functional_call(self.model, params,
-                                          tuple(inputs.values()))
+    def _artifact_apply(self, path):
+        """``(params, inputs) -> outputs`` through the artifact's program
+        on the device (:func:`load_artifact`)."""
+        program = load_artifact(path, self.device)
+        names = sorted(self.signature)
+
+        def apply_fn(params, inputs):
+            if len(names) == 1:
+                (x,) = inputs.values()
+                inputs = {names[0]: x}
+            return program(params, {t: inputs[t] for t in names})
+        return apply_fn
+
+    def _apply(self, inputs):
+        """The served forward (:func:`build_apply_fn`'s convention) with
+        the served params."""
+        return self._apply_fn(self.params, inputs)
 
     def _params(self):
-        """The served module's params and buffers by name: the tensors a
-        weight swap writes in place."""
-        params = {k: v.detach() for k, v in self.model.named_parameters()}
-        params.update((k, v.detach()) for k, v in self.model.named_buffers())
-        return params
+        """The served params by name: the tensors a weight swap writes in
+        place."""
+        return self.params
 
     def _inputs(self, feed):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -359,14 +748,14 @@ class ModelServer(object):
             fp = compilecache.fingerprint(
                 avals=(params, feed),
                 extra={"program": name,
-                       "stablehlo": False,
+                       "stablehlo": self.from_artifact,
                        "model": self.descriptor.get("model_name"),
                        "model_config": repr(sorted(
                            (self.descriptor.get("model_config")
                             or {}).items()))})
             compiled, verdict, _ = compilecache.load_or_compile(
                 self._aot, name, fp, compilecache.aoti_compile,
-                (self._functional, params, self._inputs(feed)))
+                (self._apply_fn, params, self._inputs(feed)))
             if compiled is not None:
                 self._warm_exec[bucket] = compiled
                 # loaded rungs never bump compile_count: predict_feed's

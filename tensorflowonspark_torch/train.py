@@ -903,7 +903,12 @@ class Trainer(object):
         FLOPs and bytes unless :meth:`compile_and_measure` did."""
         batch, mask = self._prepare(batch, mask)
         self._aot_dispatch("step", batch, mask)
-        loss, aux, self._health_grad_norm = self._counted_step(batch, mask)
+        # on the card no profiler starts or stops while the host launches
+        # the step: a capture's window opens and closes between steps
+        with (profiling_mod.cuda_graph_lock if self.device.type == "cuda"
+              else contextlib.nullcontext()):
+            loss, aux, self._health_grad_norm = self._counted_step(batch,
+                                                                   mask)
         self._note_dispatch(1)
         # TimeHistory syncs on the loss at window boundaries: honest
         # ms/step and MFU; within a window the steps queue freely

@@ -192,6 +192,64 @@ def test_public_op_head_dim_32(card, dtype):
     assert (qkv.grad.float() - want).abs().max().item() <= limit
 
 
+# a process with no Python op: the C++ registration (csrc/flash_ops.cpp,
+# argv[1]) runs the forward on each case of argv[2] on the card and saves
+# the outputs and its launch count to argv[3]
+_BINDING_CHILD = """
+import ctypes, sys
+import torch
+torch.ops.load_library(sys.argv[1])
+lib = ctypes.CDLL(sys.argv[1])
+lib.tfos_flash_fwd_launches.restype = ctypes.c_longlong
+outs = []
+for qkv, fused, scale, causal in torch.load(sys.argv[2]):
+    qkv = qkv.cuda()
+    q, k, v = (qkv.unbind(2) if fused else
+               [qkv[:, :, i].contiguous() for i in range(3)])
+    outs.append([t.cpu() for t in torch.ops.tfos.flash_fwd(q, k, v, scale,
+                                                           causal)])
+torch.save({"outs": outs, "launches": lib.tfos_flash_fwd_launches()},
+           sys.argv[3])
+"""
+
+
+def test_cpp_binding_matches_python_op(card, tmp_path):
+    """The C++ binding the runner loads launches the same kernel as the
+    Python op: bit for bit at the serve shape (fused q, k, v views), at
+    head_dim 32 and 128, and for fp32 head_dim 32 (padded to 64 by both),
+    one launch a call."""
+    import subprocess
+    import sys
+
+    from tensorflowonspark_torch.ops import _build
+
+    lib = _build.build_native(["flash_ops"])["flash_ops"]["path"]
+    cases = []
+    for shape, dtype, causal, fused in [
+            ((4, 1024, 16, 64), torch.bfloat16, True, True),
+            ((2, 256, 4, 32), torch.bfloat16, True, False),
+            ((2, 256, 4, 128), torch.bfloat16, False, False),
+            ((2, 256, 4, 32), torch.float32, True, False)]:
+        b, s, h, d = shape
+        x = np.random.default_rng(d).standard_normal((b, s, 3, h, d))
+        cases.append((torch.from_numpy(x.astype(np.float32)).to(dtype),
+                      fused, 1.0 / d ** 0.5, causal))
+    src, dst = str(tmp_path / "cases.pt"), str(tmp_path / "outs.pt")
+    torch.save(cases, src)
+    proc = subprocess.run([sys.executable, "-c", _BINDING_CHILD, lib, src,
+                           dst], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = torch.load(dst)
+    assert got["launches"] == len(cases)
+    for (qkv, fused, scale, causal), (o, lse) in zip(cases, got["outs"]):
+        qkv = qkv.to(card)
+        q, k, v = (qkv.unbind(2) if fused else
+                   [qkv[:, :, i].contiguous() for i in range(3)])
+        want_o, want_lse = torch.ops.tfos.flash_fwd(q, k, v, scale, causal)
+        assert torch.equal(o, want_o.cpu()) and torch.equal(
+            lse, want_lse.cpu())
+
+
 class _RowFeed(object):
     """Columnar rows served like a DataFeed (``next_batch_arrays``):
     ``should_stop`` turns true once a read asked for more rows than were
@@ -214,6 +272,42 @@ class _RowFeed(object):
 
     def terminate(self):
         pass
+
+
+def test_eager_step_holds_the_capture_lock(card):
+    """On the card an eager Trainer step runs under
+    ``profiling.cuda_graph_lock``, so a capture's profiler starts and stops
+    between steps, and a capture asked for mid-step waits for its end."""
+    import functools
+    import threading
+    import time
+
+    from tensorflowonspark_torch import profiling, train
+
+    held, entered, release = [], threading.Event(), threading.Event()
+
+    def loss_fn(params, batch, mask):
+        held.append(profiling.cuda_graph_lock.locked())
+        entered.set()
+        release.wait(10)
+        return ((params["w"] * batch["x"]).sum(-1) ** 2).mean(), {}
+
+    trainer = train.Trainer(loss_fn, {"w": torch.ones(4)},
+                            functools.partial(torch.optim.SGD, lr=0.1),
+                            batch_size=2, device=card)
+    stepping = threading.Thread(target=trainer.step, args=(
+        {"x": torch.arange(8.0, device=card).reshape(2, 4)},))
+    stepping.start()
+    assert entered.wait(30)
+    t0 = time.monotonic()
+    acquired = profiling.cuda_graph_lock.acquire(timeout=0.2)
+    if acquired:
+        profiling.cuda_graph_lock.release()
+    release.set()
+    stepping.join(30)
+    assert held == [True] and not acquired
+    assert time.monotonic() - t0 >= 0.2 and trainer.state.step == 1
+    assert not profiling.cuda_graph_lock.locked()
 
 
 def test_sharded_feed_on_card_matches_cpu(card):

@@ -124,6 +124,35 @@ def test_capture_waits_out_a_graph_capture():
     assert gzip.decompress(body) and info["start_secs"] >= 0
 
 
+def _lock_probe(device):
+    """A Trainer on ``device`` whose loss records whether
+    ``profiling.cuda_graph_lock`` is held while the step runs."""
+    import functools
+
+    from tensorflowonspark_torch import train
+
+    held = []
+
+    def loss_fn(params, batch, mask):
+        held.append(profiling.cuda_graph_lock.locked())
+        return ((params["w"] * batch["x"]).sum(-1) ** 2).mean(), {}
+
+    trainer = train.Trainer(loss_fn, {"w": torch.ones(4)},
+                            functools.partial(torch.optim.SGD, lr=0.1),
+                            batch_size=2, device=device)
+    return trainer, held
+
+
+def test_cpu_eager_step_takes_no_capture_lock():
+    """Only on the card does an eager step hold ``cuda_graph_lock`` (see
+    ``tests/test_torch_kernels_cuda.py``): on the CPU a capture may start
+    mid-step, and several in-process trainers never wait on each other."""
+    trainer, held = _lock_probe("cpu")
+    for _ in range(2):
+        trainer.step({"x": torch.arange(8.0).reshape(2, 4)})
+    assert held == [False, False] and trainer.state.step == 2
+
+
 class _FakeServer(object):
     """Duck-typed reservation server: the roster metas and the metrics
     snapshot, no sockets."""

@@ -144,13 +144,17 @@ def test_load_model_validate_refuses_nan(tmp_path):
 
 def test_default_device_raises_without_cuda(exports, monkeypatch):
     """No card and no ``device="cpu"``: entry points raise, never run on
-    the CPU."""
+    the CPU (the native runner's Python entry points among them)."""
     _, torch_dir = exports
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serving.ModelServer(torch_dir, batch_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         list(inference_cli.run_inference(torch_dir, _rows(1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        list(inference_cli.run_inference_native(torch_dir, _rows(1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serving.run_embedded_native_many(torch_dir, [])
     with pytest.raises(RuntimeError):
         device.resolve_device("cuda:0")
     assert device.resolve_device("cpu") == torch.device("cpu")
@@ -183,6 +187,7 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("examples", "mnist", "mnist_pipeline_torch.py"),
              os.path.join("examples", "mnist", "mnist_files_torch.py"),
+             os.path.join("examples", "mnist", "mnist_inference_torch.py"),
              os.path.join("examples", "resnet", "imagenet_input_torch.py"),
              os.path.join("examples", "resnet", "resnet_imagenet_torch.py"),
              os.path.join("examples", "transformer",
@@ -280,6 +285,18 @@ missing += [n for n in ("CACHE_DIR_ENV", "stats", "configure",
                         "load_or_compile", "KernelSet", "AOTIProgram",
                         "aoti_compile") if not hasattr(compilecache, n)]
 missing += [n for n in ("aot_root",) if not hasattr(checkpoint, n)]
+from tensorflowonspark_torch import inference_cli, serving
+from tensorflowonspark_torch.ops import _build
+missing += [n for n in ("build_apply_fn", "serialize_apply",
+                        "serialize_embedded", "load_artifact",
+                        "run_embedded_native", "run_embedded_native_many",
+                        "_SHORT_DTYPES") if not hasattr(serving, n)]
+missing += [n for n in ("run_inference_native",)
+            if not hasattr(inference_cli, n)]
+missing += [n for n in ("build_native", "native_path", "NATIVE")
+            if not hasattr(_build, n)]
+missing += [n for n in ("flash_ops", "aoti_runner")
+            if not (_build.CSRC / (n + ".cpp")).exists()]
 missing += [n for n in ("set_aot_cache", "_aot_resolve")
             if not hasattr(train.Trainer, n)]
 print(len(names), bad, missing)
@@ -297,8 +314,11 @@ def test_port_imports_no_jax():
     scripts/ci_assert_torch_fleet.py and scripts/ci_assert_torch_warmstart.py
     has no jax, flax, optax, orbax or JAX-package module; the alerting and
     control planes (watchtower, guardrails, autopilot, remediator), the
-    model fleet (fleet, with every public name of the JAX package's) and
-    the compile plane (compilecache) are among the port modules."""
+    model fleet (fleet, with every public name of the JAX package's), the
+    compile plane (compilecache), the exported artifact and the native
+    runner's Python side (serving's serializers, ``run_embedded_native*``,
+    ``inference_cli.run_inference_native``, ``ops._build.build_native``
+    and its C++ sources) and the MNIST inference twin are among them."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -329,6 +349,11 @@ def test_port_sources_name_no_jax():
     for name in ("metrics_replay_torch.py", "ci_assert_torch_fleet.py",
                  "ci_assert_torch_warmstart.py"):
         assert os.path.join(REPO, "scripts", name) in paths, name
+    assert os.path.join(REPO, "examples", "mnist",
+                        "mnist_inference_torch.py") in paths
+    for name in ("serving", "inference_cli", os.path.join("ops", "_build")):
+        assert os.path.join(REPO, "tensorflowonspark_torch",
+                            name + ".py") in paths, name
     offenders = []
     for path in paths:
         with open(path) as f:
