@@ -51,6 +51,23 @@ weights from a seed) along both paths:
   cluster runs the node's ``fit_feed`` runs under ``torch.profiler`` (CUDA
   activity only), and its launch counters are held to the flash kernels
   the card executed;
+- dataservice: the disaggregated data service feeding the same LM.  12
+  TFRecord splits of 8 rows (a row id and 1024 tokens) are served by a
+  journaled dispatcher and two feed workers, each a ``python -m`` process
+  of the port (``--reader tfrecord --fields id,tokens --cache-bytes``),
+  one armed to SIGKILL itself mid-split in epoch 1; ``cluster.run`` in
+  FILES mode with ``data_service=`` on a one-executor ``LocalBackend``
+  trains from ``ctx.get_service_feed`` (DYNAMIC, two epochs) through
+  ``ShardedFeed`` and ``fit_feed`` at K = 1 under ``torch.profiler``,
+  keeping each batch's row ids.  Every row once an epoch across the kill
+  (no dupes, 24 splits committed), the killed worker fenced and its split
+  re-pooled and streamed by the survivor, epoch 2 served from the
+  workers' caches, colv1 frames on the wire, layers x steps launches of
+  each kernel (the profiler agreeing), the losses within 1e-3 of the same
+  batches fed device-resident through ``Trainer.step`` here from the same
+  init, and a split's trace flow ended at ``train_dispatch`` in the node.
+  Its processes start, and its node brings the model up, beside the
+  gateway phase; the service's job and the steps run after it;
 - supervised: the same LM, init and stream at K = 5 through
   ``train.fit_supervised`` with checkpoints every 10 steps: (a) a feed
   that fails (retryably) after step 15, resumed from step 10, ends at step
@@ -189,7 +206,8 @@ weights from a seed) along both paths:
   ``train_rollback`` -> ``PoisonRollback`` -> ``restore_latest_valid``
   (the poisoned steps quarantined as ``<step>.corrupt``): the run reaches
   its 25 steps and its params equal an uninterrupted run's over the same
-  steps and batches to the bit; control_evict (two executors,
+  steps and batches to the bit (this leg runs earlier, beside the
+  serve_cli phase); control_evict (two executors,
   ``remediator=`` with one eviction): executor 1 sleeps before every step,
   the watchtower names it alone, ``evict_straggler`` goes proposed ->
   applied -> effect, the node drains through its SIGTERM path (BYE
@@ -277,6 +295,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2341,6 +2360,572 @@ def phase_cluster(torch, np, train_row, config=LM_CONFIG, device=None,
         raise AssertionError("the served cluster export differs from the "
                              "trained model by {} (max |logit| {})".format(
                                  handoff_diff, handoff_scale))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the disaggregated data service: a dispatcher and two feed-worker processes
+# serve TFRecord splits to the flash LM's node through ctx.get_service_feed
+# ---------------------------------------------------------------------------
+
+# 12 TFRecord splits of 8 rows (a row id and SEQ tokens), two epochs: 24
+# steps of TRAIN_BATCH rows, each row once an epoch
+DS_SPLITS = 12
+DS_SPLIT_ROWS = 8
+DS_EPOCHS = 2
+DS_ROWS = DS_SPLITS * DS_SPLIT_ROWS
+DS_STEPS = DS_EPOCHS * DS_ROWS // TRAIN_BATCH
+DS_SEED = 3
+DS_JOB = "chip-ds"
+# the armed worker SIGKILLs itself once it streamed 12 rows: in its second
+# split (a split is one block of 8 rows), after the block and before the
+# split's split_end, in epoch 1
+DS_KILL_AFTER_ITEMS = 12
+# the workers beat every 0.25 s; the dispatcher fences one after 8 silent
+# beats (2 s), so a host that holds a healthy worker's beat thread off for
+# a second does not fence it
+DS_WORKER_BEAT_SECS = 0.25
+DS_DISPATCHER_MISSES = 8
+DS_CACHE_BYTES = 256 << 20
+# the node's beats: it pauses them while it brings CUDA up
+DS_HEARTBEAT_SECS = 0.5
+DS_HEARTBEAT_MISSES = 60
+DS_READY_SECS = 120      # the dispatcher's ready line; both workers listed
+DS_RUN_SECS = 600        # the cluster's end
+DS_FEED_TIMEOUT_SECS = 300   # the node's ServiceFeed watchdog
+DS_POLL_SECS = 0.05      # this process's poll of the job's status
+
+
+def write_ds_splits(out_dir, rows):
+    """``DS_SPLITS`` TFRecord files of ``DS_SPLIT_ROWS`` rows each, a row
+    ``{"id": i, "tokens": rows[i]}``; returns their paths."""
+    from tensorflowonspark_torch import dfutil
+
+    files = []
+    for s in range(DS_SPLITS):
+        ids = range(s * DS_SPLIT_ROWS, (s + 1) * DS_SPLIT_ROWS)
+        files += dfutil.save_as_tfrecords(
+            [{"id": i, "tokens": rows[i].tolist()} for i in ids],
+            os.path.join(out_dir, "split-%02d" % s),
+            schema={"id": "int64", "tokens": "array<int64>"})
+    return files
+
+
+def dataservice_main(args, ctx):
+    """The dataservice phase's user fn, run inline in the FILES-mode
+    executor (its first CUDA call is ``ctx.initialize_distributed()``):
+    brings the model and the trainer up, waits for ``args["go"]`` to exist
+    (the host-bound bring-up runs beside the previous phase, the service's
+    job and the steps after it), then trains the LM at K = 1 from
+    ``ctx.get_service_feed`` (DYNAMIC, two epochs) through ``ShardedFeed``
+    and ``fit_feed``, keeps the row ids of each batch in the order the
+    batches dispatch, and reports to ``args["report"]`` (the traceback too
+    when it fails, then re-raises)."""
+    import functools
+    import importlib
+    import traceback
+
+    report = {"node_started": time.time(), "pid": os.getpid()}
+    try:
+        import numpy as np
+        import torch
+
+        from tensorflowonspark_torch import dataservice, train
+        from tensorflowonspark_torch.models import get_model, transformer
+        from tensorflowonspark_torch.ops import _build
+        from tensorflowonspark_torch.parallel import infeed
+
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device = ctx.initialize_distributed(device=args["device"])
+        report["device"] = str(device)
+        report["distributed_ready"] = time.time()
+        if device.type == "cuda":
+            # the parent built every kernel: this loads, it does not build
+            for name in _build.build():
+                _build.load(name)
+        cfg = args["config"]
+        model = get_model("transformer_lm", **cfg)
+        model.init_weights(torch.Generator().manual_seed(args["init_seed"]))
+        lm_loss = transformer.loss_fn(model)
+        losses = []
+
+        def loss_fn(params, batch, mask):
+            # each step's loss as a device scalar (no sync), read at the end
+            loss, aux = lm_loss(params, batch, mask)
+            losses.append(loss.detach())
+            return loss, aux
+
+        trainer = train.Trainer(
+            loss_fn, dict(model.state_dict()),
+            functools.partial(torch.optim.Adam, lr=args["lr"]),
+            compute_dtype=getattr(torch, cfg["dtype"]),
+            batch_size=args["batch"], log_steps=args["log_steps"],
+            extra_step_flops=args["flash_flops"], device=device)
+        report["model_ready"] = time.time()
+        deadline = time.monotonic() + args["go_secs"]
+        while not os.path.exists(args["go"]):
+            if time.monotonic() > deadline:
+                raise AssertionError("no go within {} s".format(
+                    args["go_secs"]))
+            time.sleep(0.05)
+        report["go_seen"] = time.time()
+        feed = ctx.get_service_feed(
+            args["files"], job_name=args["job"],
+            mode=dataservice.SHARD_DYNAMIC, num_epochs=args["epochs"],
+            timeout=args["feed_timeout"])
+        ids = []
+
+        def to_batch(cols):
+            # the (id, tokens) columns; batches are assembled in the order
+            # they dispatch, so ids holds each dispatch's rows in order
+            ids.append([int(i) for i in cols[0]])
+            return {"tokens": np.asarray(cols[1], np.int32)}
+
+        sharded = infeed.ShardedFeed(feed, args["batch"], transform=to_batch,
+                                     device=device)
+        report["feed_ready"] = time.time()
+        first = {}
+
+        def on_steps(step):
+            if step == 1:
+                first["t"] = time.time()
+
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        fit = {}
+
+        def main_path():
+            t0 = time.time()
+            stats = trainer.fit_feed(sharded, on_steps=on_steps)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            fit["s"] = time.time() - t0
+            return stats
+
+        if device.type == "cuda":
+            # under the profiler: the flash kernels the card executed
+            stats, report["device_launches"] = counted_on_device(
+                torch, main_path)
+        else:
+            stats = main_path()
+        report["launches"] = {"flash_fwd": fa.fwd_launches,
+                              "flash_bwd_dq": fa.bwd_dq_launches,
+                              "flash_bwd_dkv": fa.bwd_dkv_launches}
+        log = trainer.history.timestamp_log
+        window_ms = [1e3 * (t1 - t0) / (s1 - s0)
+                     for (s0, t0), (s1, t1) in zip(log, log[1:])]
+        later = sorted(window_ms[1:])
+        counters = trainer.counters_snapshot()
+        report.update({
+            "ids": ids, "steps": trainer.state.step,
+            "losses": [x.item() for x in losses],
+            "megastep": stats["megastep"],
+            "fit_feed_s": fit["s"],
+            "first_step_end": first.get("t"),
+            "window_ms_per_step": window_ms,
+            "steady_ms_per_step": later[len(later) // 2] if later else None,
+            "infeed_starved_us": counters.get(
+                "goodput_infeed_starved_us", 0),
+            "service": feed.counters_snapshot(),
+            "wire_formats": dict(feed.wire_formats),
+            "split_dupes": feed.split_dupes,
+            "splits_committed": feed.splits_committed,
+            "splits_discarded": feed.splits_discarded,
+            "cache_hits": feed.cache_hits,
+            "items_consumed": feed.items_consumed,
+            "infeed": sharded.counters_snapshot(),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if device.type == "cuda" else None)})
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args["report"] + ".tmp", "w") as f:
+            json.dump(report, f)
+        os.replace(args["report"] + ".tmp", args["report"])
+
+
+def _ds_watch(started):
+    """Timestamps of the job's turns, polled from the dispatcher: the armed
+    worker's death, its fence, the re-pool of its split, the re-pooled
+    split handed on (``pending`` back to 0), the job's end."""
+    from tensorflowonspark_torch import dataservice
+
+    events, client = started["events"], None
+    armed = started["procs"]["ds-w0"]
+    while not started["stop"].is_set():
+        now = time.time()
+        if "kill" not in events and armed.poll() is not None:
+            events["kill"] = now
+        status = None
+        try:
+            if client is None:
+                client = dataservice.DispatcherClient(started["addr"])
+            status = client.status(DS_JOB)
+        except dataservice.DispatchError:
+            pass   # the node has not registered the job yet
+        except Exception:
+            if client is not None:
+                client.close()
+            client = None
+        if status:
+            if status.get("dead_workers"):
+                events.setdefault("fence", now)
+            if status.get("reassigned"):
+                events.setdefault("repool", now)
+            if "repool" in events and not status.get("pending"):
+                events.setdefault("restream", now)
+            if status.get("done"):
+                events.setdefault("done", now)
+        time.sleep(DS_POLL_SECS)
+    if client is not None:
+        client.close()
+
+
+def _ds_cluster(started, args):
+    """``cluster.run`` in FILES mode with the data service, to its end."""
+    from tensorflowonspark_torch import backend, cluster
+
+    b = backend.LocalBackend(1)
+    try:
+        started["t_run"] = time.time()
+        c = cluster.run(b, dataservice_main, args, num_executors=1,
+                        input_mode=cluster.InputMode.FILES,
+                        data_service={"dispatcher": started["addr"]},
+                        telemetry=True, telemetry_dir=started["tdir"],
+                        heartbeat_interval=DS_HEARTBEAT_SECS,
+                        heartbeat_misses=DS_HEARTBEAT_MISSES)
+        started["t_ready"] = time.time()
+        c.shutdown(grace_secs=1)
+    except BaseException:   # noqa: B036 — shutdown's sys.exit included
+        import traceback
+
+        started["errors"].append(traceback.format_exc())
+    finally:
+        b.stop()
+
+
+def start_dataservice(torch, np, config=LM_CONFIG, device=None):
+    """Write the splits, start the dispatcher (journaled) and the two
+    workers as ``python -m`` processes (``ds-w0`` armed to die mid-split),
+    wait for both on the roster, then run the cluster and the status
+    watcher on threads.  The node brings its model up beside the next
+    phase and waits for :func:`phase_dataservice` to let it train."""
+    from tensorflowonspark_torch import dataservice
+
+    vocab, seq = config["vocab_size"], config["max_seq_len"]
+    tmp = tempfile.mkdtemp(prefix="chip-ds-")
+    started = {"tmp": tmp, "procs": {}, "events": {}, "errors": [],
+               "stop": threading.Event(), "threads": {}, "config": config,
+               "device": device, "tdir": os.path.join(tmp, "telemetry")}
+    try:
+        t0 = time.perf_counter()
+        rows = lm_rows(np, DS_SEED, DS_ROWS, seq, vocab)
+        files = write_ds_splits(os.path.join(tmp, "data"), rows)
+        started["write_s"] = time.perf_counter() - t0
+        env = dict(os.environ, TFOS_TELEMETRY="1",
+                   TFOS_TELEMETRY_DIR=started["tdir"],
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (HERE, os.environ.get("PYTHONPATH")) if p))
+        env.pop("TFOS_FAULT_SPEC", None)
+        t1 = time.perf_counter()
+        with open(os.path.join(tmp, "dispatcher.log"), "w") as log:
+            disp = subprocess.Popen(
+                [sys.executable, "-m",
+                 "tensorflowonspark_torch.dataservice_dispatcher",
+                 "--host", "127.0.0.1",
+                 "--heartbeat", str(DS_WORKER_BEAT_SECS),
+                 "--misses", str(DS_DISPATCHER_MISSES),
+                 "--journal-dir", os.path.join(tmp, "journal")],
+                cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=log,
+                text=True)
+        started["procs"]["dispatcher"] = disp
+        line = read_line(disp.stdout, DS_READY_SECS)
+        if not line or "dispatcher ready on " not in line:
+            raise AssertionError("no ready line from the dispatcher: {!r}"
+                                 .format(line))
+        # the port it bound: "dispatcher ready on HOST:PORT"
+        host, port = line.split("dispatcher ready on ", 1)[1].strip() \
+            .rsplit(":", 1)
+        started["addr"] = (host, int(port))
+        started["dispatcher_ready_s"] = time.perf_counter() - t1
+        for i in range(2):
+            wid = "ds-w%d" % i
+            wenv = dict(env)
+            if i == 0:
+                wenv["TFOS_FAULT_SPEC"] = json.dumps(
+                    {"kill_after_items": DS_KILL_AFTER_ITEMS})
+            with open(os.path.join(tmp, wid + ".log"), "w") as log:
+                started["procs"][wid] = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "tensorflowonspark_torch.dataservice_worker",
+                     "--dispatcher", "%s:%d" % started["addr"],
+                     "--reader", "tfrecord", "--fields", "id,tokens",
+                     "--worker-id", wid,
+                     "--heartbeat", str(DS_WORKER_BEAT_SECS),
+                     "--cache-bytes", str(DS_CACHE_BYTES)],
+                    cwd=HERE, env=wenv, stdout=subprocess.DEVNULL,
+                    stderr=log)
+        # both workers listed before the job starts, so the armed one wins
+        # splits of epoch 1
+        client = dataservice.DispatcherClient(started["addr"])
+        try:
+            deadline = time.monotonic() + DS_READY_SECS
+            while len(client.workers()) < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the workers did not register")
+                time.sleep(DS_POLL_SECS)
+        finally:
+            client.close()
+        started["workers_ready_s"] = time.perf_counter() - t1
+        heads, head_dim = config["num_heads"], config["head_dim"]
+        args = {"config": config, "device": device, "lr": LR,
+                "init_seed": 0, "batch": TRAIN_BATCH,
+                "log_steps": CLUSTER_LOG_STEPS, "files": files,
+                "job": DS_JOB, "epochs": DS_EPOCHS,
+                "feed_timeout": DS_FEED_TIMEOUT_SECS,
+                "go": os.path.join(tmp, "go"), "go_secs": DS_RUN_SECS,
+                "flash_flops": 7 * seq * seq * head_dim * TRAIN_BATCH
+                * heads * config["num_layers"],
+                "report": os.path.join(tmp, "report.json")}
+        started["args"], started["rows"] = args, rows
+        for name, target, targs in (("watch", _ds_watch, (started,)),
+                                    ("cluster", _ds_cluster,
+                                     (started, args))):
+            t = threading.Thread(target=target, args=targs, daemon=True)
+            t.start()
+            started["threads"][name] = t
+    except BaseException:
+        stop_dataservice(started)
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return started
+
+
+def stop_dataservice(started):
+    """Stop the watcher and every process the phase started (SIGTERM, so a
+    worker and the dispatcher flush their traces); returns the exit
+    codes.  A node still waiting to train is let go, to fail on the
+    stopped dispatcher."""
+    started["stop"].set()
+    if "args" in started:
+        open(started["args"]["go"], "a").close()
+    codes = {}
+    for name, proc in started["procs"].items():
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            codes[name] = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            codes[name] = proc.wait()
+        if proc.stdout is not None:
+            proc.stdout.close()
+    return codes
+
+
+def ds_flows(tdir, node_pid):
+    """The ``dataservice/split_flow`` flow events of every process's trace
+    under ``tdir``: counts by phase and leg, and the flows the node ended at
+    ``train_dispatch``."""
+    import glob
+
+    legs, ended = {}, 0
+    for path in glob.glob(os.path.join(tdir, "trace-*.json")):
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            if e.get("name") != "dataservice/split_flow":
+                continue
+            key = "{}:{}".format(e.get("ph"), (e.get("args") or {}).get(
+                "leg", "dispatch"))
+            legs[key] = legs.get(key, 0) + 1
+            if (e.get("ph") == "f" and e.get("pid") == node_pid
+                    and (e.get("args") or {}).get("leg") == "train_dispatch"):
+                ended += 1
+    return legs, ended
+
+
+def phase_dataservice(torch, np, started, card=None):
+    """Let the node train from the data service (its bring-up ran beside
+    the previous phase), join the run, replay its batches here and check
+    it:
+    every row once an epoch across the kill (no dupes, 24 splits
+    committed), the killed worker fenced and its split re-pooled and
+    streamed by the survivor, epoch 2 from the workers' caches, colv1 on
+    the wire, the flash launches in the node (layers x steps each, as the
+    profiler counted them), the losses within ``CLUSTER_LOSS_TOL`` of the
+    same batches fed device-resident through ``Trainer.step`` from the
+    same init, and a split's flow ended at ``train_dispatch``."""
+    import functools
+
+    from tensorflowonspark_torch import dataservice, train
+    from tensorflowonspark_torch.models import get_model, transformer
+
+    config, device = started["config"], started["device"]
+    t_join = time.perf_counter()
+    try:
+        open(started["args"]["go"], "w").close()
+        t_go = time.time()
+        started["threads"]["cluster"].join(DS_RUN_SECS)
+        if started["threads"]["cluster"].is_alive():
+            raise AssertionError("the data-service cluster did not end "
+                                 "within {} s".format(DS_RUN_SECS))
+        join_s = time.perf_counter() - t_join
+        if started["errors"]:
+            raise AssertionError("the data-service cluster failed:\n"
+                                 + started["errors"][0])
+        report = wait_for_report(started["args"]["report"], 5)
+        client = dataservice.DispatcherClient(started["addr"])
+        try:
+            status = client.status(DS_JOB)
+            workers = sorted(w["worker_id"] for w in client.workers())
+        finally:
+            client.close()
+    finally:
+        codes = stop_dataservice(started)
+        started["threads"]["watch"].join(10)
+    try:
+        legs, ended = ds_flows(started["tdir"], report["pid"])
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    # the replay: the same init and batches, device-resident, eager steps
+    if device is None:
+        torch.cuda.empty_cache()
+    dev = device or "cuda"
+    rows = started["rows"]
+    batches = [({"tokens": torch.from_numpy(rows[ids]).to(dev)},
+                torch.ones(len(ids), device=dev)) for ids in report["ids"]]
+    model = get_model("transformer_lm", **config)
+    model.init_weights(torch.Generator().manual_seed(0))
+    lm_loss = transformer.loss_fn(model)
+    replay_losses = []
+
+    def loss_fn(params, batch, mask):
+        loss, aux = lm_loss(params, batch, mask)
+        replay_losses.append(loss.detach())
+        return loss, aux
+
+    trainer = train.Trainer(
+        loss_fn, dict(model.state_dict()),
+        functools.partial(torch.optim.Adam, lr=LR),
+        compute_dtype=getattr(torch, config["dtype"]),
+        batch_size=TRAIN_BATCH, log_steps=CLUSTER_LOG_STEPS, device=dev)
+    for batch, mask in batches[:2]:
+        trainer.step(batch, mask)
+    replay_ms = None
+    if dev == "cpu":
+        for batch, mask in batches[2:]:
+            trainer.step(batch, mask)
+    else:
+        replay_ms = time_steps(torch, trainer, batches[2:])
+    replay = [x.item() for x in replay_losses]
+    del trainer, model, batches
+    losses = report["losses"]
+    diffs = [abs(a - b) for a, b in zip(losses, replay)]
+    flat = [i for ids in report["ids"] for i in ids]
+    events, t_run = started["events"], started.get("t_run", 0.0)
+    kill = events.get("kill")
+
+    def since_kill(name):
+        return (events[name] - kill) if kill and name in events else None
+
+    layers = config["num_layers"]
+    expected = layers * DS_STEPS if report["device"] != "cpu" else 0
+    executed = report.get("device_launches") or {}
+    colv1 = sum(n for fmt, n in report["wire_formats"].items()
+                if fmt.startswith("colv1"))
+    service = report["service"]
+    row = {"phase": "dataservice", "card": card, "config": config,
+           "device": report["device"],
+           "backend": "LocalBackend(1)", "input_mode": "FILES",
+           "splits": DS_SPLITS, "split_rows": DS_SPLIT_ROWS,
+           "epochs": DS_EPOCHS, "mode": "dynamic",
+           "steps": report["steps"], "expected_steps": DS_STEPS,
+           "rows_trained": len(flat), "rows_per_epoch": DS_ROWS,
+           "split_dupes": report["split_dupes"],
+           "splits_committed": report["splits_committed"],
+           "splits_discarded": report["splits_discarded"],
+           "cache_hits": report["cache_hits"],
+           "wire_formats": report["wire_formats"],
+           "dataservice_counters": {k: v for k, v in service.items()
+                                    if k.startswith("dataservice_")},
+           "job_status": status, "workers_listed": workers,
+           "exit_codes": codes,
+           "s_kill_to_fence": since_kill("fence"),
+           "s_kill_to_repool": since_kill("repool"),
+           "s_kill_to_restream": since_kill("restream"),
+           "launches": report["launches"], "device_launches": executed,
+           "expected_launches": expected,
+           "losses": losses, "replay_losses": replay,
+           "max_loss_diff_vs_replay": max(diffs) if diffs else None,
+           "loss_tol": CLUSTER_LOSS_TOL,
+           "steady_ms_per_step": report["steady_ms_per_step"],
+           "window_ms_per_step": report["window_ms_per_step"],
+           "replay_ms_per_step": replay_ms,
+           "rows_per_s_fed": len(flat) / report["fit_feed_s"],
+           "fit_feed_s": report["fit_feed_s"],
+           "infeed_starved_us": report["infeed_starved_us"],
+           "infeed": report["infeed"],
+           "bring_up_s": {
+               "write_splits": started.get("write_s"),
+               "dispatcher_ready": started.get("dispatcher_ready_s"),
+               "workers_listed": started.get("workers_ready_s"),
+               "cluster_run": started.get("t_ready", t_run) - t_run,
+               "to_distributed_ready": report["distributed_ready"] - t_run,
+               "to_model_ready": report["model_ready"] - t_run,
+               "node_waited_for_go": report["go_seen"]
+               - report["model_ready"],
+               "go_to_feed_ready": report["feed_ready"] - t_go,
+               "go_to_first_step": (report["first_step_end"] - t_go
+                                    if report["first_step_end"] else None)},
+           "join_wait_s": join_s,
+           "flows": legs, "flows_ended_at_dispatch": ended,
+           "max_memory_allocated": report["max_memory_allocated"]}
+    emit(row)
+    epoch_ids = [sorted(flat[e * DS_ROWS:(e + 1) * DS_ROWS])
+                 for e in range(DS_EPOCHS)]
+    if len(flat) != DS_EPOCHS * DS_ROWS or any(
+            ids != list(range(DS_ROWS)) for ids in epoch_ids):
+        raise AssertionError("the node's rows are not each row once an "
+                             "epoch: {} rows".format(len(flat)))
+    if report["split_dupes"] or report["splits_committed"] != \
+            DS_EPOCHS * DS_SPLITS:
+        raise AssertionError("splits committed {}, dupes {}: expected {} "
+                             "and 0".format(report["splits_committed"],
+                                            report["split_dupes"],
+                                            DS_EPOCHS * DS_SPLITS))
+    if not (status.get("done") and status.get("dead_workers") == 1
+            and status.get("reassigned", 0) >= 1 and codes.get("ds-w0")
+            and "restream" in events and workers == ["ds-w1"]):
+        raise AssertionError("the killed worker was not fenced, or its "
+                             "split not re-pooled and streamed by the "
+                             "survivor: {} {} exit codes {} workers {}"
+                             .format(status, events, codes, workers))
+    if not (report["cache_hits"] > 0
+            and service.get("dataservice_cache_hit", 0) > 0):
+        raise AssertionError("epoch 2 served nothing from the workers' "
+                             "caches: {}".format(service))
+    if not colv1:
+        raise AssertionError("no colv1 frames on the wire: {}".format(
+            report["wire_formats"]))
+    if report["steps"] != DS_STEPS or any(
+            n != expected for n in list(report["launches"].values())
+            + list(executed.values())) or (expected and not executed):
+        raise AssertionError("{} steps, kernel launches {} counted and {} "
+                             "executed in the node, expected {} steps and "
+                             "{} each (layers x steps)".format(
+                                 report["steps"], report["launches"],
+                                 executed, DS_STEPS, expected))
+    if not (len(losses) == len(replay) == DS_STEPS
+            and np.isfinite(losses).all()
+            and max(diffs) <= CLUSTER_LOSS_TOL):
+        raise AssertionError("the node's losses differ from the replay's "
+                             "on the same batches: {} vs {}".format(
+                                 losses, replay))
+    if ended < 1:
+        raise AssertionError("no dataservice/split_flow flow ended at "
+                             "train_dispatch in the node: {}".format(legs))
     return row
 
 
@@ -6133,11 +6718,50 @@ def control_autopilot(torch, np, config, device, tmp, gap_hi_us):
     return row
 
 
-def phase_control(torch, np, clustered, config=LM_CONFIG, device=None):
+def start_control_rollback(torch, np, config=LM_CONFIG, device=None):
+    """Run the control phase's rollback leg on a thread, beside the next
+    phases (its cluster's bring-up and its paced steps are host-bound, and
+    its node makes every check in its own process); :func:`phase_control`
+    takes its row from :func:`join_control_rollback`."""
+    started = {"tmp": tempfile.mkdtemp(prefix="chip-rollback-")}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            started["row"] = control_rollback(torch, np, config, device,
+                                              started["tmp"])
+            started["row"]["leg_s"] = time.perf_counter() - t0
+        except BaseException as e:   # noqa: B036 — re-raised by the join
+            started["error"] = e
+
+    started["thread"] = threading.Thread(target=run, daemon=True)
+    started["thread"].start()
+    return started
+
+
+def join_control_rollback(started):
+    """The rollback leg's row, once its thread ended (its error raised)."""
+    try:
+        started["thread"].join(CONTROL_LOOP_SECS + CONTROL_REPORT_SECS)
+        if started["thread"].is_alive():
+            raise AssertionError("control_rollback did not end within "
+                                 "{} s".format(CONTROL_LOOP_SECS
+                                               + CONTROL_REPORT_SECS))
+        if "error" in started:
+            raise started["error"]
+        return started["row"]
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+
+
+def phase_control(torch, np, clustered, rollback, config=LM_CONFIG,
+                  device=None):
     """The alerting and control planes behind ``cluster.run`` on the
     flagship LM, one leg each: the remediator's poison rollback, its
     straggler eviction with a replacement, and the autopilot's
-    ``train_steps_per_call``."""
+    ``train_steps_per_call``.  ``rollback``: the rollback leg's row, which
+    ran earlier on a thread (:func:`start_control_rollback`,
+    :func:`join_control_rollback`); the other two legs run here."""
     t_start = time.perf_counter()
     if device is None:
         torch.cuda.empty_cache()   # the earlier phases' cached blocks
@@ -6151,11 +6775,10 @@ def phase_control(torch, np, clustered, config=LM_CONFIG, device=None):
     steps = overlap.get("train_steps_total") or clustered.get("steps") or 1
     gap_us = overlap.get("dispatch_gap_us", 0) / steps
     gap_hi_us = min(AUTOPILOT_GAP_HI_US, gap_us / 4)
-    legs = {}
+    legs = {"control_rollback": rollback}
+    emit(dict({"phase": "control_rollback"}, **rollback))
     with tempfile.TemporaryDirectory() as tmp:
-        for name, leg in (("control_rollback", lambda: control_rollback(
-                               torch, np, config, device, tmp)),
-                          ("control_evict", lambda: control_evict(
+        for name, leg in (("control_evict", lambda: control_evict(
                                torch, np, config, device, tmp)),
                           ("control_autopilot", lambda: control_autopilot(
                               torch, np, config, device, tmp, gap_hi_us))):
@@ -7576,8 +8199,28 @@ def main():
     clustered = timed("cluster", phase_cluster, torch, np, trained)
     mega_cluster = timed("cluster_k5", phase_cluster, torch, np, trained,
                          steps_per_call=MEGA_K, k1_cluster=clustered)
-    gatewayed = timed("gateway", phase_gateway, torch, np, fa)
-    served_cli = timed("serve_cli", phase_serve_cli, torch, np)
+    # the data service's dispatcher and workers start, and its node brings
+    # the model up, beside the gateway phase (host-bound: its replies'
+    # zlib); the node's job and steps, the replay and the checks follow it
+    ds_started = timed("dataservice_start", start_dataservice, torch, np)
+    try:
+        gatewayed = timed("gateway", phase_gateway, torch, np, fa)
+    except BaseException:
+        stop_dataservice(ds_started)
+        raise
+    dataserved = timed("dataservice", phase_dataservice, torch, np,
+                       ds_started, device["nvidia_smi"])
+    # the control phase's rollback leg (a cluster's bring-up and paced
+    # steps, host-bound) runs beside serve_cli (a replica process's)
+    rollback_started = timed("control_rollback_start",
+                             start_control_rollback, torch, np)
+    try:
+        served_cli = timed("serve_cli", phase_serve_cli, torch, np)
+    except BaseException:
+        rollback_started["thread"].join(CONTROL_REPORT_SECS)
+        raise
+    rolled_back = timed("control_rollback_join", join_control_rollback,
+                        rollback_started)
     # the export phase's builds, compiles and no-Python legs run in a
     # process of their own beside the phases from here to parallel_j2
     export_started = timed("export_start", start_export, torch, np)
@@ -7605,7 +8248,8 @@ def main():
         observed, observed_card = timed("observability", phase_observability,
                                         torch, np, fa, metrics, clustered,
                                         mega_cluster)
-        control = timed("control", phase_control, torch, np, clustered)
+        control = timed("control", phase_control, torch, np, clustered,
+                        rolled_back)
         # the warm-start phase's cold replica compiles beside the fleet
         # phase
         warm_started = timed("warmstart_start", start_warmstart, torch, np)
@@ -7647,16 +8291,10 @@ def main():
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            # this slice's main path, the exported artifact and the C++
-            # runner: the forward's launches as ModelServer served the
-            # artifact (the counter zeroed before, read after) and as the
-            # runner and the CLI's runner served the embedded packages
-            # (fresh processes: each counts from 0 and reports its count);
-            # the backward kernels, off this path, count the previous
-            # slice's: the warm-start clusters
-            "launches": (export_launches(exported) if name == "flash_fwd"
-                         else sum(warm["train"][run]["launches"][name]
-                                  for run in ("cold", "warm"))),
+            # this slice's main path, the data service feeding the LM's
+            # node: each kernel's launches in the node's fit_feed (the
+            # counters zeroed before, read after)
+            "launches": dataserved["launches"][name],
             "device_launches_by_path": dict(
                 {"parallel_fsdp": parallel["runs"]["k1"][
                     "device_launches"][name],
@@ -7678,6 +8316,7 @@ def main():
                  "train_k5": mega["device_launches"][name],
                  "cluster": clustered["device_launches"][name],
                  "cluster_k5": mega_cluster["device_launches"][name],
+                 "dataservice": dataserved["device_launches"][name],
                  "pipeline_fit": piped["device_launches"][name]},
                 **{path: run["device_launches"][name]
                    for path, run in supervised_paths.items()}),
@@ -7717,6 +8356,7 @@ def main():
                  "train_k5": mega["launches"][name],
                  "cluster": clustered["launches"][name],
                  "cluster_k5": mega_cluster["launches"][name],
+                 "dataservice": dataserved["launches"][name],
                  "pipeline_fit": piped["launches"][name]},
                 **{path: run["launches"][name]
                    for path, run in supervised_paths.items()}),

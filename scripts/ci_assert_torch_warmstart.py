@@ -162,7 +162,16 @@ def main():
         c.train(backend.partition(range(N_ITEMS), 4), retry_policy=policy)
         elapsed = time.time() - t0
 
-        # Stage 1: the elastic chain closed (death -> replacement).
+        # Stage 1: the elastic chain closed (death -> replacement).  The
+        # retried partitions can all land on the survivor before the
+        # liveness monitor has counted HEARTBEAT_MISSES silent beats (on a
+        # loaded host it did, and train() returned first): wait for the
+        # death and the replacement's admission themselves, not for train().
+        deadline = time.time() + REPLACEMENT_DEADLINE_SECS
+        while not (c.tf_status.get("dead_nodes")
+                   and c.tf_status.get("replacements")) \
+                and "error" not in c.tf_status and time.time() < deadline:
+            time.sleep(0.1)
         dead = c.tf_status.get("dead_nodes")
         assert dead and "executor 0" in dead[0], \
             "liveness monitor missed the death: {}".format(c.tf_status)

@@ -34,6 +34,10 @@ Ported so far (the serving, training and cluster slices):
 - :mod:`~tensorflowonspark_torch.inference_cli` — run_inference
 - :mod:`~tensorflowonspark_torch.metrics`     — TimeHistory, MFU, peak
   rates, roofline, card memory counters
+- :mod:`~tensorflowonspark_torch.dataservice` — the disaggregated data
+  service: dispatcher, feed workers and ``ServiceFeed`` (copied), with the
+  ``dataservice_worker``, ``dataservice_dispatcher`` and
+  ``reservation_server`` CLIs
 
 CUDA and fork: the cluster layer forks (the manager server, the SPARK-mode
 user-fn child), and a process that has initialized CUDA cannot hand it to

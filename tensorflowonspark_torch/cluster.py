@@ -19,10 +19,9 @@ spawned processes, and each node's first CUDA call is in its user fn.  The
 observatory (``observatory=True``: ``/metrics``, ``/status``, ``/profile``,
 ``/slow``, ``/alerts``, ``/autopilot``, ``/remediations``), the per-node
 profiler capture endpoints (``profiler=True``) and the alerting and control
-planes (``watchtower``, ``autopilot``, ``remediator``) and the warm-start
-compile plane (``compile_cache_dir``) are ported.  Not ported yet, raising
-``NotImplementedError`` naming its ROADMAP.md item when asked for:
-``data_service``.
+planes (``watchtower``, ``autopilot``, ``remediator``), the warm-start
+compile plane (``compile_cache_dir``) and the disaggregated data service
+(``data_service``) are ported.
 """
 
 import logging
@@ -42,13 +41,6 @@ logger = logging.getLogger(__name__)
 
 #: env fallback of the compile cache dir (``compilecache.CACHE_DIR_ENV``)
 COMPILE_CACHE_DIR_ENV = "TFOS_COMPILE_CACHE_DIR"
-
-# cluster.run options whose planes are not ported: (value that leaves them
-# off, the ROADMAP.md item that ports them)
-_UNPORTED = {
-    "data_service": "Queue 1, item E, the data service",
-}
-
 
 class InputMode(object):
     """How data reaches the nodes (reference ``TFCluster.py:41-44``)."""
@@ -702,9 +694,13 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         /remediations`` plus ``tfos_remediation_actions_total`` on
         ``/metrics``; final tallies latch into
         ``tf_status["remediations"]``.
-      data_service: the JAX package's data-service plane.  Not ported
-        yet: a value that would turn it on raises ``NotImplementedError``
-        naming its ROADMAP.md item.
+      data_service: dispatcher address of a disaggregated data service
+        (``"host:port"``, ``(host, port)``, or a ``{"dispatcher": addr}``
+        dict, where ``addr`` may be a list: the primary first, then warm
+        standbys; an optional ``"codecs"`` list pins the wire compression
+        the consumers offer) — executors then read input over the network
+        via ``ctx.get_service_feed(...)`` instead of reading files locally
+        (:mod:`~tensorflowonspark_torch.dataservice`).
       compile_cache_dir: warm-start compile plane
         (:mod:`~tensorflowonspark_torch.compilecache`): every node makes
         this cluster-shared directory its compile root before its user fn
@@ -715,10 +711,6 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         back to the ``TFOS_COMPILE_CACHE_DIR`` env var; None with no env
         leaves the compile plane off.
     """
-    if data_service:
-        raise NotImplementedError(
-            "cluster.run(data_service=...) is not ported yet (ROADMAP.md, "
-            "{})".format(_UNPORTED["data_service"]))
     if hasattr(cluster_backend, "parallelize"):  # raw SparkContext
         cluster_backend = backend_mod.SparkBackend(cluster_backend)
     num_executors = num_executors or cluster_backend.num_executors
@@ -1041,6 +1033,28 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         logger.info("observatory serving /metrics, /status, /profile, "
                     "/slow and /alerts at http://%s:%d", addr[0], addr[1])
 
+    # Normalize the data-service spec to {"dispatcher": [host, port]} for
+    # the JSON hop to executors (ctx.get_service_feed consumes it).  An
+    # optional "codecs" preference list survives normalization so a driver
+    # can pin the wire compression its consumers offer at dial.
+    if data_service is not None:
+        codecs = (data_service.get("codecs")
+                  if isinstance(data_service, dict) else None)
+        addr = (data_service.get("dispatcher")
+                if isinstance(data_service, dict) else data_service)
+        # "dispatcher" may be one endpoint or a LIST (primary first, warm
+        # standbys at pinned ports after): a single endpoint keeps the
+        # [host, port] JSON shape, a list becomes [[host, port], ...] —
+        # ServiceFeed/FeedWorker normalize either and redial across the
+        # list on a dispatcher failover.
+        eps = reservation.normalize_endpoints(addr)
+        if len(eps) == 1:
+            data_service = {"dispatcher": [eps[0][0], int(eps[0][1])]}
+        else:
+            data_service = {"dispatcher": [[h, int(p)] for h, p in eps]}
+        if codecs is not None:
+            data_service["codecs"] = list(codecs)
+
     # Reservation-coordinator endpoint list for the nodes: the live
     # primary first, then any warm standbys at pre-agreed pinned ports
     # (TFOS_RS_STANDBY env: "host:port[,host:port...]").  Node-side
@@ -1066,7 +1080,7 @@ def run(cluster_backend, map_fun, tf_args, num_executors=None, num_ps=0,
         "executor_env": dict(executor_env or {}),
         "heartbeat_interval": heartbeat_interval,
         "telemetry": telemetry_mod.meta_spec(telemetry, tdir),
-        "data_service": None,
+        "data_service": data_service,
         # the nodes warm their profiler where captures can come
         "profiling": bool(observatory or profiler),
         # Resolved here, where cluster.run is called (env fallback

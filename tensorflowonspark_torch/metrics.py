@@ -20,6 +20,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from tensorflowonspark_torch.wire import compression_ratio  # noqa: F401
+
 logger = logging.getLogger(__name__)
 
 # dense FLOP/s by compute dtype, and device memory bytes/s
@@ -137,16 +139,6 @@ def peak_bytes_per_sec_per_device(device=None):
         logger.warning("unknown device %r; roofline will be reported as "
                        "None", name)
         return None
-
-
-def compression_ratio(raw_bytes, wire_bytes):
-    """Wire compression ratio ``raw / wire`` (> 1 when the codec saved
-    bytes; 1.0 when nothing compressed or either side is unknown, so
-    gauges and bench stats never divide by zero).  The JAX package's
-    formula, copied."""
-    if not raw_bytes or not wire_bytes or wire_bytes <= 0:
-        return 1.0
-    return raw_bytes / float(wire_bytes)
 
 
 def roofline(step_flops, bytes_accessed, peak_flops=None, peak_bps=None):

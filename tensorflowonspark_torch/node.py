@@ -521,10 +521,38 @@ class TPUNodeContext(object):
         return feed
 
     def get_service_feed(self, files, dispatcher=None, **kwargs):
-        """The disaggregated data service's feed: not ported yet."""
-        raise NotImplementedError(
-            "get_service_feed: the data service is not ported yet "
-            "(ROADMAP.md, Queue 1, item E, the data service)")
+        """Return a :class:`~tensorflowonspark_torch.dataservice.ServiceFeed`
+        reading ``files`` through the disaggregated data service (the
+        FILES-mode analog of :meth:`get_data_feed` when ``cluster.run`` was
+        given ``data_service=``).
+
+        ``dispatcher`` overrides the cluster-configured address; remaining
+        kwargs pass through to ``ServiceFeed`` (``job_name``, ``mode``,
+        ``num_epochs``, ``input_mapping``, ...).  The consumer identity
+        defaults to this node's executor id."""
+        from tensorflowonspark_torch import dataservice
+
+        if dispatcher is None:
+            if not self.data_service:
+                raise ValueError(
+                    "no data service configured: pass dispatcher= here or "
+                    "data_service= to cluster.run")
+            dispatcher = self.data_service["dispatcher"]
+        kwargs.setdefault("consumer_id",
+                          "executor-{}".format(self.executor_id))
+        if self.data_service and self.data_service.get("codecs") is not None:
+            # cluster-pinned wire-compression offer (cluster.run data_service
+            # spec); an explicit codecs= kwarg still wins
+            kwargs.setdefault("codecs", self.data_service["codecs"])
+        feed = dataservice.ServiceFeed(dispatcher, files, **kwargs)
+        # same lifecycle wiring as get_data_feed: preemption drain stops the
+        # network streams, and the feed's dataservice_* counters ride this
+        # node's heartbeats into the driver's metrics snapshot
+        on_preemption(feed.terminate)
+        import tensorflowonspark_torch.node as _node_mod
+
+        _node_mod._register_feed(feed)
+        return feed
 
     def absolute_path(self, path):
         """Normalize a user path against CWD/default_fs (reference ``TFNode.py:23-58``)."""

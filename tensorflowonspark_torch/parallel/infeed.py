@@ -46,6 +46,7 @@ copied from the feed's arrays, without a stream.  The ``infeed_*``
 counters keep the JAX package's names and ride heartbeats the same way.
 """
 
+import collections
 import logging
 import math
 import os
@@ -203,6 +204,11 @@ class ShardedFeed(object):
         self._stop = None            # prefetch stop event (set in batches())
         self._prefetch_thread = None
         self._prefetch_buf = None    # live prefetch queue (apply_knob target)
+        # Trace-flow relay: ids popped from the upstream feed
+        # (ServiceFeed.pop_flow_id) at device-copy time, re-parked here for
+        # the trainer's dispatch leg (pop_dispatch_flow).  Best-effort,
+        # bounded; single producer (the prefetch thread), single consumer.
+        self._dispatch_flows = collections.deque(maxlen=16)
         # Ride this node's heartbeats (duck-typed counters_snapshot).
         from tensorflowonspark_torch import node as _node_mod
 
@@ -221,6 +227,30 @@ class ShardedFeed(object):
         self._put_us += us
         if us > self._put_us_hwm:
             self._put_us_hwm = us
+
+    def _note_flow(self, leg, **attrs):
+        """Relay a committed-split trace-flow id (if the upstream feed
+        carries one) through the device-copy leg to the dispatch leg."""
+        pop = getattr(self.feed, "pop_flow_id", None)
+        if pop is None:
+            return
+        try:
+            fid = pop()
+        except Exception:  # pragma: no cover - duck-typed feeds
+            return
+        if fid:
+            telemetry.get_tracer().flow_step(
+                "dataservice/split_flow", fid, leg=leg, **attrs)
+            self._dispatch_flows.append(int(fid))
+
+    def pop_dispatch_flow(self):
+        """Oldest undrained trace-flow id that reached the device infeed
+        (or None); drained by ``Trainer.fit_feed`` to end the flow at the
+        dispatch leg."""
+        try:
+            return self._dispatch_flows.popleft()
+        except IndexError:
+            return None
 
     def counters_snapshot(self):
         """Flat infeed overlap counters under the JAX package's names:
@@ -341,6 +371,7 @@ class ShardedFeed(object):
         with telemetry.get_tracer().span("infeed/device_put", rows=count):
             batch, mask_t, ready = self._to_device(local, mask)
         self._n_batches += 1
+        self._note_flow("infeed_device_put", rows=count)
         return batch, mask_t, count, ready
 
     def _to_device(self, local, mask):
@@ -603,6 +634,7 @@ class ShardedFeed(object):
         us = int((time.perf_counter() - start) * 1e6)
         self._group_assemble_us += us
         self._group_assemble_us_hwm = max(self._group_assemble_us_hwm, us)
+        self._note_flow("infeed_group_assemble", group=group)
         return ("multi", stack, masks, ready)
 
     @staticmethod
@@ -622,6 +654,7 @@ class ShardedFeed(object):
         with telemetry.get_tracer().span("infeed/device_put", group=group):
             stack, masks, ready = self._to_device(stack, masks)
         self._n_batches += group
+        self._note_flow("infeed_device_put", group=group)
         return ("multi", stack, masks, ready)
 
     def wire_formats(self):

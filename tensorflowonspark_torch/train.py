@@ -1249,6 +1249,12 @@ class Trainer(object):
             source = feed.grouped_batches(steps_per_call)
         else:
             source = (("single", b, m) for b, m in feed.batches())
+        # Cross-process flow: a data-service feed hands over the flow id of
+        # the split a dispatched batch (or group of K) came from
+        # (ServiceFeed / ShardedFeed ``pop_dispatch_flow``); ending the flow
+        # here closes the worker-serve -> commit -> infeed -> dispatch
+        # chain.  Duck-typed and optional: plain feeds have no flows.
+        pop_flow = getattr(feed, "pop_dispatch_flow", None)
         last_loss = None
         steps_done = self.state.step
         prev_return = None
@@ -1292,6 +1298,12 @@ class Trainer(object):
                 self._goodput_dispatch_us += int((prev_return - start) * 1e6)
                 self._dispatch_count += 1
                 self._account_windows()
+                if pop_flow is not None:
+                    fid = pop_flow()
+                    if fid:
+                        tracer.flow_end("dataservice/split_flow", fid,
+                                        leg="train_dispatch", kind=kind,
+                                        steps_done=steps_done)
                 last_loss = loss
                 if on_steps is not None:
                     drain_t0 = time.perf_counter()

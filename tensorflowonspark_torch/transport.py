@@ -3,8 +3,8 @@
 The port's copy of :mod:`tensorflowonspark_tpu.transport` (it never imported jax);
 the copy is the port's own.
 
-One wire shape for every bulk path: the JAX package's data-service split
-streams (not ported yet), the serving gateway's request/response batches
+One wire shape for every bulk path: the data-service split streams
+(``dataservice.py``), the serving gateway's request/response batches
 (``gateway.py``), and whatever subsystem grows a bulk path next.  The
 framing was born in the data plane; this module lifts it out so serving
 batches ride the exact same colv1 frames as training chunks instead of a

@@ -199,6 +199,17 @@ def _decompress(tag, col_idx, data):
                          "{}".format(col_idx, name, e))
 
 
+def compression_ratio(raw_bytes, wire_bytes):
+    """Wire compression ratio ``raw / wire`` (> 1 when the codec saved
+    bytes; 1.0 when nothing compressed or either side is unknown, so
+    gauges and bench stats never divide by zero).  The JAX package's
+    formula (its ``metrics.compression_ratio``), kept here with the codecs
+    so the host planes that report it import no torch."""
+    if not raw_bytes or not wire_bytes or wire_bytes <= 0:
+        return 1.0
+    return raw_bytes / float(wire_bytes)
+
+
 def encode(columns, count, tuple_rows):
     """Frame ``columns`` for a gather write.
 

@@ -280,19 +280,57 @@ def _compile_root_fun(args, ctx):
                    "kernels": str(_build.build_dir())}, f)
 
 
+def _service_spec_fun(args, ctx):
+    """The data-service spec this node received."""
+    import json
+
+    with open(args.report, "w") as f:
+        json.dump(ctx.data_service, f)
+
+
+def _service_spec(pkg, data_service, report):
+    """The spec a node of ``pkg`` (the port's or the JAX package's cluster
+    and backend modules) receives from ``cluster.run(data_service=)``."""
+    cluster_mod, backend_mod = pkg
+    args = types.SimpleNamespace(report=report)
+    b = backend_mod.LocalBackend(1)
+    try:
+        c = cluster_mod.run(b, _service_spec_fun, args, num_executors=1,
+                            input_mode=cluster_mod.InputMode.FILES,
+                            data_service=data_service)
+        c.shutdown()
+    finally:
+        b.stop()
+    with open(report) as f:
+        return json.load(f)
+
+
 @pytest.mark.parametrize("unported", [
-    {"data_service": "localhost:1"},
+    {"data_service": {"dispatcher": ["localhost:1", ("127.0.0.1", 2)],
+                      "codecs": ["zlib"]}},
     {"compile_cache_dir": "root"},
 ])
 def test_unported_planes_raise(unported, tmp_path):
-    """The data service (item E) still raises, naming its item; the
-    compile plane is ported: the node makes ``compile_cache_dir`` its
-    compile root (kernels under ``<root>/kernels``) before the user fn
-    runs."""
+    """Both planes once unported now work.  The data service: the node
+    receives the spec the JAX package's ``cluster.run`` builds (a primary
+    and a standby endpoint, the pinned codecs).  The compile plane: the
+    node makes ``compile_cache_dir`` its compile root (kernels under
+    ``<root>/kernels``) before the user fn runs."""
     if "data_service" in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item E"):
-            cluster.run(object(), _raise_fun, None, num_executors=1,
-                        **unported)
+        from tensorflowonspark_tpu import backend as jax_backend
+        from tensorflowonspark_tpu import cluster as jax_cluster
+
+        spec = unported["data_service"]
+        got = _service_spec((cluster, backend), spec,
+                            str(tmp_path / "port.json"))
+        want = _service_spec((jax_cluster, jax_backend), spec,
+                             str(tmp_path / "jax.json"))
+        assert got == want == {"dispatcher": [["localhost", 1],
+                                              ["127.0.0.1", 2]],
+                               "codecs": ["zlib"]}
+        assert _service_spec((cluster, backend), "127.0.0.1:7",
+                             str(tmp_path / "one.json")) == \
+            {"dispatcher": ["127.0.0.1", 7]}
         return
     root = str(tmp_path / unported["compile_cache_dir"])
     args = types.SimpleNamespace(report=str(tmp_path / "report.json"))

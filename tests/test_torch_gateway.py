@@ -1,8 +1,6 @@
 """The port's serving gateway: ``tests/test_gateway.py`` re-pointed to the
-port (its transport cases are in ``tests/test_torch_transport.py``;
-``test_dataservice_framing_is_the_shared_transport`` is left out, because
-the data service is not ported yet, ROADMAP item E), a JAX gateway and a
-port gateway held to each other on the same converted export and request
+port (its transport cases are in ``tests/test_torch_transport.py``; the
+data service's framing case is here), a JAX gateway and a port gateway held to each other on the same converted export and request
 sequence, a tiny flash LM served through the port's gateway against the
 JAX server, and a live weight swap under concurrent clients."""
 
@@ -187,6 +185,17 @@ def test_batch_coalescing_under_concurrent_load(gw):
         assert abs(float(out["output"][0][0]) - (2.0 * i + 3.0)) < 1e-4
     assert gw.requests_total == 16
     assert gw.batches_total <= 16
+
+
+def test_dataservice_framing_is_the_shared_transport():
+    # the port's data service streams on the exact same framing objects as
+    # its gateway (one protocol, not a drifted copy)
+    from tensorflowonspark_torch import dataservice, transport
+
+    assert dataservice._DHEADER is transport.DHEADER
+    assert dataservice._recv_frame is transport.recv_frame
+    assert dataservice._send_frame is transport.send_frame
+    assert dataservice._K_COLV1 == transport.K_COLV1
 
 
 # ---------------------------------------------------------------------------

@@ -287,3 +287,23 @@ class TestColumnarPlane:
         assert count == 3                       # stops at partition boundary
         arrays, count = feed.next_batch_arrays(10)
         assert count == 2 and arrays[1].tolist() == [3, 4]
+
+
+def test_assemble_columns_module_function():
+    """``datafeed.assemble_columns`` (``tests/test_dataservice.py``'s
+    datafeed case, re-pointed here with the port's datafeed tests)."""
+    import numpy as np
+
+    from tensorflowonspark_torch.datafeed import assemble_columns
+
+    # empty parts honor the input_tensors shape contract
+    empty = assemble_columns([], True, None, None)
+    assert empty.shape == (0,)
+    assert set(assemble_columns([], True, None, ["x"])) == {"x"}
+    parts = [(np.arange(3), np.ones(3)), (np.arange(3, 5), np.ones(2))]
+    out = assemble_columns(parts, True, None, None)
+    assert isinstance(out, tuple) and out[0].shape == (5,)
+    named = assemble_columns(parts, True, None, ["x", "y"])
+    np.testing.assert_array_equal(named["x"], np.arange(5))
+    with pytest.raises(ValueError, match="fields"):
+        assemble_columns(parts, True, None, ["only_one"])

@@ -195,7 +195,10 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("scripts", "analyze_profile_torch.py"),
              os.path.join("scripts", "metrics_replay_torch.py"),
              os.path.join("scripts", "ci_assert_torch_fleet.py"),
-             os.path.join("scripts", "ci_assert_torch_warmstart.py"))
+             os.path.join("scripts", "ci_assert_torch_warmstart.py"),
+             os.path.join("scripts", "ci_assert_torch_dataservice.py"),
+             os.path.join("scripts", "ci_assert_torch_cache.py"),
+             os.path.join("scripts", "ci_assert_torch_shared.py"))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -217,7 +220,8 @@ missing = sorted(set(pkg.__name__ + "." + m for m in (
     "parallel.fsdp", "parallel.ring", "parallel.tp", "parallel.ep",
     "parallel.pp", "parallel.comm", "observatory", "profiling",
     "profiler", "watchtower", "guardrails", "autopilot", "remediator",
-    "compilecache"))
+    "compilecache", "dataservice", "dataservice_worker",
+    "dataservice_dispatcher", "reservation_server"))
     - set(names))
 from tensorflowonspark_torch.parallel import ep, fsdp, mesh, pp, ring, tp
 missing += [n for n in ("tp_param_shardings", "shard_params")
@@ -299,6 +303,16 @@ missing += [n for n in ("flash_ops", "aoti_runner")
             if not (_build.CSRC / (n + ".cpp")).exists()]
 missing += [n for n in ("set_aot_cache", "_aot_resolve")
             if not hasattr(train.Trainer, n)]
+from tensorflowonspark_torch import dataservice
+missing += [n for n in ("SHARD_OFF", "SHARD_STATIC", "SHARD_DYNAMIC",
+                        "DispatchError", "DispatcherServer",
+                        "DispatcherClient", "FeedWorker", "ServiceFeed",
+                        "_Job", "_FrameCache") if not hasattr(dataservice, n)]
+missing += [n for n in ("apply_knob", "counters_snapshot", "pop_flow_id")
+            if not hasattr(dataservice.ServiceFeed, n)]
+from tensorflowonspark_torch.parallel import infeed
+missing += [n for n in ("_note_flow", "pop_dispatch_flow")
+            if not hasattr(infeed.ShardedFeed, n)]
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 25 else 0)
 """
@@ -318,7 +332,10 @@ def test_port_imports_no_jax():
     compile plane (compilecache), the exported artifact and the native
     runner's Python side (serving's serializers, ``run_embedded_native*``,
     ``inference_cli.run_inference_native``, ``ops._build.build_native``
-    and its C++ sources) and the MNIST inference twin are among them."""
+    and its C++ sources), the MNIST inference twin, the data service
+    (``dataservice`` with its worker and dispatcher CLIs,
+    ``reservation_server``, ``ShardedFeed``'s split-flow relay) and the
+    data-service gates are among them."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -330,8 +347,10 @@ def test_port_sources_name_no_jax():
     """No line of the port (its fleet among it), of chip_smoke.py, of the
     port's MNIST, ResNet and LM examples or of
     scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py,
-    scripts/ci_assert_torch_fleet.py and scripts/ci_assert_torch_warmstart.py
-    imports a forbidden package, not even inside a function."""
+    scripts/ci_assert_torch_fleet.py, scripts/ci_assert_torch_warmstart.py
+    and the data-service gates (the data service and
+    ``reservation_server`` among the port's files) imports a forbidden
+    package, not even inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
         "|".join(_FORBIDDEN)))
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
@@ -343,11 +362,15 @@ def test_port_sources_name_no_jax():
         assert os.path.join(REPO, "tensorflowonspark_torch", "parallel",
                             name + ".py") in paths, name
     for name in ("watchtower", "guardrails", "autopilot", "remediator",
-                 "cluster", "fleet", "compilecache"):
+                 "cluster", "fleet", "compilecache", "dataservice",
+                 "dataservice_worker", "dataservice_dispatcher",
+                 "reservation_server"):
         assert os.path.join(REPO, "tensorflowonspark_torch",
                             name + ".py") in paths, name
     for name in ("metrics_replay_torch.py", "ci_assert_torch_fleet.py",
-                 "ci_assert_torch_warmstart.py"):
+                 "ci_assert_torch_warmstart.py",
+                 "ci_assert_torch_dataservice.py", "ci_assert_torch_cache.py",
+                 "ci_assert_torch_shared.py"):
         assert os.path.join(REPO, "scripts", name) in paths, name
     assert os.path.join(REPO, "examples", "mnist",
                         "mnist_inference_torch.py") in paths
