@@ -68,6 +68,19 @@ weights from a seed) along both paths:
   init, and a split's trace flow ended at ``train_dispatch`` in the node.
   Its processes start, and its node brings the model up, beside the
   gateway phase; the service's job and the steps run after it;
+- segmentation: the U-Net twin
+  (``examples/segmentation/segmentation_torch.py``) at the JAX example's
+  full width (128 px, batch 64, encoder widths 32 to
+  256, bf16, 512 synthetic examples) through ``cluster.run`` in FILES mode
+  on a one-executor ``LocalBackend``: 40 Adam steps in the node, the
+  chief's export, which this process serves with ``ModelServer`` (the
+  encoder widths rebuilt from the params' shapes).  The losses are finite
+  and fall, the first within 2e-2 of the same init and batch through the
+  port on the CPU in fp32, the served logits within 2e-2 of the largest of
+  the trainer's forward at the exported params, the descriptor the JAX
+  example's, and no flash kernel launches (the U-Net has no attention).
+  Its node brings CUDA up beside the gateway and dataservice phases and
+  trains after them;
 - supervised: the same LM, init and stream at K = 5 through
   ``train.fit_supervised`` with checkpoints every 10 steps: (a) a feed
   that fails (retryably) after step 15, resumed from step 10, ends at step
@@ -2932,6 +2945,286 @@ def phase_dataservice(torch, np, started, card=None):
 # ---------------------------------------------------------------------------
 # the serving tier: the gateway, the inference CLI, the Spark ML pipeline
 # ---------------------------------------------------------------------------
+
+# the segmentation phase: the U-Net twin (examples/segmentation/) at the JAX
+# example's full width (128 px, batch 64, encoder 32-256, bf16, 512
+# synthetic examples) for SEG_STEPS Adam steps through a FILES-mode cluster
+# of one executor, its export served on the card; no flash kernel on this
+# path.  The node's bring-up runs beside the gateway phase; its steps after
+# the dataservice phase, alone on the card
+SEG_STEPS = 40
+SEG_LOG_STEPS = 10
+SEG_FLAGS = ["--cluster_size", "1", "--image_size", "128",
+             "--batch_size", "64", "--encoder_filters", "32,64,128,256",
+             "--dtype", "bfloat16", "--synthetic_examples", "512",
+             "--train_steps", str(SEG_STEPS), "--log_steps",
+             str(SEG_LOG_STEPS)]
+# the first loss on the card (bf16 compute) against the same init and
+# batch through the port on the CPU in fp32: relative, bf16's 2e-2
+SEG_LOSS_RTOL = 2e-2
+# the served logits against the trainer's forward at the exported params,
+# both on the card in bf16: of the largest logit
+SEG_SERVE_TOL = 2e-2
+SEG_SERVE_ROWS = 8
+SEG_GO_SECS = 900
+SEG_REPORT_SECS = 600
+
+
+def segmentation_example():
+    """The segmentation twin (examples/segmentation/), imported from this
+    checkout."""
+    path = os.path.join(HERE, "examples", "segmentation")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import segmentation_torch
+
+    return segmentation_torch
+
+
+def segmentation_main(args, ctx):
+    """The segmentation phase's node fn, run by the node inline in its
+    executor process (FILES mode): brings CUDA up, waits for
+    ``args["go"]``, then runs the twin's ``train_segmentation`` (each
+    step's loss kept on the device), and reports the losses, the window
+    times, the flash launches (none expected), the peak memory and the
+    trainer's forward at the exported params on ``SEG_SERVE_ROWS`` rows of
+    the first batch (``args["logits"]``) to ``args["report"]``, the
+    traceback too when it fails."""
+    import traceback
+
+    report = {"node_started": time.time()}
+    try:
+        import numpy as np
+        import torch
+
+        sys.path.insert(0, args["example_dir"])
+        import segmentation_torch as twin
+
+        report["cuda_initialized_at_start"] = torch.cuda.is_initialized()
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        device = ctx.initialize_distributed(device=args["twin"].device)
+        torch.zeros(1, device=device)     # the context up before the go
+        report["device_ready"] = time.time()
+        deadline = time.monotonic() + args["go_secs"]
+        while not os.path.exists(args["go"]):
+            if time.monotonic() > deadline:
+                raise AssertionError("no go within {} s".format(
+                    args["go_secs"]))
+            time.sleep(0.05)
+        with open(args["go"]) as f:
+            if f.read().strip() == "abort":
+                raise AssertionError("the phase was stopped before its go")
+        report["go_seen"] = time.time()
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        losses = []
+        model, trainer, stats = twin.train_segmentation(
+            args["twin"], ctx,
+            on_step=lambda step, loss, aux: losses.append(loss.detach()))
+        report["launches"] = launches_of(fa)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        report.update({
+            "device": str(trainer.device), "steps": trainer.state.step,
+            "losses": [float(v) for v in losses],
+            "timestamp_log": trainer.history.timestamp_log, "stats": stats,
+            "step_flops": trainer.history.step_flops})
+        images = twin.first_batch(args["twin"])["image"][:SEG_SERVE_ROWS]
+        with torch.no_grad():
+            logits = torch.func.functional_call(
+                model, trainer.state.params,
+                (torch.from_numpy(images).to(trainer.device),))
+        np.save(args["logits"], logits.float().cpu().numpy())
+    except Exception:
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(args["report"] + ".tmp", "w") as f:
+            json.dump(report, f, default=float)
+        os.replace(args["report"] + ".tmp", args["report"])
+
+
+def start_segmentation(torch, np, flags=SEG_FLAGS, device=None):
+    """Start the twin's cluster on a thread: the node brings CUDA up beside
+    the next phase and waits for :func:`phase_segmentation` to let it
+    train."""
+    from tensorflowonspark_torch import backend, cluster
+    # what cluster.run imports at first use, imported before the leg's
+    # thread (two threads importing one module at once can fail)
+    from tensorflowonspark_torch import fault, manager, util  # noqa: F401
+
+    twin = segmentation_example()
+    tmp = tempfile.mkdtemp(prefix="chip-seg-")
+    argv = list(flags) + ["--export_dir", os.path.join(tmp, "export")]
+    if device is not None:
+        argv += ["--device", device]
+    args = {"twin": twin.parse_args(argv),
+            "example_dir": os.path.dirname(twin.__file__),
+            "go": os.path.join(tmp, "go"), "go_secs": SEG_GO_SECS,
+            "logits": os.path.join(tmp, "logits.npy"),
+            "report": os.path.join(tmp, "report.json")}
+    started = {"tmp": tmp, "args": args, "twin": twin, "flags": argv}
+
+    def run():
+        b = backend.LocalBackend(1)
+        try:
+            started["t_run"] = time.time()
+            c = cluster.run(b, segmentation_main, args, num_executors=1,
+                            input_mode=cluster.InputMode.FILES)
+            c.shutdown(grace_secs=1)
+            started["t_done"] = time.time()
+        finally:
+            b.stop()
+
+    started["leg"] = Leg(run, SEG_GO_SECS + SEG_REPORT_SECS)
+    return started
+
+
+def stop_segmentation(started):
+    """Release a node still waiting for its go, to fail, and join it."""
+    if not os.path.exists(started["args"]["go"]):
+        with open(started["args"]["go"], "w") as f:
+            f.write("abort")
+    started["leg"].thread.join(SEG_REPORT_SECS)
+    shutil.rmtree(started["tmp"], ignore_errors=True)
+
+
+def phase_segmentation(torch, np, started, card=None):
+    """Let the twin's node train (its bring-up ran beside the previous
+    phases), join its cluster, then check it: every step taken, the
+    losses finite and falling, no flash launch on this path, the export's
+    descriptor the JAX example's; serve the export with ``ModelServer`` on
+    the node's device (rebuilt by ``widths=``) against the trainer's
+    forward at the exported params; and the first step's loss against the
+    same init and batch through the port on the CPU in fp32."""
+    from tensorflowonspark_torch import checkpoint, serving
+    from tensorflowonspark_torch.models import unet
+
+    args, twin = started["args"], started["twin"]
+    targs = args["twin"]
+    try:
+        t_go = time.time()
+        with open(args["go"], "w") as f:
+            f.write("go")
+        try:
+            started["leg"].result()
+        except BaseException:
+            if os.path.exists(args["report"]):   # the node's traceback
+                wait_for_report(args["report"], 0)
+            raise
+        report = wait_for_report(args["report"], SEG_REPORT_SECS)
+        t_joined = time.time()
+        export_dir = targs.export_dir
+        _, descriptor = checkpoint.load_model(export_dir, validate=True)
+        want_descriptor = {
+            "model_name": "unet",
+            "model_config": {"num_classes": 3, "dtype": targs.dtype},
+            "input_signature": {"image": [None, targs.image_size,
+                                          targs.image_size, 3]}}
+        fa = importlib.import_module(
+            "tensorflowonspark_torch.ops.flash_attention")
+        fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+        batch = twin.first_batch(targs)
+        t0 = time.perf_counter()
+        server = serving.ModelServer(export_dir, batch_size=SEG_SERVE_ROWS,
+                                     device=targs.device)
+        served = server.predict_feed(
+            {"image": batch["image"][:SEG_SERVE_ROWS]},
+            SEG_SERVE_ROWS)["output"]
+        serve_s = time.perf_counter() - t0
+        served_widths = [int(b.conv.weight.shape[0])
+                         for b in server.model.down]
+        serve_launches = launches_of(fa)
+        del server
+        trained = np.load(args["logits"])
+        serve_abs, serve_max = logit_diff(np, served, trained)
+        serve_gap = serve_abs / serve_max
+        # the first step's loss on the CPU in fp32 from the same init
+        t1 = time.perf_counter()
+        filters = tuple(int(f) for f in targs.encoder_filters.split(","))
+        model = unet.build_unet(num_classes=3, dtype="float32",
+                                encoder_filters=filters)
+        model.init_weights(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            cpu_loss, _ = unet.loss_fn(model)(
+                dict(model.named_parameters()),
+                {k: torch.from_numpy(v) for k, v in batch.items()},
+                torch.ones(len(batch["image"])))
+        cpu_s = time.perf_counter() - t1
+    finally:
+        stop_segmentation(started)
+    losses = report["losses"]
+    first_gap = abs(losses[0] - float(cpu_loss)) / abs(float(cpu_loss))
+    log = report["timestamp_log"]
+    window_ms = [1e3 * (t1_ - t0_) / (s1 - s0)
+                 for (s0, t0_), (s1, t1_) in zip(log, log[1:])]
+    later = sorted(window_ms[1:])
+    steady = later[len(later) // 2] if later else None
+    row = {"phase": "segmentation", "input_mode": "FILES",
+           "backend": "LocalBackend(1)", "card": card,
+           "flags": " ".join(started["flags"]),
+           "image_size": targs.image_size, "batch_size": targs.batch_size,
+           "encoder_filters": targs.encoder_filters, "dtype": targs.dtype,
+           "steps": report["steps"], "device": report["device"],
+           "cuda_initialized_at_node_start":
+               report["cuda_initialized_at_start"],
+           "bring_up_s": {
+               "to_node_start": report["node_started"] - started["t_run"],
+               "to_device_ready": report["device_ready"] - started["t_run"],
+               "go_to_first_step": log[0][1] - report["go_seen"]},
+           "go_to_joined_s": t_joined - t_go,
+           "window_ms_per_step": window_ms, "steady_ms_per_step": steady,
+           "images_per_s": (targs.batch_size * 1e3 / steady
+                            if steady else None),
+           "step_flops": report["step_flops"],
+           "max_memory_allocated": report.get("max_memory_allocated"),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "cpu_fp32_first_loss": float(cpu_loss),
+           "first_loss_rel_gap": first_gap,
+           "first_loss_rtol": SEG_LOSS_RTOL, "cpu_reference_s": cpu_s,
+           "served_logit_gap": serve_gap, "served_logit_tol": SEG_SERVE_TOL,
+           "served_widths": served_widths, "serve_s": serve_s,
+           "descriptor": descriptor,
+           "flash_launches_in_node": report["launches"],
+           "flash_launches_serving": serve_launches,
+           "flash_launches_note": "no flash kernel on this path: the U-Net "
+                                  "has no attention"}
+    emit(row)
+    if report["cuda_initialized_at_start"]:
+        raise AssertionError("CUDA was up in the executor before the "
+                             "segmentation twin's node fn ran")
+    if report["steps"] != targs.train_steps or len(losses) != \
+            targs.train_steps:
+        raise AssertionError("the twin trained {} steps ({} losses), "
+                             "expected {}".format(report["steps"],
+                                                  len(losses),
+                                                  targs.train_steps))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the twin's losses did not fall: first {}, "
+                             "last {}".format(losses[0], losses[-1]))
+    if any(report["launches"].values()) or any(serve_launches.values()):
+        raise AssertionError("a flash kernel launched on the U-Net's path: "
+                             "{} {}".format(report["launches"],
+                                            serve_launches))
+    if descriptor != want_descriptor:
+        raise AssertionError("the export's descriptor {} is not the JAX "
+                             "example's {}".format(descriptor,
+                                                   want_descriptor))
+    if served_widths != list(filters):
+        raise AssertionError("the server rebuilt widths {}, trained {}"
+                             .format(served_widths, filters))
+    if not first_gap <= SEG_LOSS_RTOL:
+        raise AssertionError("the first loss {} is {} from the CPU's fp32 "
+                             "{} (tolerance {})".format(
+                                 losses[0], first_gap, float(cpu_loss),
+                                 SEG_LOSS_RTOL))
+    if not (np.isfinite(served).all() and serve_gap <= SEG_SERVE_TOL):
+        raise AssertionError("the served logits are {} from the trainer's "
+                             "forward (tolerance {})".format(
+                                 serve_gap, SEG_SERVE_TOL))
+    return row
+
 
 # the gateway: a ModelServer(batch_size=8) warmed over rungs 1, 2, 4, 8;
 # 3 concurrent clients, each sending two one-row requests in turn (each
@@ -8203,13 +8496,28 @@ def main():
     # the model up, beside the gateway phase (host-bound: its replies'
     # zlib); the node's job and steps, the replay and the checks follow it
     ds_started = timed("dataservice_start", start_dataservice, torch, np)
+    # the segmentation twin's node brings CUDA up beside the gateway and
+    # dataservice phases too; its steps run after them, alone on the card
+    try:
+        seg_started = timed("segmentation_start", start_segmentation, torch,
+                            np)
+    except BaseException:
+        stop_dataservice(ds_started)
+        raise
     try:
         gatewayed = timed("gateway", phase_gateway, torch, np, fa)
     except BaseException:
         stop_dataservice(ds_started)
+        stop_segmentation(seg_started)
         raise
-    dataserved = timed("dataservice", phase_dataservice, torch, np,
-                       ds_started, device["nvidia_smi"])
+    try:
+        dataserved = timed("dataservice", phase_dataservice, torch, np,
+                           ds_started, device["nvidia_smi"])
+    except BaseException:
+        stop_segmentation(seg_started)
+        raise
+    segmented = timed("segmentation", phase_segmentation, torch, np,
+                      seg_started, device["nvidia_smi"])
     # the control phase's rollback leg (a cluster's bring-up and paced
     # steps, host-bound) runs beside serve_cli (a replica process's)
     rollback_started = timed("control_rollback_start",
@@ -8357,6 +8665,8 @@ def main():
                  "cluster": clustered["launches"][name],
                  "cluster_k5": mega_cluster["launches"][name],
                  "dataservice": dataserved["launches"][name],
+                 # the U-Net's path has no attention: zero, checked
+                 "segmentation": segmented["flash_launches_in_node"][name],
                  "pipeline_fit": piped["launches"][name]},
                 **{path: run["launches"][name]
                    for path, run in supervised_paths.items()}),

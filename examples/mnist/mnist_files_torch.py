@@ -20,22 +20,12 @@ import argparse
 import os
 import sys
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
+EXAMPLE_DIR = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(EXAMPLE_DIR, "..", ".."))
+sys.path.insert(0, EXAMPLE_DIR)
 
-
-def synthetic_mnist(split, seed=7):
-    """The synthetic stand-in of ``mnist_data_setup.py`` (the port's copy):
-    each class a fixed random template, each sample a noisy copy."""
-    import numpy as np
-
-    n = 60000 if split == "train" else 10000
-    rng = np.random.default_rng(seed)
-    templates = (rng.random((10, 784)) * 255).astype(np.uint8)
-    rng = np.random.default_rng(seed + (0 if split == "train" else 1))
-    labels = rng.integers(0, 10, (n,), np.uint8)
-    noise = rng.integers(-20, 21, (n, 784), np.int16)
-    images = np.clip(templates[labels].astype(np.int16) + noise, 0, 255)
-    return images.astype(np.uint8), labels
+# the synthetic stand-in of the data-setup twin (its one copy)
+from mnist_data_setup_torch import synthetic_mnist  # noqa: E402
 
 
 def main_fun(args, ctx):

@@ -60,15 +60,14 @@ def infer_partition(export_dir, batch_size, device=None):
 
 def synthetic_test_rows(n, seed=7):
     """The first ``n`` rows ``[label, 784 pixels]`` of the synthetic test
-    split of ``mnist_data_setup.synthetic_mnist`` (the same numbers)."""
-    import numpy as np
+    split of ``mnist_data_setup_torch.synthetic_mnist`` (the JAX script's
+    numbers)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from mnist_data_setup_torch import synthetic_mnist
 
-    rng = np.random.default_rng(seed)
-    templates = (rng.random((10, 784)) * 255).astype(np.uint8)
-    rng = np.random.default_rng(seed + 1)
-    labels = rng.integers(0, 10, (10000,), np.uint8)
-    noise = rng.integers(-20, 21, (10000, 784), np.int16)
-    images = np.clip(templates[labels].astype(np.int16) + noise, 0, 255)
+    images, labels = synthetic_mnist("test", seed)
     return [[float(labels[i])] + images[i].astype(float).tolist()
             for i in range(n)]
 

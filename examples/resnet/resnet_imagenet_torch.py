@@ -87,13 +87,8 @@ def lr_schedule(args):
 
 
 def scheduled_sgd(base_lr, warmup_steps, boundaries, momentum=0.9):
-    """An optimizer factory for ``optax.sgd(schedule, momentum)``:
-    ``torch.optim.SGD`` (dampening 0, no Nesterov) whose ``lr`` is a tensor
-    on the params' device, set before every step from a step count kept on
-    the device (in the optimizer state, so checkpoints carry it).  The
-    schedule is device arithmetic, so a CUDA graph that captures the step
-    advances it on every replay; on a card the update is the fused SGD,
-    which reads the tensor lr in place."""
+    """An optimizer factory for ``optax.sgd(schedule, momentum)`` of the
+    JAX example's schedule (:func:`sgd_with_schedule`)."""
     import torch
 
     def lr_at(count):
@@ -104,10 +99,23 @@ def scheduled_sgd(base_lr, warmup_steps, boundaries, momentum=0.9):
                                 after)
         return torch.where(count < warmup_steps, warm, after)
 
+    return sgd_with_schedule(lr_at, momentum)
+
+
+def sgd_with_schedule(lr_at, momentum=0.9, nesterov=False):
+    """An optimizer factory for ``optax.sgd(schedule, momentum, nesterov)``:
+    ``torch.optim.SGD`` (dampening 0) whose ``lr`` is a tensor on the
+    params' device, set to ``lr_at(count)`` before every step from a step
+    count kept on the device (in the optimizer state, so checkpoints carry
+    it).  ``lr_at`` is device arithmetic on that fp32 count, so a CUDA graph
+    that captures the step advances the schedule on every replay; on a card
+    the update is the fused SGD, which reads the tensor lr in place."""
+    import torch
+
     def factory(params):
         device = params[0].device
         opt = torch.optim.SGD(params, lr=torch.zeros((), device=device),
-                              momentum=momentum,
+                              momentum=momentum, nesterov=nesterov,
                               fused=True if device.type == "cuda" else None)
 
         def set_lr(optimizer, args, kwargs):

@@ -18,7 +18,11 @@ Layouts:
   ``(out, in, H, W)`` (OIHW);
 - ``BatchNorm`` ``scale``/``bias`` <-> ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` <-> the buffers ``running_mean``/
-  ``running_var`` (the Trainer's extra state, a dict of its own).
+  ``running_var`` (the Trainer's extra state, a dict of its own);
+- ``ConvTranspose`` kernel ``(H, W, in, out)`` <-> ``conv_transpose2d``
+  ``weight`` ``(in, out, H, W)`` flipped in both spatial axes (flax's
+  ``transpose_kernel=False`` correlates, torch's transpose convolves);
+- ``GroupNorm`` ``scale``/``bias`` <-> ``weight``/``bias``.
 
 Every model the port registers round-trips.
 """
@@ -296,3 +300,68 @@ def resnet_params_to_flax(state_dict, extra):
             snode["var"] = arr(extra, prefix + ".running_var")
     params["Dense_0"] = _dense_to_flax(state_dict, "head")
     return params, stats
+
+
+def conv_transpose_kernel_to_torch(kernel):
+    """A flax ``ConvTranspose`` kernel (HWIO) as the port's
+    ``conv_transpose2d`` weight ``(in, out, H, W)``, flipped."""
+    return _t(np.asarray(kernel)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def conv_transpose_weight_to_flax(weight):
+    """The inverse of :func:`conv_transpose_kernel_to_torch`."""
+    return np.ascontiguousarray(
+        weight.detach().cpu().float().numpy().transpose(2, 3, 0, 1)
+        [::-1, ::-1])
+
+
+# a flax UNet's top-level convs and block kinds -> the port's module names
+_UNET_CONV = {"Conv_0": "conv_in", "Conv_1": "conv_out"}
+_UNET_BLOCKS = {"DownBlock": ("down", "Conv_0"),
+                "UpBlock": ("up", "ConvTranspose_0")}
+
+
+def unet_params_from_flax(tree):
+    """A flax ``UNet`` param tree -> the port's ``state_dict``."""
+    sd = {}
+    for flax_name, name in _UNET_CONV.items():
+        sd[name + ".weight"] = conv_kernel_to_torch(tree[flax_name]["kernel"])
+        sd[name + ".bias"] = _t(tree[flax_name]["bias"])
+    for key, block in tree.items():
+        kind, _, index = key.rpartition("_")
+        if kind not in _UNET_BLOCKS:
+            continue
+        prefix, conv = _UNET_BLOCKS[kind]
+        name = "{}.{}.".format(prefix, index)
+        kernel = block[conv]["kernel"]
+        sd[name + "conv.weight"] = (
+            conv_kernel_to_torch(kernel) if kind == "DownBlock"
+            else conv_transpose_kernel_to_torch(kernel))
+        sd[name + "norm.weight"] = _t(block["GroupNorm_0"]["scale"])
+        sd[name + "norm.bias"] = _t(block["GroupNorm_0"]["bias"])
+    return sd
+
+
+def unet_params_to_flax(state_dict):
+    """The port's ``UNet`` ``state_dict`` -> a flax param tree of numpy
+    arrays."""
+    def arr(name):
+        return state_dict[name].detach().cpu().float().numpy().copy()
+
+    tree = {}
+    for flax_name, name in _UNET_CONV.items():
+        tree[flax_name] = {"kernel": conv_weight_to_flax(
+            state_dict[name + ".weight"]), "bias": arr(name + ".bias")}
+    for kind, (prefix, conv) in _UNET_BLOCKS.items():
+        i = 0
+        while "{}.{}.conv.weight".format(prefix, i) in state_dict:
+            name = "{}.{}.".format(prefix, i)
+            weight = state_dict[name + "conv.weight"]
+            tree["{}_{}".format(kind, i)] = {
+                conv: {"kernel": conv_weight_to_flax(weight)
+                       if kind == "DownBlock"
+                       else conv_transpose_weight_to_flax(weight)},
+                "GroupNorm_0": {"scale": arr(name + "norm.weight"),
+                                "bias": arr(name + "norm.bias")}}
+            i += 1
+    return tree

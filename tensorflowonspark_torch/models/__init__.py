@@ -9,7 +9,8 @@ MNIST CNN (:mod:`~tensorflowonspark_torch.models.mnist`), the linear model
 (:mod:`~tensorflowonspark_torch.models.twotower`) and the ResNets
 (:mod:`~tensorflowonspark_torch.models.resnet`: ``resnet50``, ResNet-50
 v1.5 with the conv7 or s2d stem, and ``resnet56_cifar``), whose BatchNorm
-running averages are the Trainer's extra state, not params.
+running averages are the Trainer's extra state, not params, and the U-Net
+(:mod:`~tensorflowonspark_torch.models.unet`, ``unet``).
 
 flax infers a Dense layer's input width from the first call; a torch layer
 needs it at construction.  A model registered with ``widths=`` reads those
@@ -46,4 +47,4 @@ def get_model(name, state_dict=None, **config):
 
 # Import for registration side effects.
 from tensorflowonspark_torch.models import (  # noqa: E402,F401
-    linear, mnist, resnet, transformer, twotower)
+    linear, mnist, resnet, transformer, twotower, unet)

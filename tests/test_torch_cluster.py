@@ -407,10 +407,17 @@ def _example(*argv, env=None):
 
 
 def test_mnist_example_trains_on_the_cpu(tmp_path):
+    # the guard of the next test: the nodes end their feeds at max_steps
+    # (6 of the 8 steps the rows hold) and read each batch as they step
+    # it, so TPUCluster.train returns only once the chief has stepped its
+    # last step, and shutdown's fixed 5 s grace is left for the export
+    # alone; with a prefetch of 2 the feed ended before the chief's last
+    # steps, and on a loaded host the grace ended before the export
     export = str(tmp_path / "export")
     proc = _example("--device", "cpu", "--cluster_size", "2", "--num_rows",
                     "256", "--batch_size", "32", "--epochs", "1",
-                    "--export_dir", export)
+                    "--max_steps", "6", "--export_dir", export,
+                    env={"TFOS_INFEED_PREFETCH": "0"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     state, descriptor = checkpoint.load_model(export, validate=True)
     assert descriptor["model_config"] == {"dtype": "bfloat16"}

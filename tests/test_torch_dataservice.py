@@ -836,6 +836,10 @@ def test_node_service_feed_takes_the_cluster_spec_and_live_knobs(tmp_path):
             assert sorted(_drain(feed)) == sorted(rows)
         finally:
             feed.terminate()
+            # get_service_feed registered the feed's drain with this
+            # process's preemption handler: a node's child exits, this
+            # pytest worker runs other files after this one
+            node.remove_preemption_callback(feed.terminate)
 
 
 @pytest.mark.parametrize("k", [1, 2])

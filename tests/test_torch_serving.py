@@ -192,6 +192,13 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("examples", "resnet", "resnet_imagenet_torch.py"),
              os.path.join("examples", "transformer",
                           "transformer_lm_torch.py"),
+             os.path.join("examples", "segmentation", "segmentation_torch.py"),
+             os.path.join("examples", "resnet", "resnet_cifar_torch.py"),
+             os.path.join("examples", "resnet", "predecode_imagenet_torch.py"),
+             os.path.join("examples", "mnist", "mnist_data_setup_torch.py"),
+             os.path.join("examples", "mnist", "mnist_streaming_torch.py"),
+             os.path.join("examples", "mnist", "mnist_eval_node_torch.py"),
+             os.path.join("examples", "utils", "stop_streaming_torch.py"),
              os.path.join("scripts", "analyze_profile_torch.py"),
              os.path.join("scripts", "metrics_replay_torch.py"),
              os.path.join("scripts", "ci_assert_torch_fleet.py"),
@@ -323,7 +330,9 @@ def test_port_imports_no_jax():
     cluster layer, the serving tier, the ResNets, ``ops.augment``,
     ``data`` and the mesh, FSDP, ring, tensor-, expert- and
     pipeline-parallel modules among them),
-    chip_smoke.py, the port's MNIST, ResNet and LM examples,
+    chip_smoke.py, the port's MNIST, ResNet, LM and segmentation examples
+    and its data scripts (the U-Net, the CIFAR, streaming, evaluator,
+    data-setup, pre-decode and STOP twins among them),
     scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py and
     scripts/ci_assert_torch_fleet.py and scripts/ci_assert_torch_warmstart.py
     has no jax, flax, optax, orbax or JAX-package module; the alerting and
@@ -344,8 +353,9 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No line of the port (its fleet among it), of chip_smoke.py, of the
-    port's MNIST, ResNet and LM examples or of
+    """No line of the port (its fleet and its U-Net among it), of
+    chip_smoke.py, of the port's MNIST, ResNet, LM and segmentation
+    examples and data scripts or of
     scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py,
     scripts/ci_assert_torch_fleet.py, scripts/ci_assert_torch_warmstart.py
     and the data-service gates (the data service and
@@ -374,6 +384,15 @@ def test_port_sources_name_no_jax():
         assert os.path.join(REPO, "scripts", name) in paths, name
     assert os.path.join(REPO, "examples", "mnist",
                         "mnist_inference_torch.py") in paths
+    # the U-Net and the last example twins (the segmentation, CIFAR,
+    # streaming, evaluator and data-script twins)
+    assert os.path.join(REPO, "tensorflowonspark_torch", "models",
+                        "unet.py") in paths
+    for name in ("segmentation_torch.py", "resnet_cifar_torch.py",
+                 "predecode_imagenet_torch.py", "mnist_data_setup_torch.py",
+                 "mnist_streaming_torch.py", "mnist_eval_node_torch.py",
+                 "stop_streaming_torch.py"):
+        assert any(p.endswith(os.sep + name) for p in paths), name
     for name in ("serving", "inference_cli", os.path.join("ops", "_build")):
         assert os.path.join(REPO, "tensorflowonspark_torch",
                             name + ".py") in paths, name
