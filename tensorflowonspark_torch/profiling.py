@@ -547,6 +547,23 @@ def _node_trace_events(payload, index, label):
     return out
 
 
+def request_flow_summary(events):
+    """Tally ``serving/request_flow`` flow events (cat ``tfos_flow``, the
+    gateway's per-request trace flow): distinct flow ids and how many of
+    them cross process boundaries — a cross-pid id is one request whose
+    client, admission, dispatch and reply legs stitch into a single
+    Perfetto track."""
+    pids_by_id = {}
+    for ev in events:
+        if (ev.get("cat") != "tfos_flow"
+                or ev.get("name") != telemetry.SERVING_REQUEST_FLOW
+                or ev.get("id") is None):
+            continue
+        pids_by_id.setdefault(ev["id"], set()).add(ev.get("pid"))
+    cross = sum(1 for pids in pids_by_id.values() if len(pids) >= 2)
+    return {"ids": len(pids_by_id), "cross_pid": cross}
+
+
 def attribution_rows(manifest):
     """``attrib_*_pct_max`` gauges from the manifest's aggregate metrics ->
     ``[(bucket, pct), ...]`` in report order (empty when absent)."""
@@ -575,7 +592,8 @@ def merge_capture(capture_dir, telemetry_dir=None, out=None):
     range.  Writes ``out`` (default ``<capture_dir>/merged_timeline.json``),
     prints one note per source and the manifest's ``attrib_*`` step-time
     table, and returns the merged Chrome-trace dict, whose ``otherData``
-    names the capture, the sources and the output path."""
+    names the capture, the sources, the output path and the
+    ``serving/request_flow`` tally (:func:`request_flow_summary`)."""
     import glob
 
     notes = []
@@ -612,11 +630,15 @@ def merge_capture(capture_dir, telemetry_dir=None, out=None):
         except Exception as e:
             notes.append("%s: load failed (%s)" % (path, e))
 
+    flows = request_flow_summary(merged)
+    if flows["ids"]:
+        notes.append("request flows: %d ids, %d crossing process boundaries"
+                     % (flows["ids"], flows["cross_pid"]))
     out = out or os.path.join(capture_dir, "merged_timeline.json")
     payload = {"traceEvents": merged, "displayTimeUnit": "ms",
                "otherData": {"capture_id": manifest.get("capture_id"),
                              "sources": len(traces) + len(host_traces),
-                             "out": out}}
+                             "request_flows": flows, "out": out}}
     with open(out, "w") as f:
         json.dump(payload, f)
     for note in notes:

@@ -310,7 +310,7 @@ def _service_spec(pkg, data_service, report):
                       "codecs": ["zlib"]}},
     {"compile_cache_dir": "root"},
 ])
-def test_unported_planes_raise(unported, tmp_path):
+def test_data_service_and_compile_planes_reach_the_node(unported, tmp_path):
     """Both planes once unported now work.  The data service: the node
     receives the spec the JAX package's ``cluster.run`` builds (a primary
     and a standby endpoint, the pinned codecs).  The compile plane: the

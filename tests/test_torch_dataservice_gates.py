@@ -6,13 +6,9 @@ epoch 2's splits from the worker cache, the codec's ratio on ``/metrics``)
 and ``scripts/ci_assert_torch_shared.py`` (the dispatcher process
 SIGKILLed and restarted from its journal under two attached consumers)."""
 
-import os
-import subprocess
-import sys
-
 import pytest
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_gates import run_gate
 
 
 @pytest.mark.parametrize("gate, verdict", [
@@ -21,8 +17,4 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("ci_assert_torch_shared.py", "shared OK"),
 ])
 def test_gate(gate, verdict):
-    proc = subprocess.run(
-        [sys.executable, os.path.join("scripts", gate)], cwd=REPO,
-        capture_output=True, text=True, timeout=240)
-    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    assert verdict in proc.stdout
+    run_gate(gate, verdict)

@@ -365,3 +365,46 @@ def test_analyze_profile_torch_cli(tmp_path):
     assert event["ts"] == 2_000_005.0 and event["pid"] == \
         profiling.TRACE_PID_BASE
     assert "no capture.json manifest" in proc.stdout
+
+
+def test_merge_capture_tallies_request_flows_as_jax(tmp_path):
+    """``serving/request_flow`` flows in the host traces (one id across
+    two pids, one within a pid, and events of another name or category
+    that do not count): the port's merge tallies them in
+    ``otherData["request_flows"]`` as the JAX analyzer's merge does, and
+    ``request_flow_summary`` equals the JAX function on the same events."""
+    import importlib.util
+
+    def flow(ph, fid, pid, name=telemetry.SERVING_REQUEST_FLOW,
+             cat="tfos_flow"):
+        return {"ph": ph, "name": name, "cat": cat, "id": fid, "pid": pid,
+                "tid": 1, "ts": 1.0}
+
+    traces = {
+        "trace-h-1.json": [flow("s", 7, 1), flow("s", 8, 1),
+                           flow("t", 8, 1), flow("s", 9, 1, cat="tfos"),
+                           flow("s", 10, 1, name="dataservice/split_flow")],
+        "trace-h-2.json": [flow("f", 7, 2), {"ph": "X", "name": "span",
+                                             "pid": 2, "ts": 2.0}],
+    }
+    cap = tmp_path / "cap"
+    cap.mkdir()
+    tdir = tmp_path / "telemetry"
+    tdir.mkdir()
+    for name, events in traces.items():
+        (tdir / name).write_text(json.dumps({"traceEvents": events}))
+
+    spec = importlib.util.spec_from_file_location(
+        "analyze_profile", os.path.join(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))), "scripts",
+            "analyze_profile.py"))
+    analyze = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(analyze)
+
+    merged = profiling.merge_capture(str(cap), telemetry_dir=str(tdir))
+    want, _, _ = analyze.merge_capture(str(cap), str(tdir))
+    assert merged["otherData"]["request_flows"] == \
+        want["otherData"]["request_flows"] == {"ids": 2, "cross_pid": 1}
+    events = [e for evs in traces.values() for e in evs]
+    assert profiling.request_flow_summary(events) == \
+        analyze.request_flow_summary(events)

@@ -205,7 +205,13 @@ _EXAMPLES = (os.path.join("examples", "mnist", "mnist_spark_torch.py"),
              os.path.join("scripts", "ci_assert_torch_warmstart.py"),
              os.path.join("scripts", "ci_assert_torch_dataservice.py"),
              os.path.join("scripts", "ci_assert_torch_cache.py"),
-             os.path.join("scripts", "ci_assert_torch_shared.py"))
+             os.path.join("scripts", "ci_assert_torch_shared.py"),
+             # the twins of the JAX package's other one-shot gates
+             *(os.path.join("scripts", "ci_assert_torch_{}.py".format(name))
+               for name in ("watchtower", "autopilot", "remediator",
+                            "serving", "reqtrace", "elastic", "telemetry",
+                            "ha", "overlap", "megastep", "observatory",
+                            "profiling", "native")))
 
 _IMPORT_ALL = """
 import importlib, importlib.util, pkgutil, sys
@@ -343,8 +349,10 @@ def test_port_imports_no_jax():
     ``inference_cli.run_inference_native``, ``ops._build.build_native``
     and its C++ sources), the MNIST inference twin, the data service
     (``dataservice`` with its worker and dispatcher CLIs,
-    ``reservation_server``, ``ShardedFeed``'s split-flow relay) and the
-    data-service gates are among them."""
+    ``reservation_server``, ``ShardedFeed``'s split-flow relay), the
+    data-service gates and the twins of the other JAX gates (watchtower,
+    autopilot, remediator, serving, reqtrace, elastic, telemetry, ha,
+    overlap, megastep, observatory, profiling, native) are among them."""
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(forbidden=_FORBIDDEN,
                                                   examples=_EXAMPLES)],
@@ -357,8 +365,9 @@ def test_port_sources_name_no_jax():
     chip_smoke.py, of the port's MNIST, ResNet, LM and segmentation
     examples and data scripts or of
     scripts/analyze_profile_torch.py, scripts/metrics_replay_torch.py,
-    scripts/ci_assert_torch_fleet.py, scripts/ci_assert_torch_warmstart.py
-    and the data-service gates (the data service and
+    scripts/ci_assert_torch_fleet.py, scripts/ci_assert_torch_warmstart.py,
+    the data-service gates and every other gate twin (one for each
+    ``scripts/ci_assert_*.py`` of the JAX package; the data service and
     ``reservation_server`` among the port's files) imports a forbidden
     package, not even inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+({})\b".format(
@@ -382,6 +391,13 @@ def test_port_sources_name_no_jax():
                  "ci_assert_torch_dataservice.py", "ci_assert_torch_cache.py",
                  "ci_assert_torch_shared.py"):
         assert os.path.join(REPO, "scripts", name) in paths, name
+    # every JAX gate has its twin, and every twin is checked
+    jax_gates = {name for name in os.listdir(os.path.join(REPO, "scripts"))
+                 if name.startswith("ci_assert_")
+                 and not name.startswith("ci_assert_torch_")}
+    for name in jax_gates:
+        twin = name.replace("ci_assert_", "ci_assert_torch_", 1)
+        assert os.path.join(REPO, "scripts", twin) in paths, twin
     assert os.path.join(REPO, "examples", "mnist",
                         "mnist_inference_torch.py") in paths
     # the U-Net and the last example twins (the segmentation, CIFAR,
